@@ -1,0 +1,100 @@
+"""Parameters and state carried between the JAX layout, numpy and the port.
+
+This system has no learned weights. What the TPU kernel closes over
+(``live_ekf_slam_tpu/ops/fused_rollout.py:93-113``: filter noise, sim noise
+half-widths, command and vision limits, compat flags, initial pose) are the
+rollout's parameters; ``kernel_params`` packs them into the struct the CUDA
+kernel takes, and the plain version reads the same struct, so both see the
+same float32 constants.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from live_ekf_slam_tpu_torch.core.noise import (
+    S3,
+    calibrated_meas_vars,
+    use_calibrated,
+)
+
+_FLOAT_FIELDS = (
+    # filter noise variances (compat V/W swap and calibrated W applied)
+    "v00f", "v11f", "w00f", "w11f",
+    # simulator noise half-widths times sim_noise_scale
+    "v00s", "v11s", "w00s", "w11s",
+    # command / measurement noise means
+    "v_d", "v_th", "w_r", "w_b",
+    # command and vision limits
+    "d_max", "th_max", "r_max", "fov_min", "fov_max",
+    # initial pose
+    "x0", "y0", "yaw0",
+    # calibrated motion (core/noise.motion_moments): the clip half-widths and
+    # their products, taken in double and rounded once as the JAX code does
+    "cm_v_fwd", "cm_2v_fwd", "cm_4v_fwd", "cm_6v_fwd", "cm_floor_fwd",
+    "cm_v_hdg", "cm_2v_hdg", "cm_4v_hdg", "cm_6v_hdg", "cm_floor_hdg",
+)
+_INT_FIELDS = ("calibrated", "stale", "wrap_innov")
+
+
+class KernelParams(ctypes.Structure):
+    """Mirror of ``struct EkfParams`` in ``csrc/fused_ekf_rollout.cu``."""
+
+    _fields_ = ([(f, ctypes.c_float) for f in _FLOAT_FIELDS]
+                + [(f, ctypes.c_int) for f in _INT_FIELDS])
+
+
+def kernel_params(cfg) -> KernelParams:
+    """The rollout's parameters for ``cfg``, by the rules of the TPU kernel
+    (fused_rollout.py:93-113)."""
+    if not cfg.constraints.measurements.landmark_id_is_known:
+        raise ValueError("fused rollout requires known landmark ids")
+    (v00f, v11f), (w00f, w11f) = cfg.filter_noise()
+    calibrated = use_calibrated(cfg)
+    if calibrated:
+        w00f, w11f = calibrated_meas_vars(cfg)
+    nz = cfg.sim_noise_scale
+    pn, sn = cfg.process_noise, cfg.sensing_noise
+    cmd, vis = cfg.constraints.commands, cfg.constraints.vision
+    x0, y0, yaw0 = cfg.init_pose
+    v_fwd, v_hdg = pn.V_00, pn.V_11
+    return KernelParams(
+        v00f=v00f, v11f=v11f, w00f=w00f, w11f=w11f,
+        v00s=pn.V_00 * nz, v11s=pn.V_11 * nz,
+        w00s=sn.W_00 * nz, w11s=sn.W_11 * nz,
+        v_d=pn.v_d, v_th=pn.v_th, w_r=sn.w_r, w_b=sn.w_b,
+        d_max=cmd.d_max, th_max=cmd.th_max,
+        r_max=vis.range_max, fov_min=vis.fov_min, fov_max=vis.fov_max,
+        x0=x0, y0=y0, yaw0=yaw0,
+        cm_v_fwd=v_fwd, cm_2v_fwd=2.0 * v_fwd, cm_4v_fwd=4.0 * v_fwd,
+        cm_6v_fwd=6.0 * v_fwd, cm_floor_fwd=0.1 * v_fwd / S3,
+        cm_v_hdg=v_hdg, cm_2v_hdg=2.0 * v_hdg, cm_4v_hdg=4.0 * v_hdg,
+        cm_6v_hdg=6.0 * v_hdg, cm_floor_hdg=0.1 * v_hdg / S3,
+        calibrated=int(calibrated),
+        stale=int(cfg.compat.ekf_stale_landmarks),
+        wrap_innov=int(not cfg.compat.ekf_unwrapped_innovation),
+    )
+
+
+def inputs_from_numpy(landmarks, cmds, noise=None, device="cpu"):
+    """(B, N, 2) maps, (B, T, 2) commands and optional (T, 2N+8, B) noise
+    -> contiguous float32 tensors on ``device``, in the same layouts."""
+    def conv(a):
+        return torch.as_tensor(
+            np.ascontiguousarray(a, np.float32), device=device
+        )
+
+    return conv(landmarks), conv(cmds), (None if noise is None else conv(noise))
+
+
+def outputs_to_numpy(res: dict) -> dict:
+    """Rollout result -> numpy in the JAX public layout and dtypes: float32
+    everywhere, ``seen`` bool."""
+    out = {}
+    for k, v in res.items():
+        a = v.detach().cpu().numpy()
+        out[k] = a.astype(bool) if k == "seen" else a.astype(np.float32)
+    return out

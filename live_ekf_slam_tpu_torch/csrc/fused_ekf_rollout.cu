@@ -1,0 +1,456 @@
+// Fused sim + EKF-SLAM Monte-Carlo rollout: the whole T-tick rollout of every
+// world in one launch.
+//
+// Replaces the Pallas TPU kernel live_ekf_slam_tpu/ops/fused_rollout.py,
+// function fused_ekf_rollout (kernel body _make_kernel, filter_kind="ekf",
+// profile_mode="full"), with the scalar helpers of ops/kernel_math.py inlined
+// (kernel_math.cuh) and a Philox stream in place of the TPU's on-core PRNG.
+//
+// Per tick and world: truth propagation with clipped uniform command noise;
+// FOV and range cull plus noisy range-bearing for all N landmarks; the EKF
+// predict as rank-1 row then column updates; for each landmark in id order an
+// update (gain from P columns, H P from P rows, one fused rank-2 downdate)
+// then a masked insertion; the running error sum and max.
+//
+// What bounds it on the card. A world is one long serial chain: 1000 ticks,
+// each up to N sequential rank-2 downdates of a D x D covariance (D = 3+2N,
+// 43 at N = 20). Device memory is not the limit: at B = 4096, T = 1000,
+// N = 20 the kernel reads about 33 MB of commands and writes about 30 MB of
+// covariance, once. The limit is the latency and instruction throughput of
+// that chain in shared memory.
+//
+// What the design does about it. One warp per world, four worlds per block.
+// Each world's P stays in shared memory for the whole rollout (row stride D,
+// odd, so a warp reading a column, lane i at row i, hits 32 distinct banks),
+// with x, the gain and H P scratch vectors, the tick's noise and measurements
+// beside it: about 8.9 KB a world at N = 20. A world with nothing to update
+// or insert for a landmark skips it with a warp-uniform branch (the TPU
+// kernel can only skip per block of 256 worlds). Lanes own covariance rows;
+// __syncwarp() separates the read and write phases where the order of the
+// JAX kernel matters. Registers hold the truth pose and the error stats.
+//
+// Numerics. Operation order follows the JAX kernel wherever results depend
+// on it (see the comments below). nvcc contracts a*b+c into FMA by default,
+// which the JAX and torch versions do not: that, not the algorithm, is why
+// the card-side comparisons carry a tolerance. No fast-math: IEEE sqrtf and
+// division, full-accuracy sinf and cosf.
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "kernel_math.cuh"
+#include "philox.cuh"
+
+// Mirror of live_ekf_slam_tpu_torch/convert.py:KernelParams (field order and
+// types must match).
+struct EkfParams {
+  float v00f, v11f, w00f, w11f;
+  float v00s, v11s, w00s, w11s;
+  float v_d, v_th, w_r, w_b;
+  float d_max, th_max, r_max, fov_min, fov_max;
+  float x0, y0, yaw0;
+  float cm_v_fwd, cm_2v_fwd, cm_4v_fwd, cm_6v_fwd, cm_floor_fwd;
+  float cm_v_hdg, cm_2v_hdg, cm_4v_hdg, cm_6v_hdg, cm_floor_hdg;
+  int calibrated, stale, wrap_innov;
+};
+
+namespace {
+
+constexpr int kWorldsPerBlock = 4;
+constexpr size_t kMaxSmem = 232448;  // 227 KB: the most a Hopper block can use
+constexpr int kErrSmem = 100000;     // launcher's own code: see les_error_string
+
+// floats of shared memory per world: P, then x, x snapshot, pr, pb, hp0,
+// hp1 (D each), noise rows, landmark x and y, vis, rn, bn, seen (N each)
+__host__ __device__ inline int world_floats(int n) {
+  const int d = 3 + 2 * n;
+  return les::round_up(d * d + 6 * d + les::round_up(2 * n + 8, 4) + 6 * n, 4);
+}
+
+// Clip-aware moments of clip(c + u, lo, hi), u ~ U(-v, v), centred form
+// (core/noise.clip_uniform_moments).
+__device__ __forceinline__ void clip_uniform_moments(
+    float c, float v, float two_v, float four_v, float six_v, float lo,
+    float hi, float& mean, float& sd) {
+  const float l = les::clip(lo - c, -v, v);
+  const float h = les::clip(hi - c, -v, v);
+  const float p_lo = (l + v) / two_v;
+  const float p_hi = (v - h) / two_v;
+  const float mean_g = p_lo * l + p_hi * h + (h * h - l * l) / four_v;
+  const float m2_g =
+      p_lo * l * l + p_hi * h * h + (h * (h * h) - l * (l * l)) / six_v;
+  const float var = les::max_nan(m2_g - mean_g * mean_g, 0.0f);
+  mean = c + mean_g;
+  sd = sqrtf(var);
+}
+
+// core/noise.motion_moments for one world's command.
+__device__ __forceinline__ void motion_moments(const EkfParams& p, float fwd,
+                                               float ang, float& eff_d,
+                                               float& eff_th, float& var_d,
+                                               float& var_th) {
+  const float c_d = fwd + p.v_d;
+  const float c_th = ang + p.v_th;
+  float sig_d, sig_th;
+  if (p.cm_v_fwd > 0.0f) {
+    clip_uniform_moments(c_d, p.cm_v_fwd, p.cm_2v_fwd, p.cm_4v_fwd,
+                         p.cm_6v_fwd, 0.0f, p.d_max, eff_d, sig_d);
+    sig_d = les::max_nan(sig_d, p.cm_floor_fwd);
+  } else {
+    eff_d = c_d;
+    sig_d = 1e-6f;
+  }
+  if (p.cm_v_hdg > 0.0f) {
+    clip_uniform_moments(c_th, p.cm_v_hdg, p.cm_2v_hdg, p.cm_4v_hdg,
+                         p.cm_6v_hdg, -p.th_max, p.th_max, eff_th, sig_th);
+    sig_th = les::max_nan(sig_th, p.cm_floor_hdg);
+  } else {
+    eff_th = c_th;
+    sig_th = 1e-6f;
+  }
+  var_d = sig_d * sig_d;
+  var_th = sig_th * sig_th;
+}
+
+// Per-world working set in shared memory.
+struct World {
+  float* P;    // D x D, row stride D
+  float* x;    // D
+  float* xc;   // D: state snapshot after predict (stale-landmark compat)
+  float* pr;   // D: P h_r^T
+  float* pb;   // D: P h_b^T
+  float* hp0;  // D: h_r P, and the first new row at insertion
+  float* hp1;  // D: h_b P, and the second new row at insertion
+  float* u;    // 2N+8 noise rows of the tick (padded to 4)
+  float* lmx;  // N true landmark positions
+  float* lmy;
+  float* vis;  // N visibility of the tick
+  float* rn;   // N noisy ranges
+  float* bn;   // N noisy bearings
+  float* seen; // N
+};
+
+// EKF update with landmark j (fused_rollout.py:384-468). m_u is 0 or 1: a
+// world with m_u = 0 gets K = 0, so x and P come out unchanged; the
+// predicated kernel skips the call for it instead.
+__device__ __forceinline__ void ekf_update(const EkfParams& p, const World& w, int D, int li,
+                           float m_u, float rnj, float bnj, int lane) {
+  float* P = w.P;
+  const float xv = w.x[0], yv = w.x[1], thv = w.x[2];
+  // compat: landmark from the snapshot taken after predict (:388-390)
+  const float* xl = p.stale ? w.xc : w.x;
+  const float ddx = xl[li] - xv;
+  const float ddy = xl[li + 1] - yv;
+  const float d2 = les::max_nan(ddx * ddx + ddy * ddy, 1e-12f);
+  const float dist = sqrtf(d2);
+  const float a_r = ddx / dist, b_r = ddy / dist;
+  const float a_b = ddy / d2, b_b = ddx / d2;
+
+  // P H^T from P's columns: lane i reads row i (:404-411)
+  for (int i = lane; i < D; i += 32) {
+    const float* Pi = P + i * D;
+    const float c0 = Pi[0], c1 = Pi[1], c2 = Pi[2];
+    const float cl0 = Pi[li], cl1 = Pi[li + 1];
+    w.pr[i] = (cl0 - c0) * a_r + (cl1 - c1) * b_r;
+    w.pb[i] = (c0 - cl0) * a_b + (cl1 - c1) * b_b - c2;
+  }
+  // H P from P's rows (:457-463): the one-sided spelling (P H^T)^T flips the
+  // sign of P's antisymmetric fp32 residue and diverges over long runs
+  for (int k = lane; k < D; k += 32) {
+    const float r0 = P[k], r1 = P[D + k], r2 = P[2 * D + k];
+    const float rl0 = P[li * D + k], rl1 = P[(li + 1) * D + k];
+    w.hp0[k] = (rl0 - r0) * a_r + (rl1 - r1) * b_r;
+    w.hp1[k] = (r0 - rl0) * a_b + (rl1 - r1) * b_b - r2;
+  }
+  __syncwarp();
+
+  const float* pr = w.pr;
+  const float* pb = w.pb;
+  const float s00 = (-a_r * pr[0] - b_r * pr[1] + a_r * pr[li] +
+                     b_r * pr[li + 1]) + p.w00f;
+  const float s01 =
+      -a_r * pb[0] - b_r * pb[1] + a_r * pb[li] + b_r * pb[li + 1];
+  const float s10 = a_b * pr[0] - b_b * pr[1] - pr[2] - a_b * pr[li] +
+                    b_b * pr[li + 1];
+  const float s11 = (a_b * pb[0] - b_b * pb[1] - pb[2] - a_b * pb[li] +
+                     b_b * pb[li + 1]) + p.w11f;
+  float det = s00 * s11 - s01 * s10;
+  det = fabsf(det) > 1e-20f ? det : 1.0f;
+  const float i00 = s11 / det, i01 = -s01 / det;
+  const float i10 = -s10 / det, i11 = s00 / det;
+
+  const float ang_lm = les::wrap(les::atan2p(ddy, ddx) - thv);
+  const float nu_r = rnj - dist - p.w_r;
+  float nu_b = bnj - ang_lm - p.w_b;
+  if (p.wrap_innov) nu_b = les::wrap(nu_b);  // compat leaves it unwrapped
+
+  // x += K nu (heading re-wrapped, :447-449); P -= K (H P), lane i owns row i
+  for (int i = lane; i < D; i += 32) {
+    const float k0 = (pr[i] * i00 + pb[i] * i10) * m_u;
+    const float k1 = (pr[i] * i01 + pb[i] * i11) * m_u;
+    const float xn = w.x[i] + k0 * nu_r + k1 * nu_b;
+    w.x[i] = (i == 2) ? les::wrap(xn) : xn;
+    float* Pi = P + i * D;
+    for (int k = 0; k < D; ++k) Pi[k] = Pi[k] - k0 * w.hp0[k] - k1 * w.hp1[k];
+  }
+  __syncwarp();
+}
+
+// Masked landmark insertion (fused_rollout.py:531-593): the new rows and the
+// 2x2 block come from the OLD P, then rows, columns and block are written in
+// that order. `ins` is warp-uniform.
+__device__ __forceinline__ void ekf_insert(const EkfParams& p, const World& w, int D, int li,
+                           bool ins, float rnj, float bnj, int lane) {
+  float* P = w.P;
+  const float xv = w.x[0], yv = w.x[1], thv = w.x[2];
+  const float tb = thv + bnj;
+  const float ct = cosf(tb), st = sinf(tb);
+  const float ga = -rnj * st;  // G_x(0,2) = G_z(0,1)
+  const float gb = rnj * ct;   // G_x(1,2) = G_z(1,1)
+  for (int k = lane; k < D; k += 32) {
+    w.hp0[k] = P[k] + ga * P[2 * D + k];
+    w.hp1[k] = P[D + k] + gb * P[2 * D + k];
+  }
+  const float p00 = P[0], p01 = P[1], p02 = P[2];
+  const float p11 = P[D + 1], p12 = P[D + 2], p22 = P[2 * D + 2];
+  const float blk00 = p00 + 2.0f * ga * p02 + ga * ga * p22 +
+                      ct * ct * p.w00f + ga * ga * p.w11f;
+  const float blk01 = p01 + gb * p02 + ga * p12 + ga * gb * p22 +
+                      ct * st * p.w00f + ga * gb * p.w11f;
+  const float blk11 = p11 + 2.0f * gb * p12 + gb * gb * p22 +
+                      st * st * p.w00f + gb * gb * p.w11f;
+  __syncwarp();
+  if (!ins) return;
+  if (lane == 0) {
+    w.x[li] = xv + rnj * ct;
+    w.x[li + 1] = yv + rnj * st;
+  }
+  for (int k = lane; k < D; k += 32) {
+    P[li * D + k] = w.hp0[k];
+    P[(li + 1) * D + k] = w.hp1[k];
+  }
+  __syncwarp();
+  for (int i = lane; i < D; i += 32) {
+    P[i * D + li] = w.hp0[i];
+    P[i * D + li + 1] = w.hp1[i];
+  }
+  __syncwarp();
+  if (lane == 0) {
+    P[li * D + li] = blk00;
+    P[li * D + li + 1] = blk01;
+    P[(li + 1) * D + li] = blk01;
+    P[(li + 1) * D + li + 1] = blk11;
+  }
+  __syncwarp();
+}
+
+__global__ void __launch_bounds__(32 * kWorldsPerBlock)
+fused_ekf_rollout_kernel(const EkfParams p, const float* __restrict__ lms,
+                         const float* __restrict__ cmds,
+                         const float* __restrict__ noise, uint32_t seed,
+                         int B, int T, int N, int predicated,
+                         float* __restrict__ err_sum,
+                         float* __restrict__ err_max,
+                         float* __restrict__ true_pose,
+                         float* __restrict__ x_out, float* __restrict__ P_out,
+                         uint8_t* __restrict__ seen_out) {
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x & 31;
+  const int wib = threadIdx.x >> 5;
+  const int world = blockIdx.x * (blockDim.x >> 5) + wib;
+  if (world >= B) return;  // ragged edge: whole warps leave; no block barrier
+
+  const int D = 3 + 2 * N;
+  const int R = 2 * N + 8;
+  World w;
+  w.P = smem + (size_t)wib * world_floats(N);
+  w.x = w.P + D * D;
+  w.xc = w.x + D;
+  w.pr = w.xc + D;
+  w.pb = w.pr + D;
+  w.hp0 = w.pb + D;
+  w.hp1 = w.hp0 + D;
+  w.u = w.hp1 + D;
+  w.lmx = w.u + les::round_up(R, 4);
+  w.lmy = w.lmx + N;
+  w.vis = w.lmy + N;
+  w.rn = w.vis + N;
+  w.bn = w.rn + N;
+  w.seen = w.bn + N;
+
+  // ---- init (fused_rollout.py:134-147); P0 diag from ekf.cpp:11-18
+  for (int i = lane; i < D * D; i += 32) w.P[i] = 0.0f;
+  for (int i = lane; i < D; i += 32) w.x[i] = 0.0f;
+  for (int j = lane; j < N; j += 32) {
+    w.seen[j] = 0.0f;
+    w.lmx[j] = lms[((size_t)world * N + j) * 2 + 0];
+    w.lmy[j] = lms[((size_t)world * N + j) * 2 + 1];
+  }
+  __syncwarp();
+  if (lane == 0) {
+    w.x[0] = p.x0;
+    w.x[1] = p.y0;
+    w.x[2] = p.yaw0;
+    w.P[0] = (float)(0.01 * 0.01);
+    w.P[D + 1] = (float)(0.01 * 0.01);
+    w.P[2 * D + 2] = (float)(0.005 * 0.005);
+  }
+  // truth pose and error stats: registers, the same value in every lane
+  float tx = p.x0, ty = p.y0, tth = p.yaw0;
+  float esum = 0.0f, emax = 0.0f;
+  const float* cmd_w = cmds + (size_t)world * T * 2;
+  __syncwarp();
+
+  for (int t = 0; t < T; ++t) {
+    const float fwd = cmd_w[2 * t];
+    const float ang = cmd_w[2 * t + 1];
+    if (noise != nullptr) {
+      for (int r = lane; r < R; r += 32)
+        w.u[r] = noise[((size_t)t * R + r) * B + world];
+    } else {
+      for (int k = lane; k < (R + 3) / 4; k += 32) {
+        const float4 v = les::philox_block(seed, world, t, k);
+        w.u[4 * k] = v.x;
+        w.u[4 * k + 1] = v.y;
+        w.u[4 * k + 2] = v.z;
+        w.u[4 * k + 3] = v.w;
+      }
+    }
+    __syncwarp();
+
+    // ---- truth propagation (:163-174): heading deliberately unwrapped
+    const float d_n = les::clip(fwd + p.v00s * w.u[0], 0.0f, p.d_max);
+    const float h_n = les::clip(ang + p.v11s * w.u[1], -p.th_max, p.th_max);
+    tx = tx + d_n * cosf(tth);
+    ty = ty + d_n * sinf(tth);
+    tth = tth + h_n;
+
+    // ---- sensing, all landmarks (:176-185)
+    for (int j = lane; j < N; j += 32) {
+      const float dxl = w.lmx[j] - tx;
+      const float dyl = w.lmy[j] - ty;
+      const float r = sqrtf(dxl * dxl + dyl * dyl);
+      const float beta = les::wrap(les::atan2p(dyl, dxl) - tth);
+      const bool v = (r <= p.r_max) && (beta > p.fov_min) && (beta < p.fov_max);
+      w.vis[j] = v ? 1.0f : 0.0f;
+      w.rn[j] = r + p.w00s * w.u[2 + j];
+      w.bn[j] = beta + p.w11s * w.u[2 + N + j];
+    }
+
+    // ---- EKF predict (:195-259): rows 0 and 1 from row 2, THEN columns 0
+    // and 1 from column 2, which holds the updated rows
+    const float th = w.x[2];
+    const float c = cosf(th), s = sinf(th);
+    float eff_d, eff_th, var_d, var_th, jac_d;
+    if (p.calibrated) {
+      motion_moments(p, fwd, ang, eff_d, eff_th, var_d, var_th);
+      jac_d = eff_d;
+    } else {
+      eff_d = fwd + p.v_d;
+      eff_th = ang + p.v_th;
+      var_d = p.v00f;
+      var_th = p.v11f;
+      jac_d = fwd;  // F_x from the raw command (ekf.cpp:47-50)
+    }
+    const float u0 = -jac_d * s;
+    const float u1 = jac_d * c;
+    for (int k = lane; k < D; k += 32) {
+      const float r2 = w.P[2 * D + k];
+      w.P[k] = w.P[k] + u0 * r2;
+      w.P[D + k] = w.P[D + k] + u1 * r2;
+    }
+    __syncwarp();
+    for (int i = lane; i < D; i += 32) {
+      float* Pi = w.P + i * D;
+      const float c2 = Pi[2];
+      Pi[0] = Pi[0] + c2 * u0;
+      Pi[1] = Pi[1] + c2 * u1;
+    }
+    __syncwarp();
+    if (lane == 0) {
+      w.P[0] = w.P[0] + c * c * var_d;
+      w.P[1] = w.P[1] + s * c * var_d;
+      w.P[D] = w.P[D] + s * c * var_d;
+      w.P[D + 1] = w.P[D + 1] + s * s * var_d;
+      w.P[2 * D + 2] = w.P[2 * D + 2] + var_th;
+      w.x[0] = w.x[0] + eff_d * c;
+      w.x[1] = w.x[1] + eff_d * s;
+      w.x[2] = les::wrap(th + eff_th);
+    }
+    __syncwarp();
+    if (p.stale) {
+      for (int i = lane; i < D; i += 32) w.xc[i] = w.x[i];
+      __syncwarp();
+    }
+
+    // ---- per landmark in id order: update, insert, then seen |= vis
+    // (:278-593). The gates use the tick-start seen: seen[j] changes only
+    // at the end of its own iteration.
+    for (int j = 0; j < N; ++j) {
+      const int li = 3 + 2 * j;
+      const float sj = w.seen[j];
+      const float vj = w.vis[j];
+      const float m_u = vj * sj;
+      const float m_i = vj * (1.0f - sj);
+      const float rnj = w.rn[j], bnj = w.bn[j];
+      if (!predicated || m_u > 0.0f) ekf_update(p, w, D, li, m_u, rnj, bnj, lane);
+      if (!predicated || m_i > 0.0f) ekf_insert(p, w, D, li, m_i > 0.0f, rnj, bnj, lane);
+      __syncwarp();
+      if (lane == 0) w.seen[j] = les::max_nan(sj, vj);
+    }
+    __syncwarp();
+
+    // ---- error metric (:599-603)
+    const float ex = w.x[0] - tx;
+    const float ey = w.x[1] - ty;
+    const float e = sqrtf(ex * ex + ey * ey);
+    esum = esum + e;
+    emax = les::max_nan(emax, e);
+    __syncwarp();
+  }
+
+  if (lane == 0) {
+    err_sum[world] = esum;
+    err_max[world] = emax;
+    true_pose[(size_t)world * 3 + 0] = tx;
+    true_pose[(size_t)world * 3 + 1] = ty;
+    true_pose[(size_t)world * 3 + 2] = tth;
+  }
+  for (int i = lane; i < D; i += 32) x_out[(size_t)world * D + i] = w.x[i];
+  for (int i = lane; i < D * D; i += 32)
+    P_out[(size_t)world * D * D + i] = w.P[i];
+  for (int j = lane; j < N; j += 32)
+    seen_out[(size_t)world * N + j] = w.seen[j] > 0.5f ? 1 : 0;
+}
+
+}  // namespace
+
+extern "C" int les_fused_ekf_rollout(
+    const EkfParams* p, const float* lms, const float* cmds,
+    const float* noise, uint32_t seed, int B, int T, int N, int predicated,
+    float* err_sum, float* err_max, float* true_pose, float* x, float* P,
+    uint8_t* seen, void* stream) {
+  const size_t per_world = (size_t)world_floats(N) * sizeof(float);
+  if (per_world > kMaxSmem) return kErrSmem;
+  int wpb = kWorldsPerBlock;
+  while (wpb > 1 && wpb * per_world > kMaxSmem) --wpb;
+  const size_t smem = wpb * per_world;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        fused_ekf_rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const unsigned blocks = (unsigned)((B + wpb - 1) / wpb);
+  fused_ekf_rollout_kernel<<<blocks, 32 * wpb, smem, (cudaStream_t)stream>>>(
+      *p, lms, cmds, noise, seed, B, T, N, predicated, err_sum, err_max,
+      true_pose, x, P, seen);
+  return (int)cudaGetLastError();
+}
+
+extern "C" const char* les_error_string(int code) {
+  if (code == kErrSmem)
+    return "a world's state does not fit the 227 KB of shared memory a block "
+           "can use (N too large)";
+  return cudaGetErrorString((cudaError_t)code);
+}

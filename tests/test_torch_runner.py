@@ -1,0 +1,131 @@
+"""The port's main path as a whole: run_monte_carlo against the JAX
+composition of the same steps, the command line, and the no-jax rule."""
+
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from live_ekf_slam_tpu.config import Config as JConfig
+from live_ekf_slam_tpu.eval import runner as jrunner
+from live_ekf_slam_tpu.ops.fused_rollout import fused_ekf_rollout as j_rollout
+from live_ekf_slam_tpu.sim.trajectory import generate_trajectory as j_gen
+from live_ekf_slam_tpu_torch import bench, cli
+from live_ekf_slam_tpu_torch.config import Config
+from live_ekf_slam_tpu_torch.eval import runner
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _small(cls, t, n, bound):
+    cfg = cls(num_iterations=t).replace(num_landmark_slots=n, num_meas_slots=n)
+    return cfg.replace(map=cfg.map.__class__(num_landmarks=n, bound=bound))
+
+
+def test_run_monte_carlo_matches_jax_composition():
+    b, t, n, seed = 8, 60, 6, 4
+    cfg = _small(Config, t, n, 4.0)
+    jcfg = _small(JConfig, t, n, 4.0)
+    noise = np.random.default_rng(9).uniform(
+        -1, 1, (t, 2 * n + 8, b)).astype(np.float32)
+
+    # the JAX side, step by step: maps, trajectories, kernel, latch
+    jcfg, lms = jrunner._gen_maps(jcfg, np.random.default_rng(seed), b)
+    keys = jax.random.split(jax.random.PRNGKey(seed), b)
+    cmds = jax.vmap(lambda l, k: j_gen(jcfg, l, n, k))(lms, keys)
+    out_j = j_rollout(jcfg, lms, cmds, seed, block_worlds=b,
+                      noise=jnp.asarray(noise), interpret=True)
+    err_max_j = np.asarray(out_j["err_max"])
+    err_j = np.asarray(out_j["err_sum"]) / t
+    div_j = (~np.isfinite(err_max_j) | (err_max_j > jrunner.DIVERGENCE_RADIUS)
+             | ~np.isfinite(err_j))
+    u = jax.vmap(lambda k: jax.random.uniform(k, (n, 2), jnp.float32, -1.0, 1.0))(keys)
+
+    res, out, _ = runner.run_monte_carlo(
+        cfg, b, seed=seed, noise=torch.from_numpy(noise),
+        traj_u=torch.tensor(np.asarray(u)))
+    assert set(res) == {"err_ekf_slam", "diverged_ekf_slam"}
+    assert out["seen"].sum(1).min() >= 2, "a world saw <2 landmarks"
+    np.testing.assert_array_equal(out["seen"].numpy(), np.asarray(out_j["seen"]))
+    # trajectories and the rollout each differ from JAX in the last bit of
+    # XLA's vs torch's CPU transcendentals; over 60 ticks the average error
+    # stays within 1e-4 relative
+    np.testing.assert_allclose(res["err_ekf_slam"], err_j, rtol=1e-4, atol=1e-7)
+    np.testing.assert_array_equal(res["diverged_ekf_slam"], div_j)
+
+
+def test_divergence_latch_reads_the_running_max(monkeypatch):
+    cfg = Config(num_iterations=10)
+    fake = {"err_sum": torch.tensor([1.0, 2.0, float("nan"), 3.0]),
+            "err_max": torch.tensor([0.5, 60.0, 1.0, float("inf")])}
+    monkeypatch.setattr(runner, "fused_ekf_rollout", lambda *a, **k: fake)
+    monkeypatch.setattr(runner, "mc_inputs", lambda *a, **k: (None, None))
+    res, _, _ = runner.run_monte_carlo(cfg, 4)
+    np.testing.assert_allclose(res["err_ekf_slam"][[0, 1, 3]], [0.1, 0.2, 0.3])
+    np.testing.assert_array_equal(res["diverged_ekf_slam"],
+                                  [False, True, True, True])
+
+
+def test_shared_protocol_repeats_maps_relabelled_by_tour():
+    cfg = Config(num_iterations=5)
+    lms, cmds = runner.mc_inputs(cfg, 512, 0, "cpu", shared=True, relabel=True)
+    assert lms.shape == (512, 20, 2) and cmds.shape == (512, 5, 2)
+    assert torch.equal(lms[0], lms[255]) and not torch.equal(lms[0], lms[256])
+    assert torch.equal(cmds[256], cmds[511])
+    # relabelled: the same two maps, landmark ids renumbered in visit order
+    raw, _ = runner.mc_inputs(cfg, 2, 0, "cpu")
+    for w, blk in [(0, 0), (1, 256)]:
+        assert sorted(map(tuple, raw[w].tolist())) == sorted(map(tuple, lms[blk].tolist()))
+
+
+def test_out_of_scope_runs_raise():
+    cfg = Config(num_iterations=5)
+    for kw, item in [({"impl": "xla"}, "M9"), ({"collect": "poses"}, "M9")]:
+        with pytest.raises(NotImplementedError, match=item):
+            runner.run_monte_carlo(cfg, 2, **kw)
+    with pytest.raises(NotImplementedError, match="M6"):
+        runner.run_monte_carlo(cfg.replace(filter="iekf_slam"), 2)
+    with pytest.raises(NotImplementedError, match="M9"):
+        runner.run_monte_carlo(cfg.replace(landmark_map="demo"), 2)
+
+
+def test_cli_monte_carlo_prints_mean_and_std(capsys):
+    assert cli.main(["monte_carlo", "--batch", "4", "--steps", "30"]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0].startswith("ekf_slam: mean ") and " std " in lines[0]
+    assert lines[1].startswith("diverged_ekf_slam: mean ")
+
+
+def test_bench_refuses_to_run_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="CUDA"):
+        bench.main(["--worlds", "4", "--steps", "2"])
+
+
+def test_port_runs_its_slice_without_jax():
+    code = (
+        "import sys\n"
+        "from live_ekf_slam_tpu_torch.config import Config\n"
+        "from live_ekf_slam_tpu_torch.eval.runner import run_monte_carlo\n"
+        "import live_ekf_slam_tpu_torch.bench, live_ekf_slam_tpu_torch.cli\n"
+        "import live_ekf_slam_tpu_torch.convert\n"
+        "res, out, _ = run_monte_carlo(Config(num_iterations=20), 4)\n"
+        "assert out['x'].shape == (4, 43)\n"
+        "ok_ref = ('live_ekf_slam_tpu', 'live_ekf_slam_tpu.config')\n"
+        "bad = sorted(m for m in sys.modules if m not in ok_ref and\n"
+        "             m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
+        "                                 'live_ekf_slam_tpu'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
