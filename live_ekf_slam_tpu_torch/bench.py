@@ -1,12 +1,15 @@
-"""Benchmark of the port: fused sim + EKF-SLAM steps/s/world on one GPU.
+"""Benchmark of the port: fused sim + filter steps/s/world on one GPU.
 
-    python -m live_ekf_slam_tpu_torch.bench                # CUDA kernel
+    python -m live_ekf_slam_tpu_torch.bench                # EKF-SLAM kernel
+    python -m live_ekf_slam_tpu_torch.bench --filter ukf_slam
     python -m live_ekf_slam_tpu_torch.bench --impl plain --reps 1
 
-The JAX ``bench.py`` path with ``BENCH_IMPL=pallas`` and
-``BENCH_FILTER=ekf_slam``, on the card: 4096 worlds, T = 1000, N = 20; by
-default the shared protocol (16 random maps x 256 noise realisations, ids
-relabelled by tour), ``--protocol perworld`` for a map per world. Inputs are
+The JAX ``bench.py`` path with ``BENCH_IMPL=pallas`` and ``BENCH_FILTER`` one
+of ekf_slam, iekf_slam, ukf_slam, ukf_loc (``--filter``), on the card: 4096
+worlds, T = 1000, N = 20; by default the shared protocol (16 random maps x
+256 noise realisations, ids relabelled by tour, for every filter: the JAX
+bench's 128-world UKF block was a TPU memory limit), ``--protocol perworld``
+for a map per world. Inputs are
 made once; each timed rep is one rollout between two
 ``torch.cuda.synchronize()`` calls, and the value is the median rep.
 ``--impl plain`` times the plain torch version on the card instead of the
@@ -26,12 +29,8 @@ import numpy as np
 import torch
 
 from live_ekf_slam_tpu_torch.config import Config
-from live_ekf_slam_tpu_torch.eval.runner import mc_inputs
+from live_ekf_slam_tpu_torch.eval.runner import FILTERS, fused_rollout, mc_inputs
 from live_ekf_slam_tpu_torch.ops import _build
-from live_ekf_slam_tpu_torch.ops.fused_rollout import (
-    fused_ekf_rollout,
-    fused_ekf_rollout_reference,
-)
 from live_ekf_slam_tpu_torch.ops.precision import pin_fp32
 
 WARMUP_TICKS = 10
@@ -51,21 +50,17 @@ def card() -> str:
     return out.strip().splitlines()[0]
 
 
-def rollout_fn(impl: str):
-    if impl == "cuda":
-        return fused_ekf_rollout
-    if impl == "plain":
-        return fused_ekf_rollout_reference
-    raise ValueError(f"unknown impl {impl!r}")
-
-
 def time_rollouts(cfg, lms, cmds, impl: str, reps: int, seed0: int = 1):
-    """Time ``reps`` rollouts with seeds seed0, seed0+1, ..., after a short
-    warm-up (CUDA context, kernel build). Each rep runs between two
-    synchronizes. Returns (host-clock seconds, CUDA-event milliseconds, last
-    result)."""
-    fn = rollout_fn(impl)
-    fn(cfg, lms, cmds[:, :WARMUP_TICKS].contiguous(), 0)
+    """Time ``reps`` rollouts of ``cfg.filter`` (``impl`` "cuda" for the
+    kernel, "plain" for the plain version) with seeds seed0, seed0+1, ...,
+    after a short warm-up (CUDA context, kernel build). Each rep runs between
+    two synchronizes. Returns (host-clock seconds, CUDA-event milliseconds,
+    last result)."""
+    if impl not in ("cuda", "plain"):
+        raise ValueError(f"unknown impl {impl!r}")
+    plain = impl == "plain"
+    fused_rollout(cfg, lms, cmds[:, :WARMUP_TICKS].contiguous(), 0,
+                  plain=plain)
     torch.cuda.synchronize()
     host_s, dev_ms, out = [], [], None
     for rep in range(reps):
@@ -74,7 +69,7 @@ def time_rollouts(cfg, lms, cmds, impl: str, reps: int, seed0: int = 1):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         e0.record()
-        out = fn(cfg, lms, cmds, seed0 + rep)
+        out = fused_rollout(cfg, lms, cmds, seed0 + rep, plain=plain)
         e1.record()
         torch.cuda.synchronize()
         host_s.append(time.perf_counter() - t0)
@@ -84,6 +79,7 @@ def time_rollouts(cfg, lms, cmds, impl: str, reps: int, seed0: int = 1):
 
 def main(argv=None):
     p = argparse.ArgumentParser(prog="live_ekf_slam_tpu_torch.bench")
+    p.add_argument("--filter", choices=FILTERS, default="ekf_slam")
     p.add_argument("--impl", choices=["cuda", "plain"], default="cuda")
     p.add_argument("--protocol", choices=["shared", "perworld"],
                    default="shared")
@@ -99,7 +95,7 @@ def main(argv=None):
     _build.build()
     log(f"kernels built in {time.perf_counter() - t0:.2f}s")
 
-    cfg = Config(num_iterations=args.steps)
+    cfg = Config(num_iterations=args.steps).replace(filter=args.filter)
     t0 = time.perf_counter()
     lms, cmds = mc_inputs(cfg, args.worlds, 0, dev,
                           shared=args.protocol == "shared", relabel=True)
@@ -116,7 +112,7 @@ def main(argv=None):
         raise RuntimeError("benchmark rollout produced non-finite errors")
     print(json.dumps({
         "metric": (
-            f"fused sim+EKF-SLAM steps/sec/world at {args.worlds} worlds "
+            f"fused sim+{args.filter} steps/sec/world at {args.worlds} worlds "
             f"(T={args.steps}, {args.impl} {args.protocol}; mean "
             f"avg-pos-err {avg_err:.4f} m; {card()})"
         ),

@@ -1,11 +1,13 @@
 """Command line of the port: the ``monte_carlo`` preset.
 
-    python -m live_ekf_slam_tpu_torch.cli monte_carlo --filter ekf_slam \\
-        --batch 256 --steps 1000 --seed 0 --device cuda
+    python -m live_ekf_slam_tpu_torch.cli monte_carlo --filter ukf_slam \\
+        --batch 256 --steps 1000 --seed 0
 
-Counterpart of ``live_ekf_slam_tpu/cli.py``'s monte_carlo preset for
-EKF-SLAM: prints each result's mean and std as that CLI does. The other
-presets (viewers, closed loop, bar graphs) are not ported yet.
+Counterpart of ``live_ekf_slam_tpu/cli.py``'s monte_carlo preset for the
+four filters with a fused rollout (ekf_slam, iekf_slam, ukf_slam, ukf_loc):
+prints each result's mean and std as that CLI does. It runs on the card;
+``--device cpu`` runs the plain version on the CPU instead. The other presets
+(viewers, closed loop, bar graphs) are not ported yet.
 """
 
 from __future__ import annotations
@@ -16,14 +18,13 @@ import sys
 import numpy as np
 
 from live_ekf_slam_tpu_torch.config import Config
-from live_ekf_slam_tpu_torch.eval.runner import default_device, run_monte_carlo
+from live_ekf_slam_tpu_torch.eval.runner import FILTERS, run_monte_carlo
 
 
 def run_monte_carlo_cli(cfg, args):
-    device = args.device or default_device()
-    print(f"device: {device}", file=sys.stderr, flush=True)
+    print(f"device: {args.device}", file=sys.stderr, flush=True)
     res, _, _ = run_monte_carlo(
-        cfg, batch=args.batch, seed=args.seed, device=device
+        cfg, batch=args.batch, seed=args.seed, device=args.device
     )
     out = {k.replace("err_", ""): v for k, v in res.items()}
     for k, v in out.items():
@@ -34,12 +35,12 @@ def run_monte_carlo_cli(cfg, args):
 def main(argv=None):
     p = argparse.ArgumentParser(prog="live_ekf_slam_tpu_torch")
     p.add_argument("preset", choices=["monte_carlo"])
-    p.add_argument("--filter", default="ekf_slam", choices=["ekf_slam"])
+    p.add_argument("--filter", default="ekf_slam", choices=FILTERS)
     p.add_argument("--steps", type=int)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--batch", type=int, default=64)
-    p.add_argument("--device", help="cpu or cuda[:i]; default cuda when "
-                   "a card is available, otherwise cpu")
+    p.add_argument("--device", default="cuda",
+                   help="cuda[:i] (default; fails without a card) or cpu")
     args = p.parse_args(argv)
     cfg = Config().replace(filter=args.filter)
     if args.steps:

@@ -1,16 +1,19 @@
 """Parameters and state carried between the JAX layout, numpy and the port.
 
-This system has no learned weights. What the TPU kernel closes over
-(``live_ekf_slam_tpu/ops/fused_rollout.py:93-113``: filter noise, sim noise
+This system has no learned weights. What the TPU kernels close over
+(``live_ekf_slam_tpu/ops/fused_rollout.py:93-113`` and
+``live_ekf_slam_tpu/ops/fused_ukf.py:76-99``: filter noise, sim noise
 half-widths, command and vision limits, compat flags, initial pose) are the
-rollout's parameters; ``kernel_params`` packs them into the struct the CUDA
-kernel takes, and the plain version reads the same struct, so both see the
-same float32 constants.
+rollouts' parameters. ``kernel_params`` packs the EKF and RI-EKF kernel's into
+the struct that kernel takes, ``ukf_kernel_params`` the UKF kernel's; each
+plain version reads the same struct, so both sides see the same float32
+constants.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import numpy as np
 import torch
@@ -47,22 +50,31 @@ class KernelParams(ctypes.Structure):
                 + [(f, ctypes.c_int) for f in _INT_FIELDS])
 
 
-def kernel_params(cfg) -> KernelParams:
-    """The rollout's parameters for ``cfg``, by the rules of the TPU kernel
-    (fused_rollout.py:93-113)."""
+def _check_known_ids(cfg):
     if not cfg.constraints.measurements.landmark_id_is_known:
         raise ValueError("fused rollout requires known landmark ids")
+
+
+def _filter_noise(cfg):
+    """((v00f, v11f), (w00f, w11f), calibrated): the filter noise after the
+    compat V/W swap, with the true U(-W, W) variances under calibrated
+    motion."""
     (v00f, v11f), (w00f, w11f) = cfg.filter_noise()
     calibrated = use_calibrated(cfg)
     if calibrated:
         w00f, w11f = calibrated_meas_vars(cfg)
+    return (v00f, v11f), (w00f, w11f), calibrated
+
+
+def _shared_fields(cfg) -> dict:
+    """The fields both kernels take by the same rules: sim noise, means,
+    limits, initial pose and the calibrated-motion constants."""
     nz = cfg.sim_noise_scale
     pn, sn = cfg.process_noise, cfg.sensing_noise
     cmd, vis = cfg.constraints.commands, cfg.constraints.vision
     x0, y0, yaw0 = cfg.init_pose
     v_fwd, v_hdg = pn.V_00, pn.V_11
-    return KernelParams(
-        v00f=v00f, v11f=v11f, w00f=w00f, w11f=w11f,
+    return dict(
         v00s=pn.V_00 * nz, v11s=pn.V_11 * nz,
         w00s=sn.W_00 * nz, w11s=sn.W_11 * nz,
         v_d=pn.v_d, v_th=pn.v_th, w_r=sn.w_r, w_b=sn.w_b,
@@ -73,9 +85,67 @@ def kernel_params(cfg) -> KernelParams:
         cm_6v_fwd=6.0 * v_fwd, cm_floor_fwd=0.1 * v_fwd / S3,
         cm_v_hdg=v_hdg, cm_2v_hdg=2.0 * v_hdg, cm_4v_hdg=4.0 * v_hdg,
         cm_6v_hdg=6.0 * v_hdg, cm_floor_hdg=0.1 * v_hdg / S3,
+    )
+
+
+def kernel_params(cfg) -> KernelParams:
+    """The EKF / RI-EKF rollout's parameters for ``cfg``, by the rules of the
+    TPU kernel (fused_rollout.py:93-113). The RI-EKF reads the same struct
+    and ignores ``stale`` and ``wrap_innov`` (fused_rollout.py:91-92)."""
+    _check_known_ids(cfg)
+    (v00f, v11f), (w00f, w11f), calibrated = _filter_noise(cfg)
+    return KernelParams(
+        v00f=v00f, v11f=v11f, w00f=w00f, w11f=w11f, **_shared_fields(cfg),
         calibrated=int(calibrated),
         stale=int(cfg.compat.ekf_stale_landmarks),
         wrap_innov=int(not cfg.compat.ekf_unwrapped_innovation),
+    )
+
+
+_UKF_FLOAT_FIELDS = (
+    # filter noise variances (compat V/W swap and calibrated W applied), and
+    # the update's determinant gate min(1e-12, 1e-6 w00f w11f)
+    "v00f", "v11f", "w00f", "w11f", "det_gate",
+    "v00s", "v11s", "w00s", "w11s",
+    # noise means, and cos / sin of the bearing mean w_b (z_of's rotation)
+    "v_d", "v_th", "w_r", "w_b", "wbc", "wbs",
+    "d_max", "th_max", "r_max", "fov_min", "fov_max",
+    # initial pose, and the initial state's heading direction
+    "x0", "y0", "yaw0", "cyaw0", "syaw0",
+    # sigma-point weight of the centre, and float32(1 - W_0)
+    "w0", "one_m_w0",
+    "cm_v_fwd", "cm_2v_fwd", "cm_4v_fwd", "cm_6v_fwd", "cm_floor_fwd",
+    "cm_v_hdg", "cm_2v_hdg", "cm_4v_hdg", "cm_6v_hdg", "cm_floor_hdg",
+)
+_UKF_INT_FIELDS = ("calibrated", "zero_b_mean", "committed_yaw", "signed_q")
+
+
+class UkfParams(ctypes.Structure):
+    """Mirror of ``struct UkfParams`` in ``csrc/fused_ukf_rollout.cu``."""
+
+    _fields_ = ([(f, ctypes.c_float) for f in _UKF_FLOAT_FIELDS]
+                + [(f, ctypes.c_int) for f in _UKF_INT_FIELDS])
+
+
+def ukf_kernel_params(cfg) -> UkfParams:
+    """The UKF rollout's parameters for ``cfg``, by the rules of the TPU
+    kernel (fused_ukf.py:76-99). Products of Python floats are taken in
+    double and rounded once, as the JAX kernel's constants are."""
+    _check_known_ids(cfg)
+    (v00f, v11f), (w00f, w11f), calibrated = _filter_noise(cfg)
+    shared = _shared_fields(cfg)
+    w0 = cfg.ukf.W_0
+    compat = cfg.compat
+    return UkfParams(
+        v00f=v00f, v11f=v11f, w00f=w00f, w11f=w11f,
+        det_gate=min(1e-12, 1e-6 * w00f * w11f), **shared,
+        wbc=math.cos(shared["w_b"]), wbs=math.sin(shared["w_b"]),
+        cyaw0=math.cos(shared["yaw0"]), syaw0=math.sin(shared["yaw0"]),
+        w0=w0, one_m_w0=float(np.float32(1.0 - w0)),
+        calibrated=int(calibrated),
+        zero_b_mean=int(compat.ukf_zero_bearing_mean),
+        committed_yaw=int(compat.ukf_committed_yaw_in_sensing),
+        signed_q=int(compat.ukf_signed_process_noise),
     )
 
 

@@ -1,23 +1,30 @@
-// Fused sim + EKF-SLAM Monte-Carlo rollout: the whole T-tick rollout of every
-// world in one launch.
+// Fused sim + EKF-SLAM and RI-EKF-SLAM Monte-Carlo rollouts: the whole T-tick
+// rollout of every world in one launch.
 //
 // Replaces the Pallas TPU kernel live_ekf_slam_tpu/ops/fused_rollout.py,
-// function fused_ekf_rollout (kernel body _make_kernel, filter_kind="ekf",
-// profile_mode="full"), with the scalar helpers of ops/kernel_math.py inlined
-// (kernel_math.cuh) and a Philox stream in place of the TPU's on-core PRNG.
+// function fused_ekf_rollout (kernel body _make_kernel, profile_mode="full"):
+// with filter_kind="ekf" as fused_ekf_rollout_kernel<false>, and with
+// filter_kind="iekf" (fused_iekf_rollout) as fused_ekf_rollout_kernel<true>.
+// The scalar helpers of ops/kernel_math.py are inlined (kernel_math.cuh) and a
+// Philox stream takes the place of the TPU's on-core PRNG.
 //
 // Per tick and world: truth propagation with clipped uniform command noise;
-// FOV and range cull plus noisy range-bearing for all N landmarks; the EKF
-// predict as rank-1 row then column updates; for each landmark in id order an
-// update (gain from P columns, H P from P rows, one fused rank-2 downdate)
-// then a masked insertion; the running error sum and max.
+// FOV and range cull plus noisy range-bearing for all N landmarks; the
+// predict; for each landmark in id order an update then a masked insertion;
+// the running error sum and max. EKF: the predict as rank-1 row then column
+// updates, the update with the gain from P columns, H P from P rows and one
+// fused rank-2 downdate. RI-EKF: F = I and one full rank-1 yaw-noise pass,
+// constant H = [-I | 0 | +I] with the exp retraction of every landmark pair,
+// and an insertion that copies the vehicle rows; it ignores the EKF compat
+// quirks (stale landmarks, unwrapped innovation), as the JAX kernel does.
 //
 // What bounds it on the card. A world is one long serial chain: 1000 ticks,
 // each up to N sequential rank-2 downdates of a D x D covariance (D = 3+2N,
-// 43 at N = 20). Device memory is not the limit: at B = 4096, T = 1000,
-// N = 20 the kernel reads about 33 MB of commands and writes about 30 MB of
-// covariance, once. The limit is the latency and instruction throughput of
-// that chain in shared memory.
+// 43 at N = 20), and for the RI-EKF one more full rank-1 pass per tick.
+// Device memory is not the limit: at B = 4096, T = 1000, N = 20 the kernel
+// reads about 33 MB of commands and writes about 30 MB of covariance, once.
+// The limit is the latency and instruction throughput of that chain in
+// shared memory.
 //
 // What the design does about it. One warp per world, four worlds per block.
 // Each world's P stays in shared memory for the whole rollout (row stride D,
@@ -39,6 +46,7 @@
 #include <cstdint>
 
 #include "kernel_math.cuh"
+#include "motion.cuh"
 #include "philox.cuh"
 
 // Mirror of live_ekf_slam_tpu_torch/convert.py:KernelParams (field order and
@@ -67,57 +75,13 @@ __host__ __device__ inline int world_floats(int n) {
   return les::round_up(d * d + 6 * d + les::round_up(2 * n + 8, 4) + 6 * n, 4);
 }
 
-// Clip-aware moments of clip(c + u, lo, hi), u ~ U(-v, v), centred form
-// (core/noise.clip_uniform_moments).
-__device__ __forceinline__ void clip_uniform_moments(
-    float c, float v, float two_v, float four_v, float six_v, float lo,
-    float hi, float& mean, float& sd) {
-  const float l = les::clip(lo - c, -v, v);
-  const float h = les::clip(hi - c, -v, v);
-  const float p_lo = (l + v) / two_v;
-  const float p_hi = (v - h) / two_v;
-  const float mean_g = p_lo * l + p_hi * h + (h * h - l * l) / four_v;
-  const float m2_g =
-      p_lo * l * l + p_hi * h * h + (h * (h * h) - l * (l * l)) / six_v;
-  const float var = les::max_nan(m2_g - mean_g * mean_g, 0.0f);
-  mean = c + mean_g;
-  sd = sqrtf(var);
-}
-
-// core/noise.motion_moments for one world's command.
-__device__ __forceinline__ void motion_moments(const EkfParams& p, float fwd,
-                                               float ang, float& eff_d,
-                                               float& eff_th, float& var_d,
-                                               float& var_th) {
-  const float c_d = fwd + p.v_d;
-  const float c_th = ang + p.v_th;
-  float sig_d, sig_th;
-  if (p.cm_v_fwd > 0.0f) {
-    clip_uniform_moments(c_d, p.cm_v_fwd, p.cm_2v_fwd, p.cm_4v_fwd,
-                         p.cm_6v_fwd, 0.0f, p.d_max, eff_d, sig_d);
-    sig_d = les::max_nan(sig_d, p.cm_floor_fwd);
-  } else {
-    eff_d = c_d;
-    sig_d = 1e-6f;
-  }
-  if (p.cm_v_hdg > 0.0f) {
-    clip_uniform_moments(c_th, p.cm_v_hdg, p.cm_2v_hdg, p.cm_4v_hdg,
-                         p.cm_6v_hdg, -p.th_max, p.th_max, eff_th, sig_th);
-    sig_th = les::max_nan(sig_th, p.cm_floor_hdg);
-  } else {
-    eff_th = c_th;
-    sig_th = 1e-6f;
-  }
-  var_d = sig_d * sig_d;
-  var_th = sig_th * sig_th;
-}
-
 // Per-world working set in shared memory.
 struct World {
   float* P;    // D x D, row stride D
   float* x;    // D
-  float* xc;   // D: state snapshot after predict (stale-landmark compat)
-  float* pr;   // D: P h_r^T
+  float* xc;   // D: state snapshot after predict (stale-landmark compat);
+               // the RI-EKF's correction xi
+  float* pr;   // D: P h_r^T; the RI-EKF predict's yaw-noise column g
   float* pb;   // D: P h_b^T
   float* hp0;  // D: h_r P, and the first new row at insertion
   float* hp1;  // D: h_b P, and the second new row at insertion
@@ -244,6 +208,179 @@ __device__ __forceinline__ void ekf_insert(const EkfParams& p, const World& w, i
   __syncwarp();
 }
 
+// Rtil = Rhat Jpc W Jpc^T Rhat^T through the unit (c1, s1) of heading plus
+// bearing (fused_rollout.py:310-314, 498-501).
+__device__ __forceinline__ void iekf_rtil(const EkfParams& p, float rn,
+                                          float c1, float s1, float& rt00,
+                                          float& rt01, float& rt11) {
+  const float rr2 = rn * rn;
+  rt00 = p.w00f * c1 * c1 + p.w11f * rr2 * s1 * s1;
+  rt01 = (p.w00f - p.w11f * rr2) * c1 * s1;
+  rt11 = p.w00f * s1 * s1 + p.w11f * rr2 * c1 * c1;
+}
+
+// cos and sin of heading + bearing from the row-level cos/sin (:302-307).
+__device__ __forceinline__ void iekf_line_of_sight(float th, float bn,
+                                                   float& c1, float& s1) {
+  const float cth = cosf(th), sth = sinf(th);
+  const float cbn = cosf(bn), sbn = sinf(bn);
+  c1 = cth * cbn - sth * sbn;
+  s1 = sth * cbn + cth * sbn;
+}
+
+// RI-EKF predict (fused_rollout.py:207-240): P += var_th g g^T, with the
+// yaw-noise column g built from the tick-start x and seen, before the mean
+// moves. Entry 3+2jj of g is seen_jj x[4+2jj], entry 4+2jj is
+// -seen_jj x[3+2jj]. The caller adds the 2x2 distance-noise block.
+__device__ __forceinline__ void iekf_predict(const World& w, int D,
+                                             float jac_d, float c, float s,
+                                             float var_th, int lane) {
+  float* g = w.pr;
+  for (int i = lane; i < D; i += 32) {
+    float gi;
+    if (i == 0) {
+      gi = jac_d * s + w.x[1];
+    } else if (i == 1) {
+      gi = -jac_d * c - w.x[0];
+    } else if (i == 2) {
+      gi = 1.0f;
+    } else {
+      const float sj = w.seen[(i - 3) >> 1];
+      gi = ((i - 3) & 1) == 0 ? sj * w.x[i + 1] : -sj * w.x[i - 1];
+    }
+    g[i] = gi;
+  }
+  __syncwarp();
+  for (int i = lane; i < D; i += 32) {
+    const float vg = var_th * g[i];
+    float* Pi = w.P + i * D;
+    for (int k = 0; k < D; ++k) Pi[k] = Pi[k] + vg * g[k];
+  }
+  __syncwarp();
+}
+
+// RI-EKF update with landmark j (fused_rollout.py:292-382): constant
+// H = [-I | 0 | +I], Cartesian innovation, exp retraction of every
+// translation pair from the pre-update x. m_u = 0 gives xi = 0, an exact
+// identity.
+__device__ __forceinline__ void iekf_update(const EkfParams& p, const World& w,
+                                            int D, int N, int li, float m_u,
+                                            float rnj, float bnj, int lane) {
+  float* P = w.P;
+  float* xi = w.xc;
+  // every read of x comes before the first write (:297-300, :351)
+  const float xv = w.x[0], yv = w.x[1], thv = w.x[2];
+  const float lmx = w.x[li], lmy = w.x[li + 1];
+  float c1, s1, rt00, rt01, rt11;
+  iekf_line_of_sight(thv, bnj, c1, s1);
+  const float yw0 = rnj * c1, yw1 = rnj * s1;
+  iekf_rtil(p, rnj, c1, s1, rt00, rt01, rt11);
+
+  // P H^T from P's columns, H P from P's rows
+  for (int i = lane; i < D; i += 32) {
+    const float* Pi = P + i * D;
+    w.pr[i] = Pi[li] - Pi[0];
+    w.pb[i] = Pi[li + 1] - Pi[1];
+  }
+  for (int k = lane; k < D; k += 32) {
+    w.hp0[k] = P[li * D + k] - P[k];
+    w.hp1[k] = P[(li + 1) * D + k] - P[D + k];
+  }
+  __syncwarp();
+
+  const float* pr = w.pr;
+  const float* pb = w.pb;
+  const float s00 = pr[li] - pr[0] + rt00;
+  const float s01 = pb[li] - pb[0] + rt01;
+  const float s10 = pr[li + 1] - pr[1] + rt01;
+  const float s11 = pb[li + 1] - pb[1] + rt11;
+  float det = s00 * s11 - s01 * s10;
+  det = fabsf(det) > 1e-20f ? det : 1.0f;
+  const float i00 = s11 / det, i01 = -s01 / det;
+  const float i10 = -s10 / det, i11 = s00 / det;
+  const float nu0 = yw0 - (lmx - xv);
+  const float nu1 = yw1 - (lmy - yv);
+  for (int i = lane; i < D; i += 32) {
+    const float k0 = (pr[i] * i00 + pb[i] * i10) * m_u;
+    const float k1 = (pr[i] * i01 + pb[i] * i11) * m_u;
+    xi[i] = k0 * nu0 + k1 * nu1;
+  }
+  __syncwarp();
+
+  // exp retraction (:342-368), with the small-angle branch
+  const float dth = xi[2];
+  const float cd = cosf(dth), sd = sinf(dth);
+  const bool small = fabsf(dth) < 1e-6f;
+  const float dsafe = small ? 1.0f : dth;
+  const float va = small ? 1.0f - dth * dth / 6.0f : sd / dsafe;
+  const float vb = small ? 0.5f * dth : (1.0f - cd) / dsafe;
+  for (int jj = lane; jj < N; jj += 32) {
+    const int a0 = 3 + 2 * jj;
+    const float lx = w.x[a0], ly = w.x[a0 + 1];
+    const float kx = xi[a0], ky = xi[a0 + 1];
+    w.x[a0] = va * kx - vb * ky + cd * lx - sd * ly;
+    w.x[a0 + 1] = vb * kx + va * ky + sd * lx + cd * ly;
+  }
+  if (lane == 0) {
+    w.x[0] = va * xi[0] - vb * xi[1] + cd * xv - sd * yv;
+    w.x[1] = vb * xi[0] + va * xi[1] + sd * xv + cd * yv;
+    w.x[2] = les::wrap(thv + dth);
+  }
+
+  // P -= K (H P), lane i owns row i
+  for (int i = lane; i < D; i += 32) {
+    const float k0 = (pr[i] * i00 + pb[i] * i10) * m_u;
+    const float k1 = (pr[i] * i01 + pb[i] * i11) * m_u;
+    float* Pi = P + i * D;
+    for (int k = 0; k < D; ++k) Pi[k] = Pi[k] - k0 * w.hp0[k] - k1 * w.hp1[k];
+  }
+  __syncwarp();
+}
+
+// RI-EKF insertion (fused_rollout.py:477-529): the new rows copy the OLD
+// vehicle-position rows 0 and 1, the corner adds Rtil; rows, columns, then
+// the block. `ins` is warp-uniform.
+__device__ __forceinline__ void iekf_insert(const EkfParams& p, const World& w,
+                                            int D, int li, bool ins, float rnj,
+                                            float bnj, int lane) {
+  float* P = w.P;
+  const float xv = w.x[0], yv = w.x[1];
+  float c1, s1, rt00, rt01, rt11;
+  iekf_line_of_sight(w.x[2], bnj, c1, s1);
+  iekf_rtil(p, rnj, c1, s1, rt00, rt01, rt11);
+  for (int k = lane; k < D; k += 32) {
+    w.hp0[k] = P[k];
+    w.hp1[k] = P[D + k];
+  }
+  const float blk00 = P[0] + rt00;
+  const float blk01 = P[1] + rt01;
+  const float blk11 = P[D + 1] + rt11;
+  __syncwarp();
+  if (!ins) return;
+  if (lane == 0) {
+    w.x[li] = xv + rnj * c1;
+    w.x[li + 1] = yv + rnj * s1;
+  }
+  for (int k = lane; k < D; k += 32) {
+    P[li * D + k] = w.hp0[k];
+    P[(li + 1) * D + k] = w.hp1[k];
+  }
+  __syncwarp();
+  for (int i = lane; i < D; i += 32) {
+    P[i * D + li] = w.hp0[i];
+    P[i * D + li + 1] = w.hp1[i];
+  }
+  __syncwarp();
+  if (lane == 0) {
+    P[li * D + li] = blk00;
+    P[li * D + li + 1] = blk01;
+    P[(li + 1) * D + li] = blk01;
+    P[(li + 1) * D + li + 1] = blk11;
+  }
+  __syncwarp();
+}
+
+template <bool kInvariant>
 __global__ void __launch_bounds__(32 * kWorldsPerBlock)
 fused_ekf_rollout_kernel(const EkfParams p, const float* __restrict__ lms,
                          const float* __restrict__ cmds,
@@ -343,7 +480,7 @@ fused_ekf_rollout_kernel(const EkfParams p, const float* __restrict__ lms,
     const float c = cosf(th), s = sinf(th);
     float eff_d, eff_th, var_d, var_th, jac_d;
     if (p.calibrated) {
-      motion_moments(p, fwd, ang, eff_d, eff_th, var_d, var_th);
+      les::motion_moments(p, fwd, ang, eff_d, eff_th, var_d, var_th);
       jac_d = eff_d;
     } else {
       eff_d = fwd + p.v_d;
@@ -352,33 +489,38 @@ fused_ekf_rollout_kernel(const EkfParams p, const float* __restrict__ lms,
       var_th = p.v11f;
       jac_d = fwd;  // F_x from the raw command (ekf.cpp:47-50)
     }
-    const float u0 = -jac_d * s;
-    const float u1 = jac_d * c;
-    for (int k = lane; k < D; k += 32) {
-      const float r2 = w.P[2 * D + k];
-      w.P[k] = w.P[k] + u0 * r2;
-      w.P[D + k] = w.P[D + k] + u1 * r2;
+    if constexpr (kInvariant) {
+      iekf_predict(w, D, jac_d, c, s, var_th, lane);
+    } else {
+      const float u0 = -jac_d * s;
+      const float u1 = jac_d * c;
+      for (int k = lane; k < D; k += 32) {
+        const float r2 = w.P[2 * D + k];
+        w.P[k] = w.P[k] + u0 * r2;
+        w.P[D + k] = w.P[D + k] + u1 * r2;
+      }
+      __syncwarp();
+      for (int i = lane; i < D; i += 32) {
+        float* Pi = w.P + i * D;
+        const float c2 = Pi[2];
+        Pi[0] = Pi[0] + c2 * u0;
+        Pi[1] = Pi[1] + c2 * u1;
+      }
+      __syncwarp();
     }
-    __syncwarp();
-    for (int i = lane; i < D; i += 32) {
-      float* Pi = w.P + i * D;
-      const float c2 = Pi[2];
-      Pi[0] = Pi[0] + c2 * u0;
-      Pi[1] = Pi[1] + c2 * u1;
-    }
-    __syncwarp();
     if (lane == 0) {
       w.P[0] = w.P[0] + c * c * var_d;
       w.P[1] = w.P[1] + s * c * var_d;
       w.P[D] = w.P[D] + s * c * var_d;
       w.P[D + 1] = w.P[D + 1] + s * s * var_d;
-      w.P[2 * D + 2] = w.P[2 * D + 2] + var_th;
+      // the RI-EKF's g[2] = 1 already carried var_th into P[2][2]
+      if (!kInvariant) w.P[2 * D + 2] = w.P[2 * D + 2] + var_th;
       w.x[0] = w.x[0] + eff_d * c;
       w.x[1] = w.x[1] + eff_d * s;
       w.x[2] = les::wrap(th + eff_th);
     }
     __syncwarp();
-    if (p.stale) {
+    if (!kInvariant && p.stale) {
       for (int i = lane; i < D; i += 32) w.xc[i] = w.x[i];
       __syncwarp();
     }
@@ -393,8 +535,15 @@ fused_ekf_rollout_kernel(const EkfParams p, const float* __restrict__ lms,
       const float m_u = vj * sj;
       const float m_i = vj * (1.0f - sj);
       const float rnj = w.rn[j], bnj = w.bn[j];
-      if (!predicated || m_u > 0.0f) ekf_update(p, w, D, li, m_u, rnj, bnj, lane);
-      if (!predicated || m_i > 0.0f) ekf_insert(p, w, D, li, m_i > 0.0f, rnj, bnj, lane);
+      if constexpr (kInvariant) {
+        if (!predicated || m_u > 0.0f)
+          iekf_update(p, w, D, N, li, m_u, rnj, bnj, lane);
+        if (!predicated || m_i > 0.0f)
+          iekf_insert(p, w, D, li, m_i > 0.0f, rnj, bnj, lane);
+      } else {
+        if (!predicated || m_u > 0.0f) ekf_update(p, w, D, li, m_u, rnj, bnj, lane);
+        if (!predicated || m_i > 0.0f) ekf_insert(p, w, D, li, m_i > 0.0f, rnj, bnj, lane);
+      }
       __syncwarp();
       if (lane == 0) w.seen[j] = les::max_nan(sj, vj);
     }
@@ -423,13 +572,12 @@ fused_ekf_rollout_kernel(const EkfParams p, const float* __restrict__ lms,
     seen_out[(size_t)world * N + j] = w.seen[j] > 0.5f ? 1 : 0;
 }
 
-}  // namespace
-
-extern "C" int les_fused_ekf_rollout(
-    const EkfParams* p, const float* lms, const float* cmds,
-    const float* noise, uint32_t seed, int B, int T, int N, int predicated,
-    float* err_sum, float* err_max, float* true_pose, float* x, float* P,
-    uint8_t* seen, void* stream) {
+template <bool kInvariant>
+int launch_rollout(const EkfParams* p, const float* lms, const float* cmds,
+                   const float* noise, uint32_t seed, int B, int T, int N,
+                   int predicated, float* err_sum, float* err_max,
+                   float* true_pose, float* x, float* P, uint8_t* seen,
+                   void* stream) {
   const size_t per_world = (size_t)world_floats(N) * sizeof(float);
   if (per_world > kMaxSmem) return kErrSmem;
   int wpb = kWorldsPerBlock;
@@ -437,15 +585,37 @@ extern "C" int les_fused_ekf_rollout(
   const size_t smem = wpb * per_world;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fused_ekf_rollout_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        fused_ekf_rollout_kernel<kInvariant>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const unsigned blocks = (unsigned)((B + wpb - 1) / wpb);
-  fused_ekf_rollout_kernel<<<blocks, 32 * wpb, smem, (cudaStream_t)stream>>>(
-      *p, lms, cmds, noise, seed, B, T, N, predicated, err_sum, err_max,
-      true_pose, x, P, seen);
+  fused_ekf_rollout_kernel<kInvariant>
+      <<<blocks, 32 * wpb, smem, (cudaStream_t)stream>>>(
+          *p, lms, cmds, noise, seed, B, T, N, predicated, err_sum, err_max,
+          true_pose, x, P, seen);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int les_fused_ekf_rollout(
+    const EkfParams* p, const float* lms, const float* cmds,
+    const float* noise, uint32_t seed, int B, int T, int N, int predicated,
+    float* err_sum, float* err_max, float* true_pose, float* x, float* P,
+    uint8_t* seen, void* stream) {
+  return launch_rollout<false>(p, lms, cmds, noise, seed, B, T, N, predicated,
+                               err_sum, err_max, true_pose, x, P, seen,
+                               stream);
+}
+
+extern "C" int les_fused_iekf_rollout(
+    const EkfParams* p, const float* lms, const float* cmds,
+    const float* noise, uint32_t seed, int B, int T, int N, int predicated,
+    float* err_sum, float* err_max, float* true_pose, float* x, float* P,
+    uint8_t* seen, void* stream) {
+  return launch_rollout<true>(p, lms, cmds, noise, seed, B, T, N, predicated,
+                              err_sum, err_max, true_pose, x, P, seen, stream);
 }
 
 extern "C" const char* les_error_string(int code) {

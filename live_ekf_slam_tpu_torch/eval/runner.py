@@ -1,10 +1,11 @@
-"""Monte-Carlo evaluation of the fused EKF-SLAM rollout, in torch.
+"""Monte-Carlo evaluation of the fused filter rollouts, in torch.
 
 Counterpart of ``run_monte_carlo(impl="fused")`` in
-``live_ekf_slam_tpu/eval/runner.py`` for ``filter="ekf_slam"`` and
+``live_ekf_slam_tpu/eval/runner.py`` for the four filters it serves
+(``ekf_slam``, ``iekf_slam``, ``ukf_slam``, ``ukf_loc``) and
 ``collect="sums"``: random maps, TSP command streams, one fused rollout of
 every world, and per-world average position error with a divergence latch.
-The per-tick path (``impl="xla"``), the other filters and pose-graph runs are
+The per-tick path (``impl="xla"``), the naive filter and pose-graph runs are
 not ported yet (ROADMAP.md).
 """
 
@@ -13,7 +14,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from live_ekf_slam_tpu_torch.ops.fused_rollout import fused_ekf_rollout
+from live_ekf_slam_tpu_torch.ops.fused_rollout import (
+    fused_ekf_rollout,
+    fused_ekf_rollout_reference,
+)
+from live_ekf_slam_tpu_torch.ops.fused_ukf import (
+    fused_ukf_rollout,
+    fused_ukf_rollout_reference,
+)
 from live_ekf_slam_tpu_torch.ops.precision import pin_fp32
 from live_ekf_slam_tpu_torch.sim import maps as sim_maps
 from live_ekf_slam_tpu_torch.sim.trajectory import generate_trajectory
@@ -22,13 +30,44 @@ from live_ekf_slam_tpu_torch.sim.trajectory import generate_trajectory
 # (the map spans ~2*bound = 20 m; 50 m means the filter is unrecoverable)
 DIVERGENCE_RADIUS = 50.0
 
-# worlds that share one map and command stream under the shared protocol
+# worlds that share one map and command stream under the shared protocol,
+# for every filter, so that the four filters see the same maps
 SHARED_BLOCK = 256
 
+# the filters with a fused rollout (runner.py:393-394 of the JAX package)
+FILTERS = ("ekf_slam", "iekf_slam", "ukf_slam", "ukf_loc")
 
-def default_device() -> torch.device:
-    """The card when there is one, otherwise the CPU (the plain version)."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+def resolve_device(device=None) -> torch.device:
+    """``device``, by default the card. The CPU runs only when the caller
+    asks for it; without a card a CUDA device is an error, not a fallback."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available (torch.cuda.is_available() is "
+            "false); pass device='cpu' (--device cpu) to run the plain "
+            "version on the CPU"
+        )
+    return device
+
+
+def fused_rollout(cfg, lms, cmds, seed, *, noise=None, plain=False,
+                  predicated=True) -> dict:
+    """The fused rollout of ``cfg.filter`` (the routing of runner.py:402-415
+    of the JAX package). ``plain=True`` calls the plain torch version
+    directly, on whatever device the tensors are."""
+    kw = dict(noise=noise, predicated=predicated)
+    if cfg.filter in ("ekf_slam", "iekf_slam"):
+        fn = fused_ekf_rollout_reference if plain else fused_ekf_rollout
+        kind = "iekf" if cfg.filter == "iekf_slam" else "ekf"
+        return fn(cfg, lms, cmds, seed, filter_kind=kind, **kw)
+    if cfg.filter in ("ukf_slam", "ukf_loc"):
+        fn = fused_ukf_rollout_reference if plain else fused_ukf_rollout
+        return fn(cfg, lms, cmds, seed, slam=cfg.filter == "ukf_slam", **kw)
+    raise NotImplementedError(
+        f"filter={cfg.filter!r}: not ported yet (ROADMAP.md, M9 naive, "
+        "M10 pose_graph)"
+    )
 
 
 def _gen_maps(cfg, rng: np.random.Generator, batch: int):
@@ -78,22 +117,24 @@ def run_monte_carlo(cfg, batch: int, seed: int = 0, impl: str = "fused",
     """Full Monte-Carlo evaluation: B worlds, random maps, TSP trajectories.
 
     Returns (results, out, None) like the JAX version: ``results`` holds the
-    (B,) per-world average position errors ``err_ekf_slam`` and the
-    divergence mask ``diverged_ekf_slam``; ``out`` is the rollout's result.
-    ``protocol="perworld"`` gives every world its own map (the JAX runner's
-    protocol); ``"shared"`` is the bench's (see ``mc_inputs``). ``noise``
-    and ``traj_u`` are test hooks that replace the rollout's and the
-    trajectory's random draws. ``device`` defaults to ``default_device()``.
+    (B,) per-world average position errors ``err_<filter>`` and the
+    divergence mask ``diverged_<filter>``; ``out`` is the rollout's result
+    (the UKFs' ``update_rejects`` stays there and marks no divergence by
+    itself). ``protocol="perworld"`` gives every world its own map (the JAX
+    runner's protocol); ``"shared"`` is the bench's (see ``mc_inputs``).
+    ``noise`` and ``traj_u`` are test hooks that replace the rollout's and
+    the trajectory's random draws. ``device`` defaults to the card and
+    raises when there is none (see ``resolve_device``).
     """
     if impl != "fused":
         raise NotImplementedError(
             f"impl={impl!r}: the per-tick path is not ported yet "
             "(ROADMAP.md, M9)"
         )
-    if cfg.filter != "ekf_slam":
+    if cfg.filter not in FILTERS:
         raise NotImplementedError(
-            f"filter={cfg.filter!r}: only ekf_slam is ported "
-            "(ROADMAP.md, M6 iekf_slam, M8 ukf_*, M9 naive, M10 pose_graph)"
+            f"filter={cfg.filter!r}: not ported yet (ROADMAP.md, M9 naive, "
+            "M10 pose_graph)"
         )
     if collect != "sums":
         raise NotImplementedError(
@@ -103,11 +144,11 @@ def run_monte_carlo(cfg, batch: int, seed: int = 0, impl: str = "fused",
     if protocol not in ("perworld", "shared"):
         raise ValueError(f"unknown protocol {protocol!r}")
     pin_fp32()
-    device = default_device() if device is None else device
+    device = resolve_device(device)
     shared = protocol == "shared"
     lms, cmds = mc_inputs(cfg, batch, seed, device, shared=shared,
                           relabel=shared, traj_u=traj_u)
-    out = fused_ekf_rollout(cfg, lms, cmds, seed, noise=noise)
+    out = fused_rollout(cfg, lms, cmds, seed, noise=noise)
     # latched on the running max of the instantaneous error, as the JAX
     # kernels and the per-tick path do, not on the run mean
     err_max = out["err_max"].cpu().numpy()

@@ -9,6 +9,7 @@ PyTorch's headers. There is no fallback: without nvcc, ``load`` raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -25,6 +26,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
+# contraction off: a build whose kernels round as the plain versions do
+NO_FMA = ("-fmad=false",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -36,11 +39,23 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P,              # err_sum, err_max, true_pose, x, P, seen
         _P,                                  # stream
     ]),
+    "les_fused_iekf_rollout": (_I, [  # the same arguments
+        _P, _P, _P, _P, _U, _I, _I, _I, _I,
+        _P, _P, _P, _P, _P, _P,
+        _P,
+    ]),
+    "les_fused_ukf_rollout": (_I, [
+        _P, _P, _P, _P, _U, _I, _I, _I,      # params, lms, cmds, noise, seed, B, T, N
+        _I, _I,                              # slam, predicated
+        _P, _P, _P, _P, _P, _P, _P,          # err_sum, err_max, update_rejects, true_pose, x, P, seen
+        _P,                                  # stream
+    ]),
     "les_philox_noise": (_I, [_U, _I, _I, _I, _P, _P]),  # seed, T, N, B, out, stream
     "les_error_string": (ctypes.c_char_p, [_I]),
 }
 
-_lib = None
+_libs: dict[tuple[str, ...], ctypes.CDLL] = {}
+_extra: tuple[str, ...] = ()  # flags of the build the wrappers launch
 
 
 def find_nvcc() -> str:
@@ -60,23 +75,24 @@ def find_nvcc() -> str:
     )
 
 
-def library_path() -> Path:
+def library_path(extra: tuple[str, ...] = ()) -> Path:
     """Content-hashed path of the library for the current sources."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + extra).encode())
     for f in sorted(CSRC.glob("*.cu*")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"libles_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the kernels unless the library for these sources exists."""
-    path = library_path()
+def build(extra: tuple[str, ...] = ()) -> Path:
+    """Compile the kernels, with ``extra`` nvcc flags, unless the library
+    for these sources and flags exists."""
+    path = library_path(extra)
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+    cmd = [find_nvcc(), *NVCC_FLAGS, *extra, "-o", str(tmp),
            *(str(f) for f in sorted(CSRC.glob("*.cu")))]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -91,15 +107,27 @@ def build() -> Path:
 
 def load() -> ctypes.CDLL:
     """The kernel library, built on first call, with every signature set."""
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
+    if _extra not in _libs:
+        lib = ctypes.CDLL(str(build(_extra)))
         for name, (res, args) in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.restype = res
             fn.argtypes = args
-        _lib = lib
-    return _lib
+        _libs[_extra] = lib
+    return _libs[_extra]
+
+
+@contextlib.contextmanager
+def without_fma():
+    """Within, the wrappers launch the build with FMA contraction off, whose
+    kernels give the plain versions' bits (a check; the default build is
+    the one the port runs)."""
+    global _extra
+    saved, _extra = _extra, NO_FMA
+    try:
+        yield
+    finally:
+        _extra = saved
 
 
 def check(rc: int, what: str) -> None:

@@ -1,19 +1,26 @@
-"""Fused sim + EKF-SLAM rollout: the CUDA kernel's wrapper and its plain
-version.
+"""Fused sim + EKF-SLAM and RI-EKF-SLAM rollouts: the CUDA kernels'
+wrapper and their plain version.
 
 Counterpart of ``live_ekf_slam_tpu/ops/fused_rollout.py``
-(``fused_ekf_rollout``, ``filter_kind="ekf"``). ``fused_ekf_rollout`` runs the
-whole T-tick rollout of every world: on CUDA tensors in one launch of the
-hand-written kernel ``csrc/fused_ekf_rollout.cu`` (whose source note gives the
-design), on CPU tensors through ``fused_ekf_rollout_reference``, the same
-algebra as batched torch. There is no fallback from one to the other.
+(``fused_ekf_rollout`` with ``filter_kind`` "ekf" or "iekf", and
+``fused_iekf_rollout``). ``fused_ekf_rollout`` runs the whole T-tick rollout
+of every world: on CUDA tensors in one launch of the hand-written kernel
+``csrc/fused_ekf_rollout.cu`` (whose source note gives the design; the
+RI-EKF is a second instantiation of the same kernel), on CPU tensors through
+``fused_ekf_rollout_reference``, the same algebra as batched torch. There is
+no fallback from one to the other.
 
 The algebra keeps the TPU kernel's hard-won choices: landmark slot = id, so
 every index is static; the gain from P's columns and H P from P's rows (the
 one-sided spellings go to NaN by T = 1000 in fp32); masked worlds get a zero
 gain, which makes their update an exact no-op; the predict as rank-1 row and
 column updates; insertion from the old P, written rows, then columns, then
-the 2x2 block.
+the 2x2 block. The RI-EKF (``filter_kind="iekf"``) swaps the three filter
+sections for the invariant ones (``_make_kernel``'s notes): a predict with
+F = I and one full rank-1 yaw-noise pass, an update with constant
+H = [-I | 0 | +I] and the exp retraction, and an insertion that copies the
+vehicle rows. It ignores the EKF compat quirks (stale landmarks, unwrapped
+innovation), as the JAX kernel does, but honours the noise V/W swap.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ import ctypes
 import torch
 
 from live_ekf_slam_tpu_torch.convert import kernel_params
-from live_ekf_slam_tpu_torch.core.noise import motion_moments
+from live_ekf_slam_tpu_torch.core.noise import _div, motion_moments
 from live_ekf_slam_tpu_torch.ops import _build
 from live_ekf_slam_tpu_torch.ops.kernel_math import atan2, wrap
 from live_ekf_slam_tpu_torch.ops.philox import MASK32, philox_noise_reference
@@ -31,18 +38,16 @@ from live_ekf_slam_tpu_torch.ops.philox import MASK32, philox_noise_reference
 # Initial pose covariance diag (ekf.cpp:11-18).
 P0 = (0.01 * 0.01, 0.01 * 0.01, 0.005 * 0.005)
 
-# launches of the CUDA kernel (not of the plain version)
-launches = 0
+# launches of each CUDA kernel instantiation (not of the plain version)
+launches = {"ekf": 0, "iekf": 0}
+FILTER_KINDS = tuple(launches)
 
 
 def _check_scope(cfg, filter_kind, profile_mode, emit_traj):
     if not cfg.constraints.measurements.landmark_id_is_known:
         raise ValueError("fused rollout requires known landmark ids")
-    if filter_kind != "ekf":
-        raise NotImplementedError(
-            f"filter_kind={filter_kind!r}: the RI-EKF kernel is not ported "
-            "yet (ROADMAP.md, M6)"
-        )
+    if filter_kind not in FILTER_KINDS:
+        raise ValueError(f"unknown filter_kind {filter_kind!r}")
     if emit_traj:
         raise NotImplementedError(
             "emit_traj: the per-tick pose stream is not ported yet "
@@ -61,7 +66,8 @@ def fused_ekf_rollout(
     filter_kind: str = "ekf", profile_mode: str = "full",
     emit_traj: bool = False,
 ) -> dict:
-    """Run the full T-tick sim + EKF-SLAM rollout of a world batch.
+    """Run the full T-tick sim + EKF-SLAM (or, with ``filter_kind="iekf"``,
+    RI-EKF-SLAM) rollout of a world batch.
 
     landmarks (B, N, 2) true maps; cmds (B, T, 2) commanded odometry; seed
     keys the Philox noise stream, unless ``noise`` (T, 2N+8, B) in [-1, 1)
@@ -77,11 +83,19 @@ def fused_ekf_rollout(
     dev = landmarks.device
     if dev.type == "cpu":
         return fused_ekf_rollout_reference(
-            cfg, landmarks, cmds, seed, noise=noise, predicated=predicated
+            cfg, landmarks, cmds, seed, noise=noise, predicated=predicated,
+            filter_kind=filter_kind,
         )
     if dev.type != "cuda":
         raise ValueError(f"fused_ekf_rollout runs on cpu or cuda, not {dev}")
-    return _launch(cfg, landmarks, cmds, seed, noise, predicated)
+    return _launch(cfg, landmarks, cmds, seed, noise, predicated, filter_kind)
+
+
+def fused_iekf_rollout(cfg, landmarks, cmds, seed, **kw) -> dict:
+    """Fused sim + right-invariant-EKF-SLAM rollout: ``fused_ekf_rollout``
+    with ``filter_kind="iekf"``; same arguments and results."""
+    return fused_ekf_rollout(cfg, landmarks, cmds, seed, filter_kind="iekf",
+                             **kw)
 
 
 def _check_input(name, t, shape, dev):
@@ -95,8 +109,10 @@ def _check_input(name, t, shape, dev):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(cfg, landmarks, cmds, seed, noise, predicated):
-    global launches
+def check_inputs(landmarks, cmds, noise) -> tuple[int, int, int]:
+    """(B, N, T) of a rollout's CUDA inputs, after checking what every
+    rollout kernel takes: float32, contiguous, on the landmarks' device,
+    landmarks (B, N, 2), cmds (B, T, 2), noise None or (T, 2N+8, B)."""
     if landmarks.dim() != 3 or landmarks.shape[2] != 2:
         raise ValueError(f"landmarks must be (B, N, 2), got {tuple(landmarks.shape)}")
     b, n, _ = landmarks.shape
@@ -110,6 +126,12 @@ def _launch(cfg, landmarks, cmds, seed, noise, predicated):
     _check_input("cmds", cmds, (b, t_total, 2), dev)
     if noise is not None:
         _check_input("noise", noise, (t_total, 2 * n + 8, b), dev)
+    return b, n, t_total
+
+
+def _launch(cfg, landmarks, cmds, seed, noise, predicated, filter_kind):
+    b, n, t_total = check_inputs(landmarks, cmds, noise)
+    dev = landmarks.device
     d = 3 + 2 * n
     f32 = dict(dtype=torch.float32, device=dev)
     res = {
@@ -122,9 +144,11 @@ def _launch(cfg, landmarks, cmds, seed, noise, predicated):
     }
     kp = kernel_params(cfg)
     lib = _build.load()
+    entry = (lib.les_fused_iekf_rollout if filter_kind == "iekf"
+             else lib.les_fused_ekf_rollout)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.les_fused_ekf_rollout(
+        rc = entry(
             ctypes.addressof(kp), landmarks.data_ptr(), cmds.data_ptr(),
             None if noise is None else noise.data_ptr(),
             int(seed) & MASK32, b, t_total, n, int(predicated),
@@ -132,14 +156,15 @@ def _launch(cfg, landmarks, cmds, seed, noise, predicated):
             res["true_pose"].data_ptr(), res["x"].data_ptr(),
             res["P"].data_ptr(), res["seen"].data_ptr(), stream,
         )
-    _build.check(rc, "fused_ekf_rollout kernel")
-    launches += 1
+    _build.check(rc, f"fused {filter_kind} rollout kernel")
+    launches[filter_kind] += 1
     return res
 
 
 def fused_ekf_rollout_reference(
     cfg, landmarks: torch.Tensor, cmds: torch.Tensor, seed: int, *,
     noise: torch.Tensor | None = None, predicated: bool = True,
+    filter_kind: str = "ekf",
 ) -> dict:
     """The plain version: the kernel's algebra as batched torch, worlds on
     the leading axis, in the JAX kernel's order of operations.
@@ -156,7 +181,9 @@ def fused_ekf_rollout_reference(
     if noise is None:
         noise = philox_noise_reference(seed, t_total, n, b, device=dev)
     kp = kernel_params(cfg)
-    calibrated, stale, wrap_innov = kp.calibrated, kp.stale, kp.wrap_innov
+    invariant = filter_kind == "iekf"
+    calibrated, wrap_innov = kp.calibrated, kp.wrap_innov
+    stale = kp.stale and not invariant
     f32 = dict(dtype=torch.float32, device=dev)
 
     lx, ly = landmarks[:, :, 0], landmarks[:, :, 1]  # (B, N)
@@ -204,19 +231,23 @@ def fused_ekf_rollout_reference(
             eff_d, eff_th = fwd + kp.v_d, ang + kp.v_th
             var_d, var_th = kp.v00f, kp.v11f
             jac_d = fwd
-        u0 = (-jac_d * s)[:, None]
-        u1 = (jac_d * c)[:, None]
-        row2 = P[:, 2, :].clone()
-        P[:, 0, :] = P[:, 0, :] + u0 * row2
-        P[:, 1, :] = P[:, 1, :] + u1 * row2
-        col2 = P[:, :, 2].clone()
-        P[:, :, 0] = P[:, :, 0] + col2 * u0
-        P[:, :, 1] = P[:, :, 1] + col2 * u1
+        if invariant:
+            P = _predict_iekf(P, x, seen, jac_d, c, s, var_th)
+        else:
+            u0 = (-jac_d * s)[:, None]
+            u1 = (jac_d * c)[:, None]
+            row2 = P[:, 2, :].clone()
+            P[:, 0, :] = P[:, 0, :] + u0 * row2
+            P[:, 1, :] = P[:, 1, :] + u1 * row2
+            col2 = P[:, :, 2].clone()
+            P[:, :, 0] = P[:, :, 0] + col2 * u0
+            P[:, :, 1] = P[:, :, 1] + col2 * u1
         P[:, 0, 0] = P[:, 0, 0] + c * c * var_d
         P[:, 0, 1] = P[:, 0, 1] + s * c * var_d
         P[:, 1, 0] = P[:, 1, 0] + s * c * var_d
         P[:, 1, 1] = P[:, 1, 1] + s * s * var_d
-        P[:, 2, 2] = P[:, 2, 2] + var_th
+        if not invariant:  # the invariant pass carries it (g[2] = 1)
+            P[:, 2, 2] = P[:, 2, 2] + var_th
         x[:, 0] = x[:, 0] + eff_d * c
         x[:, 1] = x[:, 1] + eff_d * s
         x[:, 2] = wrap(th + eff_th)
@@ -230,10 +261,14 @@ def fused_ekf_rollout_reference(
             m_u, m_i = m_u_all[:, j], m_i_all[:, j]
             rn, bn = rn_all[:, j], bn_all[:, j]
             if not predicated or bool(m_u.any()):
-                x, P = _update(kp, x, P, x_committed if stale else x, li,
-                               m_u, rn, bn, wrap_innov)
+                if invariant:
+                    x, P = _update_iekf(kp, x, P, li, m_u, rn, bn)
+                else:
+                    x, P = _update(kp, x, P, x_committed if stale else x, li,
+                                   m_u, rn, bn, wrap_innov)
             if not predicated or bool(m_i.any()):
-                x, P = _insert(kp, x, P, li, m_i > 0, rn, bn)
+                insert = _insert_iekf if invariant else _insert
+                x, P = insert(kp, x, P, li, m_i > 0, rn, bn)
         seen = torch.maximum(seen, vis)
 
         # ---- error metric
@@ -324,6 +359,120 @@ def _insert(kp, x, P, li, ins, rn, bn):
              + ct * st * kp.w00f + ga * gb * kp.w11f)
     blk11 = (p11 + 2.0 * gb * p12 + gb * gb * p22
              + st * st * kp.w00f + gb * gb * kp.w11f)
+
+    # x and P belong to the rollout loop alone: update them in place
+    x[:, li] = torch.where(ins, sx, x[:, li])
+    x[:, li + 1] = torch.where(ins, sy, x[:, li + 1])
+    insc = ins[:, None]
+    # rows, then columns, then the 2x2 block
+    P[:, li, :] = torch.where(insc, nr0, P[:, li, :])
+    P[:, li + 1, :] = torch.where(insc, nr1, P[:, li + 1, :])
+    P[:, :, li] = torch.where(insc, nr0, P[:, :, li])
+    P[:, :, li + 1] = torch.where(insc, nr1, P[:, :, li + 1])
+    P[:, li, li] = torch.where(ins, blk00, P[:, li, li])
+    P[:, li, li + 1] = torch.where(ins, blk01, P[:, li, li + 1])
+    P[:, li + 1, li] = torch.where(ins, blk01, P[:, li + 1, li])
+    P[:, li + 1, li + 1] = torch.where(ins, blk11, P[:, li + 1, li + 1])
+    return x, P
+
+
+# ---- the right-invariant EKF's filter sections (fused_rollout.py:207-240,
+# 292-382, 477-529)
+
+def _predict_iekf(P, x, seen, jac_d, c, s, var_th):
+    """Invariant predict: F = I, one full rank-1 pass var_th g g^T with the
+    yaw-noise column g = Ad_Xhat (1, (0, -d)) of the tick-start state; the
+    caller adds the 2x2 distance-noise block."""
+    g = torch.zeros_like(x)
+    g[:, 0] = jac_d * s + x[:, 1]
+    g[:, 1] = -jac_d * c - x[:, 0]
+    g[:, 2] = 1.0
+    # landmark jj: (seen x[4+2jj], -seen x[3+2jj]), crosswise with a sign
+    g[:, 3::2] = seen * x[:, 4::2]
+    g[:, 4::2] = -seen * x[:, 3::2]
+    var_g = var_th * g if isinstance(var_th, float) else var_th[:, None] * g
+    return P + var_g[:, :, None] * g[:, None, :]
+
+
+def _rtil(kp, rn, c1, s1):
+    """Rtil = Rhat Jpc W Jpc^T Rhat^T through the unit (c1, s1)."""
+    rr2 = rn * rn
+    rt00 = kp.w00f * c1 * c1 + kp.w11f * rr2 * s1 * s1
+    rt01 = (kp.w00f - kp.w11f * rr2) * c1 * s1
+    rt11 = kp.w00f * s1 * s1 + kp.w11f * rr2 * c1 * c1
+    return rt00, rt01, rt11
+
+
+def _line_of_sight(x, bn):
+    """cos and sin of heading + bearing, from the row-level cos/sin."""
+    cth, sth = torch.cos(x[:, 2]), torch.sin(x[:, 2])
+    cbn, sbn = torch.cos(bn), torch.sin(bn)
+    return cth * cbn - sth * sbn, sth * cbn + cth * sbn
+
+
+def _update_iekf(kp, x, P, li, m_u, rn, bn):
+    """Invariant update with the landmark in slot li: constant
+    H = [-I | 0 | +I], Cartesian innovation, exp retraction of every
+    translation pair. Returns new (x, P)."""
+    xv, yv, thv = x[:, 0], x[:, 1], x[:, 2]
+    c1, s1 = _line_of_sight(x, bn)
+    yw0, yw1 = rn * c1, rn * s1
+    rt00, rt01, rt11 = _rtil(kp, rn, c1, s1)
+
+    # P H^T from P's columns
+    pr = P[:, :, li] - P[:, :, 0]
+    pb = P[:, :, li + 1] - P[:, :, 1]
+    s00 = pr[:, li] - pr[:, 0] + rt00
+    s01 = pb[:, li] - pb[:, 0] + rt01
+    s10 = pr[:, li + 1] - pr[:, 1] + rt01
+    s11 = pb[:, li + 1] - pb[:, 1] + rt11
+    det = s00 * s11 - s01 * s10
+    det = torch.where(det.abs() > 1e-20, det, 1.0)
+    i00, i01 = s11 / det, -s01 / det
+    i10, i11 = -s10 / det, s00 / det
+    k0 = (pr * i00[:, None] + pb * i10[:, None]) * m_u[:, None]
+    k1 = (pr * i01[:, None] + pb * i11[:, None]) * m_u[:, None]
+
+    nu0 = yw0 - (x[:, li] - xv)
+    nu1 = yw1 - (x[:, li + 1] - yv)
+    xi = k0 * nu0[:, None] + k1 * nu1[:, None]
+
+    # exp retraction: masked worlds have xi = 0, an exact identity
+    dth = xi[:, 2]
+    cd, sd = torch.cos(dth), torch.sin(dth)
+    small = dth.abs() < 1e-6
+    dsafe = torch.where(small, 1.0, dth)
+    va = torch.where(small, 1.0 - _div(dth * dth, 6.0), sd / dsafe)
+    vb = torch.where(small, 0.5 * dth, (1.0 - cd) / dsafe)
+    x_new = torch.empty_like(x)
+    x_new[:, 0] = va * xi[:, 0] - vb * xi[:, 1] + cd * xv - sd * yv
+    x_new[:, 1] = vb * xi[:, 0] + va * xi[:, 1] + sd * xv + cd * yv
+    x_new[:, 2] = wrap(thv + dth)
+    va, vb, cd, sd = (v[:, None] for v in (va, vb, cd, sd))
+    lxj, lyj = x[:, 3::2], x[:, 4::2]
+    kxj, kyj = xi[:, 3::2], xi[:, 4::2]
+    x_new[:, 3::2] = va * kxj - vb * kyj + cd * lxj - sd * lyj
+    x_new[:, 4::2] = vb * kxj + va * kyj + sd * lxj + cd * lyj
+
+    # P -= K (H P), H P from P's rows
+    hp0 = P[:, li, :] - P[:, 0, :]
+    hp1 = P[:, li + 1, :] - P[:, 1, :]
+    P_new = P - k0[:, :, None] * hp0[:, None, :] - k1[:, :, None] * hp1[:, None, :]
+    return x_new, P_new
+
+
+def _insert_iekf(kp, x, P, li, ins, rn, bn):
+    """Invariant insertion of the landmark in slot li: the new rows copy the
+    vehicle-position rows, the corner adds Rtil; returns new (x, P)."""
+    c1, s1 = _line_of_sight(x, bn)
+    sx = x[:, 0] + rn * c1
+    sy = x[:, 1] + rn * s1
+    rt00, rt01, rt11 = _rtil(kp, rn, c1, s1)
+    nr0 = P[:, 0, :].clone()
+    nr1 = P[:, 1, :].clone()
+    blk00 = P[:, 0, 0] + rt00
+    blk01 = P[:, 0, 1] + rt01
+    blk11 = P[:, 1, 1] + rt11
 
     # x and P belong to the rollout loop alone: update them in place
     x[:, li] = torch.where(ins, sx, x[:, li])

@@ -83,3 +83,28 @@ def oracle_replay(cfg, lms_w, cmds_w, noise_w):
         o.update((cmds_w[t, 0], cmds_w[t, 1]), meas)
         err_sum += math.hypot(o.x_t[0] - pose[0], o.x_t[1] - pose[1])
     return o, pose, err_sum
+
+
+def max_co_observed(cfg, lms, cmds, noise) -> int:
+    """The most landmarks any world sees in one tick: the float64 simulator
+    replayed on the injected noise for every world at once. A test of the
+    sequential per-landmark updates needs this to be at least 2."""
+    t_total, n = cmds.shape[1], lms.shape[1]
+    cmd_lim, vis_cfg = cfg.constraints.commands, cfg.constraints.vision
+    nz = cfg.sim_noise_scale
+    x, y, th = (np.full(lms.shape[0], v, np.float64) for v in cfg.init_pose)
+    most = 0
+    for t in range(t_total):
+        u = noise[t].astype(np.float64)  # (2N+8, B)
+        d = np.clip(cmds[:, t, 0] + cfg.process_noise.V_00 * nz * u[0], 0,
+                    cmd_lim.d_max)
+        h = np.clip(cmds[:, t, 1] + cfg.process_noise.V_11 * nz * u[1],
+                    -cmd_lim.th_max, cmd_lim.th_max)
+        x, y, th = x + d * np.cos(th), y + d * np.sin(th), th + h
+        dx, dy = lms[:, :, 0] - x[:, None], lms[:, :, 1] - y[:, None]
+        beta = np.remainder(np.arctan2(dy, dx) - th[:, None] + math.pi,
+                            2 * math.pi) - math.pi
+        vis = ((np.hypot(dx, dy) <= vis_cfg.range_max)
+               & (beta > vis_cfg.fov_min) & (beta < vis_cfg.fov_max))
+        most = max(most, int(vis.sum(axis=1).max()))
+    return most

@@ -159,10 +159,11 @@ def test_out_of_scope_requests_raise():
             cfg.constraints.measurements, landmark_id_is_known=False)))
     with pytest.raises(ValueError, match="known landmark ids"):
         fr.fused_ekf_rollout(unknown, lt, ct, 0)
-    for kw, item in [({"filter_kind": "iekf"}, "M6"), ({"emit_traj": True}, "M7"),
-                     ({"profile_mode": "nolm"}, "K1p")]:
+    for kw, item in [({"emit_traj": True}, "M7"), ({"profile_mode": "nolm"}, "K1p")]:
         with pytest.raises(NotImplementedError, match=item):
             fr.fused_ekf_rollout(cfg, lt, ct, 0, **kw)
+    with pytest.raises(ValueError, match="unknown filter_kind"):
+        fr.fused_ekf_rollout(cfg, lt, ct, 0, filter_kind="ukf")
     with pytest.raises(ValueError, match="cpu or cuda"):
         fr.fused_ekf_rollout(cfg, lt.to("meta"), ct.to("meta"), 0)
 

@@ -33,7 +33,10 @@ def _cfg_pair(**kw):
 
 
 def test_config_is_the_jax_schema():
-    assert tconfig.Config is jconfig.Config
+    # the port keeps its own copy of the schema (it imports nothing of the
+    # JAX package); the copy equals the original (test_torch_config.py)
+    assert tconfig.Config is not jconfig.Config
+    assert tconfig.Config.__module__ == "live_ekf_slam_tpu_torch.config"
     jc, tc = _cfg_pair()
     assert dataclasses.asdict(jc) == dataclasses.asdict(tc)
     assert ([f.name for f in dataclasses.fields(jc)]

@@ -1,5 +1,6 @@
 """The port's main path as a whole: run_monte_carlo against the JAX
-composition of the same steps, the command line, and the no-jax rule."""
+composition of the same steps for each of the four filters, the command
+line, the card-by-default rule and the no-jax rule."""
 
 import os
 import subprocess
@@ -14,6 +15,7 @@ import torch
 from live_ekf_slam_tpu.config import Config as JConfig
 from live_ekf_slam_tpu.eval import runner as jrunner
 from live_ekf_slam_tpu.ops.fused_rollout import fused_ekf_rollout as j_rollout
+from live_ekf_slam_tpu.ops.fused_ukf import fused_ukf_rollout as j_ukf_rollout
 from live_ekf_slam_tpu.sim.trajectory import generate_trajectory as j_gen
 from live_ekf_slam_tpu_torch import bench, cli
 from live_ekf_slam_tpu_torch.config import Config
@@ -47,7 +49,7 @@ def test_run_monte_carlo_matches_jax_composition():
     u = jax.vmap(lambda k: jax.random.uniform(k, (n, 2), jnp.float32, -1.0, 1.0))(keys)
 
     res, out, _ = runner.run_monte_carlo(
-        cfg, b, seed=seed, noise=torch.from_numpy(noise),
+        cfg, b, seed=seed, device="cpu", noise=torch.from_numpy(noise),
         traj_u=torch.tensor(np.asarray(u)))
     assert set(res) == {"err_ekf_slam", "diverged_ekf_slam"}
     assert out["seen"].sum(1).min() >= 2, "a world saw <2 landmarks"
@@ -59,13 +61,53 @@ def test_run_monte_carlo_matches_jax_composition():
     np.testing.assert_array_equal(res["diverged_ekf_slam"], div_j)
 
 
+@pytest.mark.parametrize("filt", ["iekf_slam", "ukf_slam", "ukf_loc"])
+def test_run_monte_carlo_matches_jax_composition_for_each_filter(filt):
+    # the JAX runner's fused routing (runner.py:402-430) for the filters the
+    # port gained after EKF-SLAM, at the CPU tests' small size
+    b, t, n, seed = 4, 30, 4, 4
+    cfg = _small(Config, t, n, 3.0).replace(filter=filt)
+    jcfg = _small(JConfig, t, n, 3.0).replace(filter=filt)
+    noise = np.random.default_rng(9).uniform(
+        -1, 1, (t, 2 * n + 8, b)).astype(np.float32)
+
+    jcfg, lms = jrunner._gen_maps(jcfg, np.random.default_rng(seed), b)
+    keys = jax.random.split(jax.random.PRNGKey(seed), b)
+    cmds = jax.vmap(lambda l, k: j_gen(jcfg, l, n, k))(lms, keys)
+    kw = dict(block_worlds=b, noise=jnp.asarray(noise), interpret=True)
+    if filt == "iekf_slam":
+        out_j = j_rollout(jcfg, lms, cmds, seed, filter_kind="iekf", **kw)
+    else:
+        out_j = j_ukf_rollout(jcfg, lms, cmds, seed, slam=filt == "ukf_slam", **kw)
+    err_max_j = np.asarray(out_j["err_max"])
+    err_j = np.asarray(out_j["err_sum"]) / t
+    div_j = (~np.isfinite(err_max_j) | (err_max_j > jrunner.DIVERGENCE_RADIUS)
+             | ~np.isfinite(err_j))
+    u = jax.vmap(lambda k: jax.random.uniform(k, (n, 2), jnp.float32, -1.0, 1.0))(keys)
+
+    res, out, _ = runner.run_monte_carlo(
+        cfg, b, seed=seed, device="cpu", noise=torch.from_numpy(noise),
+        traj_u=torch.tensor(np.asarray(u)))
+    assert set(res) == {"err_" + filt, "diverged_" + filt}
+    np.testing.assert_array_equal(out["seen"].numpy(), np.asarray(out_j["seen"]))
+    if filt.startswith("ukf"):
+        # kept in `out`, and no divergence by itself (runner.py:416-419)
+        np.testing.assert_array_equal(out["update_rejects"].numpy(),
+                                      np.asarray(out_j["update_rejects"]))
+    else:
+        assert out["seen"].sum(1).max() >= 2, "no world saw 2 landmarks"
+    # as for EKF-SLAM above: last-bit differences of the CPU transcendentals
+    np.testing.assert_allclose(res["err_" + filt], err_j, rtol=1e-4, atol=1e-7)
+    np.testing.assert_array_equal(res["diverged_" + filt], div_j)
+
+
 def test_divergence_latch_reads_the_running_max(monkeypatch):
     cfg = Config(num_iterations=10)
     fake = {"err_sum": torch.tensor([1.0, 2.0, float("nan"), 3.0]),
             "err_max": torch.tensor([0.5, 60.0, 1.0, float("inf")])}
     monkeypatch.setattr(runner, "fused_ekf_rollout", lambda *a, **k: fake)
     monkeypatch.setattr(runner, "mc_inputs", lambda *a, **k: (None, None))
-    res, _, _ = runner.run_monte_carlo(cfg, 4)
+    res, _, _ = runner.run_monte_carlo(cfg, 4, device="cpu")
     np.testing.assert_allclose(res["err_ekf_slam"][[0, 1, 3]], [0.1, 0.2, 0.3])
     np.testing.assert_array_equal(res["diverged_ekf_slam"],
                                   [False, True, True, True])
@@ -88,14 +130,28 @@ def test_out_of_scope_runs_raise():
     for kw, item in [({"impl": "xla"}, "M9"), ({"collect": "poses"}, "M9")]:
         with pytest.raises(NotImplementedError, match=item):
             runner.run_monte_carlo(cfg, 2, **kw)
-    with pytest.raises(NotImplementedError, match="M6"):
-        runner.run_monte_carlo(cfg.replace(filter="iekf_slam"), 2)
     with pytest.raises(NotImplementedError, match="M9"):
-        runner.run_monte_carlo(cfg.replace(landmark_map="demo"), 2)
+        runner.run_monte_carlo(cfg.replace(filter="naive"), 2)
+    with pytest.raises(NotImplementedError, match="M10"):
+        runner.run_monte_carlo(cfg.replace(filter="pose_graph"), 2)
+    with pytest.raises(NotImplementedError, match="M9"):
+        runner.run_monte_carlo(cfg.replace(landmark_map="demo"), 2,
+                               device="cpu")
+
+
+def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = Config(num_iterations=5)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        runner.run_monte_carlo(cfg, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["monte_carlo", "--batch", "2", "--steps", "5"])
+    assert runner.resolve_device("cpu") == torch.device("cpu")
 
 
 def test_cli_monte_carlo_prints_mean_and_std(capsys):
-    assert cli.main(["monte_carlo", "--batch", "4", "--steps", "30"]) == 0
+    assert cli.main(["monte_carlo", "--batch", "4", "--steps", "30",
+                     "--device", "cpu"]) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[0].startswith("ekf_slam: mean ") and " std " in lines[0]
     assert lines[1].startswith("diverged_ekf_slam: mean ")
@@ -108,18 +164,25 @@ def test_bench_refuses_to_run_without_a_card(monkeypatch):
 
 
 def test_port_runs_its_slice_without_jax():
+    # every module of the port and chip_smoke (imported, not run), then the
+    # CPU slice of all four filters; no module of jax, jaxlib, flax or the
+    # JAX package may be loaded (split on "." so that the port's own name,
+    # live_ekf_slam_tpu_torch, does not match)
     code = (
         "import sys\n"
+        "import chip_smoke\n"
         "from live_ekf_slam_tpu_torch.config import Config\n"
-        "from live_ekf_slam_tpu_torch.eval.runner import run_monte_carlo\n"
+        "from live_ekf_slam_tpu_torch.eval.runner import FILTERS, run_monte_carlo\n"
         "import live_ekf_slam_tpu_torch.bench, live_ekf_slam_tpu_torch.cli\n"
         "import live_ekf_slam_tpu_torch.convert\n"
-        "res, out, _ = run_monte_carlo(Config(num_iterations=20), 4)\n"
-        "assert out['x'].shape == (4, 43)\n"
-        "ok_ref = ('live_ekf_slam_tpu', 'live_ekf_slam_tpu.config')\n"
-        "bad = sorted(m for m in sys.modules if m not in ok_ref and\n"
-        "             m.split('.')[0] in ('jax', 'jaxlib', 'flax',\n"
-        "                                 'live_ekf_slam_tpu'))\n"
+        "for f in FILTERS:\n"
+        "    cfg = Config(num_iterations=10).replace(filter=f)\n"
+        "    res, out, _ = run_monte_carlo(cfg, 4, device='cpu')\n"
+        "    assert res['err_' + f].shape == (4,)\n"
+        "    assert out['x'].shape == (4, 4 if f == 'ukf_loc' else\n"
+        "                              44 if f == 'ukf_slam' else 43)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
+        "             ('jax', 'jaxlib', 'flax', 'live_ekf_slam_tpu'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
