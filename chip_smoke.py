@@ -7,11 +7,16 @@ nvcc and holds each rollout kernel (EKF-SLAM, RI-EKF-SLAM, UKF-SLAM,
 UKF-Loc) against its plain torch version: on three configs with injected
 noise, predicated against unpredicated, in-kernel Philox against the
 replayed stream, and a build with FMA contraction off against the plain
-version bit for bit. Then it drives the main path, ``run_monte_carlo`` at
-4096 worlds, T = 1000, N = 20 under the bench's shared protocol, once per
-filter, each through its own kernel, times it, and compares the kernel with
-the plain version on the first 256 worlds of that run. Every phase prints one
-JSON line; any failure raises and the exit code is nonzero. The last three
+version bit for bit; the same for the EKF kernels' pose stream and for the
+block-Thomas factor and solve kernels on the blocks of real graphs. Then it
+drives the main paths. ``run_monte_carlo`` at 4096 worlds, T = 1000, N = 20
+under the bench's shared protocol, once per filter, each through its own
+kernel, timed, the kernel compared with the plain version on the first 256
+worlds of that run. ``run_monte_carlo_pg_streams``, the pose-graph study, at
+1024 worlds with the EKF-SLAM secondary (twice: the results must repeat),
+and at 256 worlds with the naive and RI-EKF secondaries and in iterative
+mode, with the launch counts each run implies. Every phase prints one JSON
+line; any failure raises and the exit code is nonzero. The last three
 lines are the kernels' record, the card's name and power limit as
 nvidia-smi reports them, and ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or without the rest of the repository beside it, it fails
@@ -27,19 +32,27 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from live_ekf_slam_tpu_torch.bench import card, time_rollouts
+from live_ekf_slam_tpu_torch.bench import (
+    card,
+    pg_config,
+    pg_summary,
+    time_rollouts,
+)
 from live_ekf_slam_tpu_torch.config import CompatConfig, Config
 from live_ekf_slam_tpu_torch.convert import kernel_params
 from live_ekf_slam_tpu_torch.eval.runner import (
     fused_rollout,
     mc_inputs,
     run_monte_carlo,
+    run_monte_carlo_pg_streams,
 )
+from live_ekf_slam_tpu_torch.models import posegraph as pg
 from live_ekf_slam_tpu_torch.ops import _build, philox
 from live_ekf_slam_tpu_torch.ops import fused_rollout as fr
 from live_ekf_slam_tpu_torch.ops import fused_ukf as fu
 from live_ekf_slam_tpu_torch.ops.kernel_math import atan2, wrap
 from live_ekf_slam_tpu_torch.ops.precision import pin_fp32
+from live_ekf_slam_tpu_torch.sim.streams import sim_streams
 
 # Kernel vs plain version (injected noise), as |kernel - plain| <= atol +
 # rtol * scale, where scale is the plain value for the per-world scalars and,
@@ -88,6 +101,17 @@ NUDGE = 1.0 + 2.0 ** -16
 CHAOS_RATIO = 0.1
 UKF_INDEFINITE = -1e-3
 AGG_RTOL = 1e-2
+# The block-Thomas kernels against their plain loops, default build: |kernel
+# - plain| <= P1_RTOL * max|plain| per output. The Schur blocks of weakly
+# observed nodes have condition numbers in the hundreds, which multiply the
+# FMA-rounding differences of a 1000-step recursion (measured: 1.6e-4).
+P1_RTOL = 2e-3
+# Two runs of the pose-graph main path must agree to this (metres): nothing
+# on the path adds with atomics, so they are expected to be equal.
+PG_REPEAT_ATOL = 1e-4
+PG_MAIN = dict(batch=1024, steps=1000)    # the pose-graph study's size
+PG_SIDE = 256                             # worlds of its other three runs
+P1_WORLDS = 8                             # worlds of the block-Thomas checks
 SMALL = dict(batch=250, steps=200)        # 250: not a multiple of 4 worlds
 SHORT = 25                                # ticks, before most chaos sets in
 MAIN = dict(batch=4096, steps=1000)       # the bench's size
@@ -96,6 +120,9 @@ REPS = 5
 # H100 SXM peaks (NVIDIA data sheet, dense): fp32 without tensor cores, HBM
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
+# the least time of a serial chain: dependent float32 operations at 4 cycles
+# each on the card's highest SM clock (1.98 GHz)
+DEP_OP_S = 4 / 1.98e9
 
 SRC = "live_ekf_slam_tpu_torch/csrc/"
 # kernel name -> (filter, launch counter, source, TPU kernel it replaces)
@@ -128,14 +155,33 @@ def configs(steps: int):
     }
 
 
+# the kernels of the pose-graph path: name -> (launch counter, key, source,
+# what it replaces)
+PG_KERNELS = {
+    "fused_ekf_rollout[emit_traj]": (
+        fr.launches, "ekf_traj", SRC + "fused_ekf_rollout.cu",
+        "live_ekf_slam_tpu/ops/fused_rollout.py:604"),
+    "fused_iekf_rollout[emit_traj]": (
+        fr.launches, "iekf_traj", SRC + "fused_ekf_rollout.cu",
+        "live_ekf_slam_tpu/ops/fused_rollout.py:604"),
+    "block_thomas_factor": (
+        pg.launches, "factor", SRC + "block_thomas.cu",
+        "live_ekf_slam_tpu/models/posegraph.py:1071"),
+    "block_thomas_solve": (
+        pg.launches, "solve", SRC + "block_thomas.cu",
+        "live_ekf_slam_tpu/models/posegraph.py:1092"),
+}
+
+
 def counts() -> dict:
     out = {name: c[key] for name, (_, (c, key), _, _) in KERNELS.items()}
+    out.update({name: c[key] for name, (c, key, _, _) in PG_KERNELS.items()})
     out["philox_noise"] = philox.launches
     return out
 
 
 def zero_counts():
-    for c in (fr.launches, fu.launches):
+    for c in (fr.launches, fu.launches, pg.launches):
         for key in c:
             c[key] = 0
     philox.launches = 0
@@ -304,6 +350,289 @@ def work(filt: str, g: dict, b: int, t_total: int, n: int) -> tuple[float, float
     return flops, nbytes
 
 
+def timed_ms(fn, reps: int = REPS) -> float:
+    """Median CUDA-event milliseconds of ``fn()`` over ``reps`` calls, after
+    one warm-up call."""
+    fn()
+    ms = []
+    for _ in range(reps):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        ms.append(e0.elapsed_time(e1))
+    return float(np.median(ms))
+
+
+def stream_of(r: dict) -> dict:
+    """A rollout's pose streams under the names whose tolerances they take:
+    est_traj is x[0:3] and true_traj the true pose, tick by tick."""
+    return {"x": r["est_traj"], "true_pose": r["true_traj"], "seen": r["seen"],
+            "err_sum": r["err_sum"]}
+
+
+def pose_stream_checks(dev, n_lm: int):
+    """K3 against the plain version: EKF and RI-EKF on three configs at
+    SMALL. The default build's streams within the tolerances of x and
+    true_pose; the -fmad=false build bit for bit; everything else of the
+    result bit for bit what emit_traj=False gives; sum_t |est - true| equal
+    to err_sum."""
+    rng = np.random.default_rng(3)
+    for kind in fr.FILTER_KINDS:
+        for cname, cfg in configs(SMALL["steps"]).items():
+            lms, cmds = mc_inputs(cfg, SMALL["batch"], 3, dev)
+            noise = torch.as_tensor(
+                rng.uniform(-1, 1, (SMALL["steps"], 2 * n_lm + 8,
+                                    SMALL["batch"])).astype(np.float32),
+                device=dev)
+            kw = dict(noise=noise, filter_kind=kind)
+            before = fr.launches[kind + "_traj"]
+            k = fr.fused_ekf_rollout(cfg, lms, cmds, 0, emit_traj=True, **kw)
+            torch.cuda.synchronize()
+            if fr.launches[kind + "_traj"] != before + 1:
+                raise AssertionError(f"{kind}: the pose-stream kernel was not launched")
+            k0 = fr.fused_ekf_rollout(cfg, lms, cmds, 0, **kw)
+            p = fr.fused_ekf_rollout_reference(cfg, lms, cmds, 0, emit_traj=True, **kw)
+            with _build.without_fma():
+                k_nofma = fr.fused_ekf_rollout(cfg, lms, cmds, 0, emit_traj=True, **kw)
+            same = bitwise(k_nofma, p, f"{kind} {cname} pose stream -fmad=false")
+            unchanged = bitwise(k0, k, f"{kind} {cname} emit_traj=True against False")
+            errs = compare(stream_of(k), stream_of(p),
+                           {o: TOL[o] for o in ("x", "true_pose")})
+            d = (k["est_traj"][..., :2] - k["true_traj"][..., :2]).norm(dim=-1).sum(dim=1)
+            sum_rel = float(((d - k["err_sum"]).abs() / k["err_sum"]).max())
+            last = (torch.equal(k["est_traj"][:, -1], k["x"][:, :3])
+                    and torch.equal(k["true_traj"][:, -1], k["true_pose"]))
+            emit("pose_stream_vs_plain", kernel=f"fused_{kind}_rollout[emit_traj]",
+                 config=cname, **SMALL, est_traj=errs["x"], true_traj=errs["true_pose"],
+                 no_fma_bitwise_equal=same, rest_bitwise_equal_to_emit_false=unchanged,
+                 last_tick_is_final_state=last, err_sum_rel_diff=sum_rel)
+            if not last or sum_rel > 1e-5:
+                raise AssertionError(f"{kind} {cname}: the pose stream does not "
+                                     f"fit the final state or err_sum ({sum_rel})")
+
+
+def pg_graphs(cfg, batch: int, dev, seed: int = 0):
+    """The graphs of the pose-graph path's first world chunk, rebuilt from
+    the pieces ``run_monte_carlo_pg_streams`` composes, with the inputs they
+    came from: (graphs, lms, cmds, noise, kernel result or None)."""
+    lms, cmds = mc_inputs(cfg, batch, seed, dev)
+    n_lm = lms.shape[1]
+    noise = philox.philox_noise(seed, cfg.num_iterations, n_lm, batch, dev)
+    st = sim_streams(cfg, lms, n_lm, cmds, noise)
+    out = fr.fused_ekf_rollout(cfg, lms, cmds, seed, noise=noise, emit_traj=True)
+    graphs = pg.assemble_streams(cfg, out["est_traj"], st["r"], st["b"],
+                                 st["vis"], cmds)
+    return graphs, lms, cmds, noise, out
+
+
+def chain_blocks(cfg, s, meas_scale: float):
+    """The block-tridiagonal system solve_schur_pcg factors first on these
+    graphs (at the seeds, damping 1e-4), and its first right-hand side."""
+    slots = pg.LmSlots(s)
+    jac = pg._jacobians(cfg, s, s.poses_init, s.lms_init, meas_scale, slots)
+    coeffs, r_meas = pg._meas_coeffs(cfg, s, s.poses_init, s.lms_init,
+                                     meas_scale, slots)
+    d, u, _ = pg._pose_blocks(cfg, s, jac, coeffs, 1e-4)
+    rhs, _ = pg._grad(cfg, s, jac, coeffs, r_meas, slots)
+    return d, u, rhs
+
+
+def block_thomas_compare(d, u, rhs, what: str) -> dict:
+    """P1 against its plain loops on one system: the default build within
+    P1_RTOL of each output's scale, the -fmad=false build bit for bit.
+    Returns the errors and the plain loops' milliseconds."""
+    before = dict(pg.launches)
+    fac = pg._tridiag_factor(d, u)
+    x = pg._tridiag_solve(fac, rhs)
+    torch.cuda.synchronize()
+    if pg.launches != {"factor": before["factor"] + 1, "solve": before["solve"] + 1}:
+        raise AssertionError("the block-Thomas wrappers did not launch their kernels")
+    t0 = time.perf_counter()
+    pfac = pg._tridiag_factor_reference(d, u)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    px = pg._tridiag_solve_reference(pfac, rhs)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    with _build.without_fma():
+        nfac = pg._tridiag_factor(d, u)
+        nx = pg._tridiag_solve(nfac, rhs)
+    same = bitwise({**nfac, "x": nx}, {**pfac, "x": px}, f"{what} -fmad=false")
+    out = {"no_fma_bitwise_equal": same, "factor_plain_ms": 1e3 * (t1 - t0),
+           "solve_plain_ms": 1e3 * (t2 - t1)}
+    for name, a, b in [(k_, fac[k_], pfac[k_]) for k_ in fac] + [("x", x, px)]:
+        err, top = float((a - b).abs().max()), float(b.abs().max())
+        out[name] = {"max_abs_err": err, "scale": top, "rel_to_scale": err / top}
+        if not err <= P1_RTOL * top:
+            raise AssertionError(f"{what}: {name} out of tolerance: {out[name]}")
+    return out
+
+
+def block_thomas_checks(dev):
+    """P1 on the blocks of real graphs: a few worlds at T = 200 and
+    T = 1000, at the first and the last measurement scale of the schedule."""
+    for steps in (SMALL["steps"], PG_MAIN["steps"]):
+        cfg = pg_config(steps, "ekf_slam", False)
+        graphs = pg_graphs(cfg, P1_WORLDS, dev, seed=1)[0]
+        for sc in (16.0, 1.0):
+            res = block_thomas_compare(*chain_blocks(cfg, graphs, sc),
+                                       f"block-Thomas T={steps} scale={sc}")
+            emit("block_thomas_vs_plain", worlds=P1_WORLDS, steps=steps,
+                 meas_scale=sc, rtol_of_scale=P1_RTOL, **res)
+
+
+def pg_run(secondary: str, iterative: bool, batch: int, dev) -> tuple[dict, dict]:
+    """One pose-graph study through ``run_monte_carlo_pg_streams``, in one
+    world chunk, with the checks on its launch counts and results. Returns
+    (results, launch counts)."""
+    cfg = pg_config(PG_MAIN["steps"], secondary, iterative)
+    zero_counts()
+    t0 = time.perf_counter()
+    res, info, _ = run_monte_carlo_pg_streams(cfg, batch, seed=0,
+                                              world_chunk=batch, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    # the schedule: 16 + 16 + 50 Gauss-Newton iterations from the seeds, in
+    # iterative mode 50 more from the replayed solution; each factors once
+    # and solves once per CG iteration and once before them
+    pgc = cfg.pose_graph
+    n_gn = (max(8, pgc.bulk_gn_iters // 3) * 2 + pgc.bulk_gn_iters
+            + (pgc.bulk_gn_iters if iterative else 0))
+    want = dict.fromkeys(launches, 0)
+    want.update(philox_noise=1, block_thomas_factor=n_gn,
+                block_thomas_solve=n_gn * (pgc.bulk_cg_iters + 1))
+    if secondary != "naive":
+        kind = "iekf" if secondary == "iekf_slam" else "ekf"
+        want[f"fused_{kind}_rollout[emit_traj]"] = 1
+    if launches != want:
+        raise AssertionError(f"pose graph, {secondary}: launched {launches}, "
+                             f"expected {want}")
+    summary = pg_summary(res, info, PG_MAIN["steps"], secondary)
+    emit("pose_graph_path", secondary=secondary, iterative=iterative,
+         batch=batch, steps=PG_MAIN["steps"], noise="high", wall_s=wall,
+         **summary, launches={k_: v for k_, v in launches.items() if v})
+    for key, v in res.items():
+        if not key.startswith("diverged") and not np.isfinite(v).all():
+            raise AssertionError(f"pose graph, {secondary}: non-finite {key}")
+    if summary["diverged"]:
+        raise AssertionError(f"pose graph, {secondary}: {summary['diverged']} worlds diverged")
+    if not (summary["mean_err_pose_graph_result"]
+            < summary["mean_err_pose_graph_initial"]):
+        raise AssertionError(f"pose graph, {secondary}: the solve did not "
+                             f"improve on the seeds: {summary}")
+    return res, launches
+
+
+def pose_graph_paths(dev, n_lm: int) -> tuple[list, int]:
+    """The pose-graph main path and its three side runs; returns the records
+    of its kernels for the ``kernels`` line and the main run's count of
+    philox_noise launches."""
+    res, launches = pg_run("ekf_slam", False, PG_MAIN["batch"], dev)
+    again, _ = pg_run("ekf_slam", False, PG_MAIN["batch"], dev)
+    spread = {k_: float(np.abs(res[k_].astype(np.float64) - again[k_]).max())
+              for k_ in res}
+    emit("pose_graph_repeat", equal={k_: bool(np.array_equal(res[k_], again[k_]))
+                                     for k_ in res}, max_abs_diff=spread)
+    if max(spread.values()) > PG_REPEAT_ATOL:
+        raise AssertionError(f"the pose-graph path does not repeat: {spread}")
+    pg_run("naive", False, PG_SIDE, dev)
+    _, launches_iekf = pg_run("iekf_slam", False, PG_SIDE, dev)
+    pg_run("naive", True, PG_SIDE, dev)
+
+    record = []
+    # ---- K3 at the shapes those runs gave it: its time with and without
+    # the pose stream, and the streams against the plain version's
+    for kind, batch, ls in (("ekf", PG_MAIN["batch"], launches),
+                            ("iekf", PG_SIDE, launches_iekf)):
+        name = f"fused_{kind}_rollout[emit_traj]"
+        filt = kind + "_slam"
+        cfg = pg_config(PG_MAIN["steps"], filt, False)
+        lms, cmds = mc_inputs(cfg, batch, 0, dev)
+        noise = philox.philox_noise(0, PG_MAIN["steps"], n_lm, batch, dev)
+        kw = dict(noise=noise, filter_kind=kind)
+        ms = timed_ms(lambda: fr.fused_ekf_rollout(cfg, lms, cmds, 0, emit_traj=True, **kw))
+        ms_off = timed_ms(lambda: fr.fused_ekf_rollout(cfg, lms, cmds, 0, **kw))
+        w = min(batch, PLAIN_WORLDS)
+        lw, cw = lms[:w].contiguous(), cmds[:w].contiguous()
+        nw = noise[:, :, :w].contiguous()
+        k = fr.fused_ekf_rollout(cfg, lw, cw, 0, emit_traj=True, noise=nw, filter_kind=kind)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = fr.fused_ekf_rollout_reference(cfg, lw, cw, 0, emit_traj=True,
+                                           noise=nw, filter_kind=kind)
+        torch.cuda.synchronize()
+        p_ms = 1e3 * (time.perf_counter() - t0)
+        errs = compare(stream_of(k), stream_of(p),
+                       {o: TOL_MAIN[o] for o in ("x", "true_pose")})
+        with _build.without_fma():
+            same = bitwise(fr.fused_ekf_rollout(cfg, lw, cw, 0, emit_traj=True,
+                                                noise=nw, filter_kind=kind),
+                           p, f"{name} main shape -fmad=false")
+        gates = gate_counts(cfg, lms, cmds, 0)
+        flops, nbytes = work(filt, gates, batch, PG_MAIN["steps"], n_lm)
+        # beside the rollout's own traffic: the injected noise read once,
+        # the two pose streams written once
+        nbytes += 4.0 * noise.numel() + 2 * 4.0 * batch * PG_MAIN["steps"] * 3
+        t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+        emit("pose_stream_main_shape", kernel=name, batch=batch,
+             steps=PG_MAIN["steps"], ms=ms, ms_without_stream=ms_off,
+             plain_ms=p_ms, plain_worlds=w, est_traj=errs["x"],
+             true_traj=errs["true_pose"], no_fma_bitwise_equal=same)
+        record.append({
+            "name": name, "route": "cuda", "source": PG_KERNELS[name][2],
+            "replaces": PG_KERNELS[name][3], "launches": ls[name],
+            "max_abs_err": max(errs[o]["max_abs_err"] for o in ("x", "true_pose")),
+            "ms": ms, "ms_without_stream": ms_off, "plain_ms": p_ms,
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None, "flops": flops, "bytes": nbytes,
+            "batch": batch, "plain_worlds": w, "plain_steps": PG_MAIN["steps"],
+        })
+
+    # ---- P1 on the main path's own graphs
+    cfg = pg_config(PG_MAIN["steps"], "ekf_slam", False)
+    d, u, rhs = chain_blocks(cfg, pg_graphs(cfg, PG_MAIN["batch"], dev)[0], 1.0)
+    res = block_thomas_compare(d, u, rhs, "block-Thomas main shape")
+    fac = pg._tridiag_factor(d, u)
+    ms_f = timed_ms(lambda: pg._tridiag_factor(d, u))
+    ms_s = timed_ms(lambda: pg._tridiag_solve(fac, rhs))
+    emit("block_thomas_main_shape", **PG_MAIN, factor_ms=ms_f, solve_ms=ms_s, **res)
+    b, t1 = d.shape[:2]
+    steps = t1 - 1
+    # factor: an adjugate inverse (~41 flop) and two 3x3 products (45 each)
+    # and a subtraction (9) a step, the scaling (36); solve: three 3x3
+    # matvecs (15 each) and two subtractions a step, the two scalings. The
+    # longest dependent chain of a step: factor ~20 operations (cofactor,
+    # determinant, division, the two products' 3-term sums), solve ~11.
+    work_p1 = {
+        "block_thomas_factor": (
+            b * steps * 176.0, 4.0 * (d.numel() * 2 + u.numel() * 3 + b * t1 * 3),
+            ms_f, res["factor_plain_ms"], ("sinv", "l", "u", "dsc"), 20),
+        "block_thomas_solve": (
+            b * t1 * 57.0, 4.0 * (d.numel() + u.numel() * 2 + b * t1 * 9),
+            ms_s, res["solve_plain_ms"], ("x",), 11),
+    }
+    for name, (flops, nbytes, ms, p_ms, outs, dep_ops) in work_p1.items():
+        t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+        record.append({
+            "name": name, "route": "cuda", "source": PG_KERNELS[name][2],
+            "replaces": PG_KERNELS[name][3], "launches": launches[name],
+            "max_abs_err": max(res[o]["max_abs_err"] for o in outs),
+            "max_rel_to_scale": max(res[o]["rel_to_scale"] for o in outs),
+            "ms": ms, "plain_ms": p_ms,
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": None, "flops": flops, "bytes": nbytes,
+            "latency_floor_ms": 1e3 * steps * dep_ops * DEP_OP_S,
+            "batch": b, "steps": steps,
+        })
+    return record, launches["philox_noise"]
+
+
 def main():
     # ---- 1. device
     if not torch.cuda.is_available():
@@ -391,6 +720,11 @@ def main():
         raise AssertionError("Philox stream differs between kernel and torch")
     if abs(float(nz.mean())) > 0.01 or abs(float(nz.var()) - 1 / 3) > 0.01:
         raise AssertionError("Philox noise moments are off")
+
+    # the pose stream (K3) and the block-Thomas kernels (P1) against their
+    # plain versions
+    pose_stream_checks(dev, n_lm)
+    block_thomas_checks(dev)
 
     # ---- 6. the main path, once per filter, through its kernel; the counts
     # read right after run_monte_carlo are that path's own
@@ -483,7 +817,12 @@ def main():
         })
     emit("gate_counts", **MAIN, **gates)
 
-    # the standalone Philox kernel (checks only: the rollouts draw in-kernel)
+    # ---- 7. the pose-graph main path and its kernels
+    pg_record, philox_launches = pose_graph_paths(dev, n_lm)
+    record += pg_record
+
+    # the standalone Philox kernel: the rollouts draw in-kernel, the
+    # pose-graph path launches it once per world chunk
     args = (0, MAIN["steps"], n_lm, MAIN["batch"], dev)
     philox.philox_noise(*args)
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -500,10 +839,11 @@ def main():
         "name": "philox_noise", "route": "cuda",
         "source": SRC + "philox_noise.cu",
         "replaces": "live_ekf_slam_tpu/ops/fused_rollout.py:160",
-        "launches": 0, "max_abs_err": float((nz - nz_ref).abs().max()),
+        "launches": philox_launches,
+        "max_abs_err": float((nz - nz_ref).abs().max()),
         "ms": e0.elapsed_time(e1), "plain_ms": p_ms,
         "bound_ms": 1e3 * nbytes / PEAK_BYTES, "bound_by": "bytes",
-        "library_ms": None, "bytes": nbytes, "on_main_path": False,
+        "library_ms": None, "bytes": nbytes,
     })
     emit("wall", seconds=time.perf_counter() - t_start)
 

@@ -3,6 +3,8 @@
     python -m live_ekf_slam_tpu_torch.bench                # EKF-SLAM kernel
     python -m live_ekf_slam_tpu_torch.bench --filter ukf_slam
     python -m live_ekf_slam_tpu_torch.bench --impl plain --reps 1
+    python -m live_ekf_slam_tpu_torch.bench --filter pose_graph \
+        --secondary ekf_slam [--iterative] [--worlds 1024]
 
 The JAX ``bench.py`` path with ``BENCH_IMPL=pallas`` and ``BENCH_FILTER`` one
 of ekf_slam, iekf_slam, ukf_slam, ukf_loc (``--filter``), on the card: 4096
@@ -15,11 +17,19 @@ made once; each timed rep is one rollout between two
 ``--impl plain`` times the plain torch version on the card instead of the
 kernel. It needs a CUDA device and never falls back to the CPU; it writes
 nothing to disk. Prints one JSON line: metric, value, unit.
+
+``--filter pose_graph`` times the pose-graph streams path instead
+(``run_monte_carlo_pg_streams``, the JAX ``scripts/bench_pg_streams.py``): by
+default 1024 worlds with a map each, the high-noise profile, bulk solve. Its
+value is the accumulation rate in steps/s/world (streams + secondary + graph
+assembly); the line also carries the replay and solve wall seconds and the
+mean errors of the seeds and of the solution.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -29,11 +39,20 @@ import numpy as np
 import torch
 
 from live_ekf_slam_tpu_torch.config import Config
-from live_ekf_slam_tpu_torch.eval.runner import FILTERS, fused_rollout, mc_inputs
+from live_ekf_slam_tpu_torch.eval.runner import (
+    FILTERS,
+    PG_SECONDARIES,
+    fused_rollout,
+    mc_inputs,
+    run_monte_carlo_pg_streams,
+)
 from live_ekf_slam_tpu_torch.ops import _build
 from live_ekf_slam_tpu_torch.ops.precision import pin_fp32
 
 WARMUP_TICKS = 10
+PG_WORLDS = 1024
+# the high-noise profile of the accuracy studies (scripts/accuracy_matrix.py)
+HIGH_NOISE = dict(V_00=0.01, V_11=0.001, W_00=0.01, W_11=0.01)
 
 
 def log(msg):
@@ -77,13 +96,70 @@ def time_rollouts(cfg, lms, cmds, impl: str, reps: int, seed0: int = 1):
     return host_s, dev_ms, out
 
 
+def pg_config(steps: int, secondary: str, iterative: bool) -> Config:
+    """The pose-graph study's config: high noise, honest sigmas, the given
+    secondary filter and solve mode."""
+    cfg = Config(num_iterations=steps).replace(filter="pose_graph")
+    return cfg.replace(
+        process_noise=dataclasses.replace(
+            cfg.process_noise, V_00=HIGH_NOISE["V_00"], V_11=HIGH_NOISE["V_11"]),
+        sensing_noise=dataclasses.replace(
+            cfg.sensing_noise, W_00=HIGH_NOISE["W_00"], W_11=HIGH_NOISE["W_11"]),
+        pose_graph=dataclasses.replace(
+            cfg.pose_graph, filter_to_compare=secondary,
+            solve_graph_every_iteration=iterative),
+    )
+
+
+def pg_summary(res: dict, info: dict, steps: int, secondary: str) -> dict:
+    """The numbers of one pose-graph run: accumulation steps/s/world, the
+    phases' seconds and the mean errors."""
+    sec = info["seconds"]
+    accum = sec["streams"] + sec["secondary"] + sec["assemble"]
+    return {
+        "accum_steps_per_s_per_world": steps / accum,
+        "accum_s": accum, "inputs_s": sec["inputs"],
+        "replay_s": sec["replay"], "solve_s": sec["solve"],
+        "mean_err_" + secondary: float(np.mean(res["err_" + secondary])),
+        "mean_err_pose_graph_initial": float(np.mean(res["err_pose_graph_initial"])),
+        "mean_err_pose_graph_result": float(np.mean(res["err_pose_graph_result"])),
+        "diverged": int(res["diverged_pose_graph"].sum()),
+    }
+
+
+def bench_pose_graph(args) -> dict:
+    worlds = args.worlds or PG_WORLDS
+    cfg = pg_config(args.steps, args.secondary, args.iterative)
+    res, info, _ = run_monte_carlo_pg_streams(cfg, worlds, seed=0,
+                                              world_chunk=worlds)
+    out = pg_summary(res, info, args.steps, args.secondary)
+    if not np.isfinite(out["mean_err_pose_graph_result"]):
+        raise RuntimeError("the pose-graph run produced non-finite errors")
+    mode = "iterative" if args.iterative else "bulk"
+    return {
+        "metric": (
+            f"pg-streams accumulation steps/sec/world at {worlds} worlds "
+            f"(T={args.steps}, secondary={args.secondary}, {mode}, high "
+            f"noise; {card()})"
+        ),
+        "value": out.pop("accum_steps_per_s_per_world"),
+        "unit": "steps/s/world", **out, "device": torch.cuda.get_device_name(0),
+    }
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="live_ekf_slam_tpu_torch.bench")
-    p.add_argument("--filter", choices=FILTERS, default="ekf_slam")
+    p.add_argument("--filter", choices=FILTERS + ("pose_graph",),
+                   default="ekf_slam")
+    p.add_argument("--secondary", choices=PG_SECONDARIES, default="naive",
+                   help="pose_graph only: the filter that seeds the graph")
+    p.add_argument("--iterative", action="store_true",
+                   help="pose_graph only: replay the per-tick solves first")
     p.add_argument("--impl", choices=["cuda", "plain"], default="cuda")
     p.add_argument("--protocol", choices=["shared", "perworld"],
                    default="shared")
-    p.add_argument("--worlds", type=int, default=4096)
+    p.add_argument("--worlds", type=int, default=None,
+                   help="default 4096, pose_graph 1024")
     p.add_argument("--steps", type=int, default=1000)
     p.add_argument("--reps", type=int, default=5)
     args = p.parse_args(argv)
@@ -94,6 +170,10 @@ def main(argv=None):
     t0 = time.perf_counter()
     _build.build()
     log(f"kernels built in {time.perf_counter() - t0:.2f}s")
+    if args.filter == "pose_graph":
+        print(json.dumps(bench_pose_graph(args)))
+        return
+    args.worlds = args.worlds or 4096
 
     cfg = Config(num_iterations=args.steps).replace(filter=args.filter)
     t0 = time.perf_counter()

@@ -8,11 +8,17 @@ rollouts' parameters. ``kernel_params`` packs the EKF and RI-EKF kernel's into
 the struct that kernel takes, ``ukf_kernel_params`` the UKF kernel's; each
 plain version reads the same struct, so both sides see the same float32
 constants.
+
+The pose-graph slice adds the state itself: ``posegraph_state_from_numpy``
+turns a JAX ``PoseGraphState`` (its fields as numpy arrays, one world or a
+``vmap`` batch) into the port's batched one, ``streams_from_numpy`` the JAX
+``sim_streams`` dict into the port's tensors.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 
 import numpy as np
@@ -23,6 +29,7 @@ from live_ekf_slam_tpu_torch.core.noise import (
     calibrated_meas_vars,
     use_calibrated,
 )
+from live_ekf_slam_tpu_torch.core.types import PoseGraphState
 
 _FLOAT_FIELDS = (
     # filter noise variances (compat V/W swap and calibrated W applied)
@@ -167,4 +174,44 @@ def outputs_to_numpy(res: dict) -> dict:
     for k, v in res.items():
         a = v.detach().cpu().numpy()
         out[k] = a.astype(bool) if k == "seen" else a.astype(np.float32)
+    return out
+
+
+_PG_DTYPES = {
+    "odom_valid": torch.bool, "meas_valid": torch.bool, "solved": torch.bool,
+    "meas_lm": torch.int32, "ids": torch.int32, "M": torch.int32,
+    "timestep": torch.int32,
+}
+
+
+def posegraph_state_from_numpy(state, device="cpu") -> PoseGraphState:
+    """A JAX ``PoseGraphState`` (any object with its fields, as arrays) ->
+    the port's, on ``device``. A single world (``poses_init`` of rank 2)
+    gains the leading world axis."""
+    single = np.asarray(state.poses_init).ndim == 2
+    fields = {}
+    for f in dataclasses.fields(PoseGraphState):
+        a = np.asarray(getattr(state, f.name))
+        if single:
+            a = a[None]
+        fields[f.name] = torch.tensor(  # a copy: jax's arrays are read-only
+            a, dtype=_PG_DTYPES.get(f.name, torch.float32), device=device)
+    return PoseGraphState(**fields)
+
+
+def streams_from_numpy(streams: dict, device="cpu") -> dict:
+    """The JAX ``sim_streams`` dict of a ``vmap`` batch (poses_true (B, T, 3),
+    r, b, vis (B, T, N), noise_u (B, T, 2N+8)), or of one world without the
+    leading axis, -> the port's tensors: the same keys, and ``noise``
+    (T, 2N+8, B), the rollout kernels' injection layout, in place of
+    ``noise_u``."""
+    out = {}
+    for k, v in streams.items():
+        a = np.asarray(v)
+        if a.ndim == 2:
+            a = a[None]
+        if k == "noise_u":
+            k, a = "noise", a.transpose(1, 2, 0)
+        t = torch.tensor(a, device=device)  # a copy: jax's arrays are read-only
+        out[k] = t if k == "vis" else t.to(torch.float32)
     return out

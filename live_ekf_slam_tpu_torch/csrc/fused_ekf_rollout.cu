@@ -3,8 +3,8 @@
 //
 // Replaces the Pallas TPU kernel live_ekf_slam_tpu/ops/fused_rollout.py,
 // function fused_ekf_rollout (kernel body _make_kernel, profile_mode="full"):
-// with filter_kind="ekf" as fused_ekf_rollout_kernel<false>, and with
-// filter_kind="iekf" (fused_iekf_rollout) as fused_ekf_rollout_kernel<true>.
+// with filter_kind="ekf" as fused_ekf_rollout_kernel<false, .>, and with
+// filter_kind="iekf" (fused_iekf_rollout) as fused_ekf_rollout_kernel<true, .>.
 // The scalar helpers of ops/kernel_math.py are inlined (kernel_math.cuh) and a
 // Philox stream takes the place of the TPU's on-core PRNG.
 //
@@ -35,6 +35,15 @@
 // kernel can only skip per block of 256 worlds). Lanes own covariance rows;
 // __syncwarp() separates the read and write phases where the order of the
 // JAX kernel matters. Registers hold the truth pose and the error stats.
+//
+// The pose stream (the JAX kernel's emit_traj=True output, _make_kernel lines
+// 604-610) is a third template parameter: per tick the estimated pose x[0:3]
+// and the true pose go to est_traj and true_traj, both (B, T, 3). A warp
+// stages kTrajTicks ticks of its world in shared memory and then stores them
+// as two contiguous runs of 3 * kTrajTicks floats, so the writes are
+// coalesced and land in the layout the caller reads (the TPU's (T, 8, B)
+// with two pad rows was its tile shape). With kEmitTraj = false nothing of
+// it is compiled in: the instantiation is the kernel it was before.
 //
 // Numerics. Operation order follows the JAX kernel wherever results depend
 // on it (see the comments below). nvcc contracts a*b+c into FMA by default,
@@ -67,12 +76,15 @@ namespace {
 constexpr int kWorldsPerBlock = 4;
 constexpr size_t kMaxSmem = 232448;  // 227 KB: the most a Hopper block can use
 constexpr int kErrSmem = 100000;     // launcher's own code: see les_error_string
+constexpr int kTrajTicks = 32;       // ticks of the pose stream staged per store
 
 // floats of shared memory per world: P, then x, x snapshot, pr, pb, hp0,
-// hp1 (D each), noise rows, landmark x and y, vis, rn, bn, seen (N each)
-__host__ __device__ inline int world_floats(int n) {
+// hp1 (D each), noise rows, landmark x and y, vis, rn, bn, seen (N each),
+// and with the pose stream its staging buffer (estimated, then true poses)
+__host__ __device__ inline int world_floats(int n, bool emit_traj) {
   const int d = 3 + 2 * n;
-  return les::round_up(d * d + 6 * d + les::round_up(2 * n + 8, 4) + 6 * n, 4);
+  return les::round_up(d * d + 6 * d + les::round_up(2 * n + 8, 4) + 6 * n, 4) +
+         (emit_traj ? 6 * kTrajTicks : 0);
 }
 
 // Per-world working set in shared memory.
@@ -92,6 +104,7 @@ struct World {
   float* rn;   // N noisy ranges
   float* bn;   // N noisy bearings
   float* seen; // N
+  float* traj; // 6 kTrajTicks: staged pose stream (kEmitTraj only)
 };
 
 // EKF update with landmark j (fused_rollout.py:384-468). m_u is 0 or 1: a
@@ -209,13 +222,14 @@ __device__ __forceinline__ void ekf_insert(const EkfParams& p, const World& w, i
 }
 
 // Rtil = Rhat Jpc W Jpc^T Rhat^T through the unit (c1, s1) of heading plus
-// bearing (fused_rollout.py:310-314, 498-501).
+// bearing (fused_rollout.py:310-314, 498-501). The off-diagonal entry is
+// rt01 = t01 * s1; the caller takes that last product itself.
 __device__ __forceinline__ void iekf_rtil(const EkfParams& p, float rn,
                                           float c1, float s1, float& rt00,
-                                          float& rt01, float& rt11) {
+                                          float& t01, float& rt11) {
   const float rr2 = rn * rn;
   rt00 = p.w00f * c1 * c1 + p.w11f * rr2 * s1 * s1;
-  rt01 = (p.w00f - p.w11f * rr2) * c1 * s1;
+  t01 = (p.w00f - p.w11f * rr2) * c1;
   rt11 = p.w00f * s1 * s1 + p.w11f * rr2 * c1 * c1;
 }
 
@@ -271,10 +285,10 @@ __device__ __forceinline__ void iekf_update(const EkfParams& p, const World& w,
   // every read of x comes before the first write (:297-300, :351)
   const float xv = w.x[0], yv = w.x[1], thv = w.x[2];
   const float lmx = w.x[li], lmy = w.x[li + 1];
-  float c1, s1, rt00, rt01, rt11;
+  float c1, s1, rt00, t01, rt11;
   iekf_line_of_sight(thv, bnj, c1, s1);
   const float yw0 = rnj * c1, yw1 = rnj * s1;
-  iekf_rtil(p, rnj, c1, s1, rt00, rt01, rt11);
+  iekf_rtil(p, rnj, c1, s1, rt00, t01, rt11);
 
   // P H^T from P's columns, H P from P's rows
   for (int i = lane; i < D; i += 32) {
@@ -291,8 +305,10 @@ __device__ __forceinline__ void iekf_update(const EkfParams& p, const World& w,
   const float* pr = w.pr;
   const float* pb = w.pb;
   const float s00 = pr[li] - pr[0] + rt00;
-  const float s01 = pb[li] - pb[0] + rt01;
-  const float s10 = pr[li + 1] - pr[1] + rt01;
+  // rt01 = t01 * s1 joins each sum as one FMA: pinned, because nvcc chose
+  // so with the pose stream compiled out and otherwise with it compiled in
+  const float s01 = les::mad_pinned(t01, s1, pb[li] - pb[0]);
+  const float s10 = les::mad_pinned(t01, s1, pr[li + 1] - pr[1]);
   const float s11 = pb[li + 1] - pb[1] + rt11;
   float det = s00 * s11 - s01 * s10;
   det = fabsf(det) > 1e-20f ? det : 1.0f;
@@ -345,9 +361,10 @@ __device__ __forceinline__ void iekf_insert(const EkfParams& p, const World& w,
                                             float bnj, int lane) {
   float* P = w.P;
   const float xv = w.x[0], yv = w.x[1];
-  float c1, s1, rt00, rt01, rt11;
+  float c1, s1, rt00, t01, rt11;
   iekf_line_of_sight(w.x[2], bnj, c1, s1);
-  iekf_rtil(p, rnj, c1, s1, rt00, rt01, rt11);
+  iekf_rtil(p, rnj, c1, s1, rt00, t01, rt11);
+  const float rt01 = t01 * s1;
   for (int k = lane; k < D; k += 32) {
     w.hp0[k] = P[k];
     w.hp1[k] = P[D + k];
@@ -380,7 +397,7 @@ __device__ __forceinline__ void iekf_insert(const EkfParams& p, const World& w,
   __syncwarp();
 }
 
-template <bool kInvariant>
+template <bool kInvariant, bool kEmitTraj>
 __global__ void __launch_bounds__(32 * kWorldsPerBlock)
 fused_ekf_rollout_kernel(const EkfParams p, const float* __restrict__ lms,
                          const float* __restrict__ cmds,
@@ -390,7 +407,9 @@ fused_ekf_rollout_kernel(const EkfParams p, const float* __restrict__ lms,
                          float* __restrict__ err_max,
                          float* __restrict__ true_pose,
                          float* __restrict__ x_out, float* __restrict__ P_out,
-                         uint8_t* __restrict__ seen_out) {
+                         uint8_t* __restrict__ seen_out,
+                         float* __restrict__ est_traj,
+                         float* __restrict__ true_traj) {
   extern __shared__ float smem[];
   const int lane = threadIdx.x & 31;
   const int wib = threadIdx.x >> 5;
@@ -400,7 +419,7 @@ fused_ekf_rollout_kernel(const EkfParams p, const float* __restrict__ lms,
   const int D = 3 + 2 * N;
   const int R = 2 * N + 8;
   World w;
-  w.P = smem + (size_t)wib * world_floats(N);
+  w.P = smem + (size_t)wib * world_floats(N, kEmitTraj);
   w.x = w.P + D * D;
   w.xc = w.x + D;
   w.pr = w.xc + D;
@@ -414,6 +433,7 @@ fused_ekf_rollout_kernel(const EkfParams p, const float* __restrict__ lms,
   w.rn = w.vis + N;
   w.bn = w.rn + N;
   w.seen = w.bn + N;
+  w.traj = w.P + world_floats(N, false);
 
   // ---- init (fused_rollout.py:134-147); P0 diag from ekf.cpp:11-18
   for (int i = lane; i < D * D; i += 32) w.P[i] = 0.0f;
@@ -555,6 +575,25 @@ fused_ekf_rollout_kernel(const EkfParams p, const float* __restrict__ lms,
     const float e = sqrtf(ex * ex + ey * ey);
     esum = esum + e;
     emax = les::max_nan(emax, e);
+
+    // ---- pose stream (:604-610): stage this tick, store a full buffer
+    if constexpr (kEmitTraj) {
+      const int s = t % kTrajTicks;
+      if (lane < 3) {
+        w.traj[3 * s + lane] = w.x[lane];
+      } else if (lane < 6) {
+        w.traj[3 * (kTrajTicks + s) + lane - 3] =
+            lane == 3 ? tx : (lane == 4 ? ty : tth);
+      }
+      if (s == kTrajTicks - 1 || t == T - 1) {
+        __syncwarp();
+        const size_t base = ((size_t)world * T + (t - s)) * 3;
+        for (int i = lane; i < 3 * (s + 1); i += 32) {
+          est_traj[base + i] = w.traj[i];
+          true_traj[base + i] = w.traj[3 * kTrajTicks + i];
+        }
+      }
+    }
     __syncwarp();
   }
 
@@ -572,29 +611,48 @@ fused_ekf_rollout_kernel(const EkfParams p, const float* __restrict__ lms,
     seen_out[(size_t)world * N + j] = w.seen[j] > 0.5f ? 1 : 0;
 }
 
-template <bool kInvariant>
+template <bool kInvariant, bool kEmitTraj>
 int launch_rollout(const EkfParams* p, const float* lms, const float* cmds,
                    const float* noise, uint32_t seed, int B, int T, int N,
                    int predicated, float* err_sum, float* err_max,
                    float* true_pose, float* x, float* P, uint8_t* seen,
-                   void* stream) {
-  const size_t per_world = (size_t)world_floats(N) * sizeof(float);
+                   float* est_traj, float* true_traj, void* stream) {
+  const size_t per_world =
+      (size_t)world_floats(N, kEmitTraj) * sizeof(float);
   if (per_world > kMaxSmem) return kErrSmem;
   int wpb = kWorldsPerBlock;
   while (wpb > 1 && wpb * per_world > kMaxSmem) --wpb;
   const size_t smem = wpb * per_world;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fused_ekf_rollout_kernel<kInvariant>,
+        fused_ekf_rollout_kernel<kInvariant, kEmitTraj>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const unsigned blocks = (unsigned)((B + wpb - 1) / wpb);
-  fused_ekf_rollout_kernel<kInvariant>
+  fused_ekf_rollout_kernel<kInvariant, kEmitTraj>
       <<<blocks, 32 * wpb, smem, (cudaStream_t)stream>>>(
           *p, lms, cmds, noise, seed, B, T, N, predicated, err_sum, err_max,
-          true_pose, x, P, seen);
+          true_pose, x, P, seen, est_traj, true_traj);
   return (int)cudaGetLastError();
+}
+
+// est_traj and true_traj are both null (no pose stream) or both given
+template <bool kInvariant>
+int dispatch_rollout(const EkfParams* p, const float* lms, const float* cmds,
+                     const float* noise, uint32_t seed, int B, int T, int N,
+                     int predicated, float* err_sum, float* err_max,
+                     float* true_pose, float* x, float* P, uint8_t* seen,
+                     float* est_traj, float* true_traj, void* stream) {
+  if ((est_traj == nullptr) != (true_traj == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (est_traj != nullptr)
+    return launch_rollout<kInvariant, true>(
+        p, lms, cmds, noise, seed, B, T, N, predicated, err_sum, err_max,
+        true_pose, x, P, seen, est_traj, true_traj, stream);
+  return launch_rollout<kInvariant, false>(
+      p, lms, cmds, noise, seed, B, T, N, predicated, err_sum, err_max,
+      true_pose, x, P, seen, nullptr, nullptr, stream);
 }
 
 }  // namespace
@@ -603,19 +661,20 @@ extern "C" int les_fused_ekf_rollout(
     const EkfParams* p, const float* lms, const float* cmds,
     const float* noise, uint32_t seed, int B, int T, int N, int predicated,
     float* err_sum, float* err_max, float* true_pose, float* x, float* P,
-    uint8_t* seen, void* stream) {
-  return launch_rollout<false>(p, lms, cmds, noise, seed, B, T, N, predicated,
-                               err_sum, err_max, true_pose, x, P, seen,
-                               stream);
+    uint8_t* seen, float* est_traj, float* true_traj, void* stream) {
+  return dispatch_rollout<false>(p, lms, cmds, noise, seed, B, T, N,
+                                 predicated, err_sum, err_max, true_pose, x, P,
+                                 seen, est_traj, true_traj, stream);
 }
 
 extern "C" int les_fused_iekf_rollout(
     const EkfParams* p, const float* lms, const float* cmds,
     const float* noise, uint32_t seed, int B, int T, int N, int predicated,
     float* err_sum, float* err_max, float* true_pose, float* x, float* P,
-    uint8_t* seen, void* stream) {
-  return launch_rollout<true>(p, lms, cmds, noise, seed, B, T, N, predicated,
-                              err_sum, err_max, true_pose, x, P, seen, stream);
+    uint8_t* seen, float* est_traj, float* true_traj, void* stream) {
+  return dispatch_rollout<true>(p, lms, cmds, noise, seed, B, T, N, predicated,
+                                err_sum, err_max, true_pose, x, P, seen,
+                                est_traj, true_traj, stream);
 }
 
 extern "C" const char* les_error_string(int code) {

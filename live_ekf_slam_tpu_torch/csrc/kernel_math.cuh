@@ -57,6 +57,19 @@ __device__ __forceinline__ float atan2p(float y, float x) {
   return (y < 0.0f) ? -a : a;
 }
 
+// a * b + c with the rounding pinned: one FMA in the default build, product
+// and sum rounded apart in the build with contraction off (which defines
+// LES_NO_FMA beside -fmad=false). nvcc contracts per basic block, so two
+// instantiations of one kernel can round the same expression differently;
+// this is for the places where they did.
+__device__ __forceinline__ float mad_pinned(float a, float b, float c) {
+#ifdef LES_NO_FMA
+  return __fadd_rn(__fmul_rn(a, b), c);
+#else
+  return __fmaf_rn(a, b, c);
+#endif
+}
+
 // signed 32-bit random word -> [-1, 1): the arithmetic shift keeps the sign
 __device__ __forceinline__ float uniform_pm1(int32_t bits) {
   return (float)(bits >> 8) * (1.0f / 8388608.0f);

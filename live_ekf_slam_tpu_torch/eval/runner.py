@@ -1,19 +1,27 @@
-"""Monte-Carlo evaluation of the fused filter rollouts, in torch.
+"""Monte-Carlo evaluation of the fused filter rollouts and of pose-graph
+SLAM on streams, in torch.
 
-Counterpart of ``run_monte_carlo(impl="fused")`` in
-``live_ekf_slam_tpu/eval/runner.py`` for the four filters it serves
+Counterpart of ``live_ekf_slam_tpu/eval/runner.py`` for two of its paths.
+``run_monte_carlo(impl="fused")`` serves the four filters with a fused rollout
 (``ekf_slam``, ``iekf_slam``, ``ukf_slam``, ``ukf_loc``) and
 ``collect="sums"``: random maps, TSP command streams, one fused rollout of
 every world, and per-world average position error with a divergence latch.
-The per-tick path (``impl="xla"``), the naive filter and pose-graph runs are
-not ported yet (ROADMAP.md).
+``run_monte_carlo_pg_streams`` is the fast pose-graph Monte-Carlo: closed-form
+simulator streams, the secondary filter (naive in closed form, EKF or RI-EKF
+through the fused kernel's pose stream on the same noise), vectorised graph
+assembly, the iterative replay and the bulk Schur / block-Thomas solve. The
+per-tick path (``impl="xla"``), the naive filter on its own and the dense
+pose-graph solver are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
+from live_ekf_slam_tpu_torch.models import posegraph
 from live_ekf_slam_tpu_torch.ops.fused_rollout import (
     fused_ekf_rollout,
     fused_ekf_rollout_reference,
@@ -22,8 +30,10 @@ from live_ekf_slam_tpu_torch.ops.fused_ukf import (
     fused_ukf_rollout,
     fused_ukf_rollout_reference,
 )
+from live_ekf_slam_tpu_torch.ops.philox import philox_noise
 from live_ekf_slam_tpu_torch.ops.precision import pin_fp32
 from live_ekf_slam_tpu_torch.sim import maps as sim_maps
+from live_ekf_slam_tpu_torch.sim.streams import naive_deadreckon, sim_streams
 from live_ekf_slam_tpu_torch.sim.trajectory import generate_trajectory
 
 # a pose estimate farther than this from truth marks the world diverged
@@ -36,6 +46,25 @@ SHARED_BLOCK = 256
 
 # the filters with a fused rollout (runner.py:393-394 of the JAX package)
 FILTERS = ("ekf_slam", "iekf_slam", "ukf_slam", "ukf_loc")
+
+# secondary filters of the pose-graph streams path (runner.py:527)
+PG_SECONDARIES = ("naive", "ekf_slam", "iekf_slam")
+
+# Graph-prefix window quantum of the iterative replay (see ``replay_chunk``);
+# module-level so that tests can shrink it to replay several windows at
+# small T.
+REPLAY_CAP_STEP = 256
+
+# Gauss-Newton iterations per ``solve_schur_pcg`` call of the bulk solve.
+# Every call starts its damping afresh, so the cut is part of the numerics
+# and stays the JAX runner's (which made it for its device calls' length).
+BULK_SEG_GN = 10
+
+_NOT_FUSED = (
+    "filter={!r}: no fused rollout; naive and the per-tick pose_graph "
+    "accumulation are not ported yet (ROADMAP.md, M9; pose_graph runs "
+    "through run_monte_carlo_pg_streams)"
+)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -64,10 +93,7 @@ def fused_rollout(cfg, lms, cmds, seed, *, noise=None, plain=False,
     if cfg.filter in ("ukf_slam", "ukf_loc"):
         fn = fused_ukf_rollout_reference if plain else fused_ukf_rollout
         return fn(cfg, lms, cmds, seed, slam=cfg.filter == "ukf_slam", **kw)
-    raise NotImplementedError(
-        f"filter={cfg.filter!r}: not ported yet (ROADMAP.md, M9 naive, "
-        "M10 pose_graph)"
-    )
+    raise NotImplementedError(_NOT_FUSED.format(cfg.filter))
 
 
 def _gen_maps(cfg, rng: np.random.Generator, batch: int):
@@ -132,10 +158,7 @@ def run_monte_carlo(cfg, batch: int, seed: int = 0, impl: str = "fused",
             "(ROADMAP.md, M9)"
         )
     if cfg.filter not in FILTERS:
-        raise NotImplementedError(
-            f"filter={cfg.filter!r}: not ported yet (ROADMAP.md, M9 naive, "
-            "M10 pose_graph)"
-        )
+        raise NotImplementedError(_NOT_FUSED.format(cfg.filter))
     if collect != "sums":
         raise NotImplementedError(
             f"collect={collect!r}: per-tick collection is not ported yet "
@@ -159,3 +182,226 @@ def run_monte_carlo(cfg, batch: int, seed: int = 0, impl: str = "fused",
         "diverged_" + cfg.filter: diverged | ~np.isfinite(err),
     }
     return results, out, None
+
+
+def _sync(device) -> float:
+    """The host clock, after the device has finished what was queued."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
+
+
+def replay_chunk(cfg, graphs, m_at):
+    """Iterative mode: re-enact the per-tick incremental solves on the
+    assembled graphs (``posegraph.replay_iterative``), in graph-prefix
+    windows: tick t only involves graph rows <= t, so the ticks in [i, cap)
+    run on tensors cut to cap rows, and the per-tick cost is O(cap K), not
+    O(T K). Equivalent up to the order of float sums (~1e-5 on the final
+    metrics): all factor rows >= cap are invalid at those ticks, all pose
+    nodes > cap inactive, and every pose row is seeded again from
+    ``poses_init`` when its own tick is replayed."""
+    t_total = cfg.num_iterations
+    t_live = t_total - 1
+    p_sol, l_sol = graphs.poses_sol, graphs.lms_sol
+    i = 0
+    while i < t_live:
+        cap = min(-(-(i + 1) // REPLAY_CAP_STEP) * REPLAY_CAP_STEP, t_live + 1)
+        hi = min(cap, t_live)
+        s_c = graphs.replace(
+            poses_init=graphs.poses_init[:, :cap + 1],
+            poses_sol=graphs.poses_sol[:, :cap + 1],
+            odom=graphs.odom[:, :cap],
+            odom_valid=graphs.odom_valid[:, :cap],
+            meas_rb=graphs.meas_rb[:, :cap],
+            meas_lm=graphs.meas_lm[:, :cap],
+            meas_valid=graphs.meas_valid[:, :cap],
+        )
+        p_c, l_sol = posegraph.replay_iterative(
+            cfg, s_c, range(i, hi), p_sol[:, :cap + 1], l_sol, m_at[:, :cap]
+        )
+        p_sol = torch.cat([p_c, p_sol[:, cap + 1:]], dim=1)
+        i = hi
+    g2 = graphs.replace(poses_sol=p_sol, lms_sol=l_sol)
+    # the per-tick path runs solve_iteration on the last (non-live) tick
+    # too: node T-1 seeded again from poses_init, one more solve
+    return posegraph.solve_iteration(cfg, g2, g2.M, node_t=t_total - 1)
+
+
+def _pg_bulk_solve(cfg, primary, true_poses, batch, solve_chunk=None):
+    """Final bulk solve and metrics over a batched ``PoseGraphState``.
+    Returns per-world (err_pose_graph_result, err_pose_graph_initial)
+    arrays. ``solve_chunk`` worlds are solved at a time, by default all of
+    them (the JAX runner's 64 was what its device memory held)."""
+    t_total = cfg.num_iterations
+    pgc = cfg.pose_graph
+    warm = pgc.solve_graph_every_iteration
+    if pgc.solver != "schur":
+        raise NotImplementedError(
+            f"pose_graph.solver={pgc.solver!r}: the dense Levenberg-Marquardt "
+            "path is not ported yet (ROADMAP.md, dense solver)"
+        )
+
+    def segs(total):
+        return ([BULK_SEG_GN] * (total // BULK_SEG_GN)
+                + ([total % BULK_SEG_GN] if total % BULK_SEG_GN else []))
+
+    # cold starts: a 16x / 4x / 1x graduated measurement-sigma schedule.
+    # Warm starts (iterative mode) get a 1x polish, and a graduated solve
+    # from the raw seeds runs beside it as the rescue for a warm start
+    # stuck in a bad minimum: the lower residual of the two wins.
+    stage_gn = max(8, pgc.bulk_gn_iters // 3)
+    graduated = ([(16.0, n) for n in segs(stage_gn)]
+                 + [(4.0, n) for n in segs(stage_gn)]
+                 + [(1.0, n) for n in segs(pgc.bulk_gn_iters)])
+    schedule = [(1.0, n) for n in segs(pgc.bulk_gn_iters)] if warm else graduated
+
+    def run(sub, p, l, stages):
+        e = None
+        for sc, n in stages:
+            p, l, e = posegraph.solve_schur_pcg(
+                cfg, sub, p, l, n_gn=n, n_cg=pgc.bulk_cg_iters, meas_scale=sc)
+        return p, e
+
+    def mean_err(est, tr):
+        return torch.linalg.vector_norm(est - tr, dim=-1).mean(dim=-1).cpu().numpy()
+
+    err_pg, err_pg_init = [], []
+    step = batch if solve_chunk is None else solve_chunk
+    for i in range(0, batch, step):
+        sub = primary.map(lambda a: a[i:i + step])
+        if warm:
+            p, e = run(sub, sub.poses_sol, sub.lms_sol, schedule)
+            pr, er = run(sub, sub.poses_init, sub.lms_init, graduated)
+            p = torch.where((er < e)[:, None, None], pr, p)
+        else:
+            p, _ = run(sub, sub.poses_init, sub.lms_init, schedule)
+        # graph nodes are 0..T-1: node 0 is the init pose and the last tick
+        # adds no node (it solves instead), so node t+1 pairs with the truth
+        # after tick t for t = 0..T-2
+        tr = true_poses[i:i + step, :t_total - 1, :2]
+        err_pg.append(mean_err(p[:, 1:t_total, :2], tr))
+        # the error of the node values the graph was seeded with (the
+        # reference's /state/pose_graph/initial metric), same alignment
+        err_pg_init.append(mean_err(sub.poses_init[:, 1:t_total, :2], tr))
+    return np.concatenate(err_pg), np.concatenate(err_pg_init)
+
+
+def run_monte_carlo_pg_streams(cfg, batch: int, seed: int = 0,
+                               solve_chunk: int | None = None,
+                               world_chunk: int = 256, device=None, *,
+                               lms=None, cmds=None, noise=None):
+    """Fast pose-graph Monte Carlo: closed-form simulator streams, vectorised
+    graph assembly and the bulk solve, with no per-tick accumulation.
+
+    The simulator and the naive secondary are cumsums (``sim/streams.py``),
+    the EKF and RI-EKF secondaries run in the fused kernel on the SAME noise
+    draws (``fused_ekf_rollout(noise=..., emit_traj=True)``), and
+    ``posegraph.assemble_streams`` builds every graph tensor in O(T N)
+    vector ops. With ``pose_graph.solve_graph_every_iteration`` the per-tick
+    incremental solves are replayed on the assembled graphs before the bulk
+    solve. Worlds go through in chunks of ``world_chunk``; the noise of
+    world w is the Philox stream keyed (seed, w) whatever the chunking.
+
+    Returns (results, info, None): ``results`` holds the (B,) arrays
+    ``err_<secondary>``, ``diverged_<secondary>``, ``err_pose_graph_result``,
+    ``err_pose_graph_initial``, ``err_pose_graph`` and
+    ``diverged_pose_graph``; ``info["seconds"]`` the host-clock seconds of
+    each phase, summed over chunks, each ended by a device synchronise.
+    ``lms`` (B, N, 2), ``cmds`` (B, T, 2) and ``noise`` (T, 2N+8, B) are
+    test hooks that replace the maps, the command streams and the draws.
+    ``device`` defaults to the card and raises when there is none.
+    """
+    if cfg.filter != "pose_graph":
+        raise ValueError("run_monte_carlo_pg_streams requires filter=pose_graph")
+    if cfg.pose_graph.update_landmarks_after_adding:
+        raise ValueError(
+            "streams path does not support update_landmarks_after_adding"
+        )
+    secondary = cfg.pose_graph.filter_to_compare
+    if secondary not in PG_SECONDARIES:
+        raise ValueError(
+            "streams path supports naive/ekf_slam/iekf_slam secondary, "
+            f"got {secondary}"
+        )
+    pin_fp32()
+    device = resolve_device(device)
+    t_total = cfg.num_iterations
+    seconds = dict.fromkeys(
+        ("inputs", "streams", "secondary", "assemble", "replay", "solve"), 0.0)
+    t0 = _sync(device)
+    if (lms is None) != (cmds is None):
+        raise ValueError("give both lms and cmds, or neither")
+    if lms is None:
+        lms, cmds = mc_inputs(cfg, batch, seed, device)
+    if not cfg.precompute_trajectory:
+        cmds = torch.zeros((batch, t_total, 2), dtype=torch.float32,
+                           device=device)
+    n_lm = lms.shape[1]
+    if tuple(lms.shape) != (batch, n_lm, 2) or tuple(cmds.shape) != (batch, t_total, 2):
+        raise ValueError(
+            f"lms {tuple(lms.shape)} and cmds {tuple(cmds.shape)} do not fit "
+            f"batch {batch}, T {t_total}")
+    seconds["inputs"] = _sync(device) - t0
+
+    parts = {k: [] for k in ("err_sec", "max_sec", "err_pg", "err_pgi")}
+    tidx = torch.arange(t_total, device=device)
+    for i in range(0, batch, world_chunk):
+        t0 = _sync(device)
+        lms_c = lms[i:i + world_chunk].contiguous()
+        cmds_c = cmds[i:i + world_chunk].contiguous()
+        b_c = lms_c.shape[0]
+        if noise is None:
+            noise_c = philox_noise(seed, t_total, n_lm, b_c, device, world0=i)
+        else:
+            noise_c = noise[:, :, i:i + world_chunk].contiguous()
+        st = sim_streams(cfg, lms_c, n_lm, cmds_c, noise_c)
+        t1 = _sync(device)
+        if secondary == "naive":
+            est = naive_deadreckon(cfg, cmds_c)
+        else:
+            est = fused_ekf_rollout(
+                cfg, lms_c, cmds_c, seed, noise=noise_c, emit_traj=True,
+                filter_kind="iekf" if secondary == "iekf_slam" else "ekf",
+            )["est_traj"]
+        t2 = _sync(device)
+        graphs = posegraph.assemble_streams(
+            cfg, est, st["r"], st["b"], st["vis"], cmds_c)
+        # the secondary's metric and what its divergence latch reads
+        d_sec = torch.linalg.vector_norm(
+            est[:, :, :2] - st["poses_true"][:, :, :2], dim=-1)
+        parts["err_sec"].append(d_sec.mean(dim=1).cpu().numpy())
+        parts["max_sec"].append(d_sec.amax(dim=1).cpu().numpy())
+        t3 = _sync(device)
+        if cfg.pose_graph.solve_graph_every_iteration:
+            # landmark counts at the end of each tick, for the replay:
+            # m_at[t] = #{first sightings <= t}, on live ticks only
+            vis_live = st["vis"] & (tidx < t_total - 1)[None, :, None]
+            first_t = torch.where(vis_live, tidx[None, :, None], t_total).amin(dim=1)
+            m_at = (first_t[:, None, :] <= tidx[None, :, None]).sum(
+                dim=2, dtype=torch.int32)
+            graphs = replay_chunk(cfg, graphs, m_at)
+        t4 = _sync(device)
+        # solved while the chunk's graph tensors are on the device; only the
+        # per-world metric vectors come back
+        err_pg_c, err_pgi_c = _pg_bulk_solve(
+            cfg, graphs, st["poses_true"], b_c, solve_chunk)
+        parts["err_pg"].append(err_pg_c)
+        parts["err_pgi"].append(err_pgi_c)
+        t5 = _sync(device)
+        for key, dt in zip(("streams", "secondary", "assemble", "replay", "solve"),
+                           (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4)):
+            seconds[key] += dt
+
+    err_sec = np.concatenate(parts["err_sec"])
+    max_sec = np.concatenate(parts["max_sec"])
+    err_pg = np.concatenate(parts["err_pg"])
+    diverged = ~np.isfinite(max_sec) | (max_sec > DIVERGENCE_RADIUS)
+    results = {
+        "err_" + secondary: err_sec,
+        "diverged_" + secondary: diverged,
+        "err_pose_graph_result": err_pg,
+        "err_pose_graph_initial": np.concatenate(parts["err_pgi"]),
+        "err_pose_graph": err_pg,
+        "diverged_pose_graph": diverged,
+    }
+    return results, {"seconds": seconds}, None

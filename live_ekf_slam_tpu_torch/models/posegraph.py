@@ -1,0 +1,965 @@
+"""Pose-graph SLAM on assembled graphs: vectorised assembly, the bulk
+Schur / block-Thomas Gauss-Newton solver and the iterative replay.
+
+Counterpart of ``live_ekf_slam_tpu/models/posegraph.py`` for the streams path
+(``eval/runner.run_monte_carlo_pg_streams``). The factors are those of
+pose_graph.cpp: a prior on pose 0, one SE(2) between-factor per tick from the
+commanded odometry, one bearing-range factor per detection (bearing first),
+node values seeded from the secondary filter. Every function takes a batch of
+worlds on the leading axis (the JAX functions are per world under
+``jax.vmap``), so errors and dampings are (B,) vectors and each world keeps
+its own Levenberg schedule.
+
+Solvers here:
+
+* ``solve_schur_pcg``: landmarks eliminated by Schur complement, CG on the
+  pose system preconditioned by its exact block-tridiagonal chain part. The
+  chain's factorisation and solves are the sequential recursions the JAX
+  package runs as ``lax.scan``; on a CUDA tensor ``_tridiag_factor`` and
+  ``_tridiag_solve`` launch the hand-written kernels of
+  ``csrc/block_thomas.cu``, on a CPU tensor the plain loops
+  ``_tridiag_factor_reference`` / ``_tridiag_solve_reference``. There is no
+  fallback from one to the other.
+* ``solve_pcg_gn``: matrix-free Jacobi-PCG, used per tick by
+  ``replay_iterative`` (solve_graph_every_iteration mode, warm starts only).
+
+Not ported yet (ROADMAP.md): ``chordal_init`` and ``fix_theta``, the dense
+Levenberg-Marquardt path (``solve``, ``solve_dense``, ``finalize``,
+``_assemble``), and the per-tick accumulation (``init``, ``update``).
+
+Scatter-adds. ``.at[meas_lm].add`` of the JAX code would be ``scatter_add_``
+here, which on CUDA adds with atomics in an order that changes from run to
+run, and CG amplifies that. Graphs from ``assemble_streams`` bind measurement
+column j to one landmark slot in every tick, so a sum over ticks followed by
+a per-world placement of the K column sums is exact and deterministic.
+``LmSlots`` checks that property on the graph it is given and takes the
+general ``scatter_add_`` when it does not hold.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from live_ekf_slam_tpu_torch.core.noise import S3, _div, clip_uniform_moments
+from live_ekf_slam_tpu_torch.core.types import PoseGraphState
+from live_ekf_slam_tpu_torch.ops import _build
+from live_ekf_slam_tpu_torch.utils.geometry import wrap_angle
+
+# launches of the block-Thomas kernels (not of the plain loops)
+launches = {"factor": 0, "solve": 0}
+
+
+def assemble_streams(cfg, est_poses, r, b, vis, cmds) -> PoseGraphState:
+    """Build the whole pose graph of every world from full-rollout streams.
+
+    est_poses (B, T, 3): the secondary filter's pose after tick t (the node
+    seeds); r, b (B, T, N) noisy range and bearing streams (slot = landmark
+    id); vis (B, T, N) bool; cmds (B, T, 2) commanded odometry (the
+    between-factor values).
+
+    The graph is the one T per-tick updates would build: the last tick solves
+    instead of adding, landmark slots are assigned in first-sighting order
+    with same-tick ties broken by ascending id, and first sightings seed from
+    the secondary pose at the sighting tick. Needs num_meas_slots >= N.
+    """
+    t_cap = cfg.num_iterations
+    bsz, _, n_cap = vis.shape
+    k = cfg.num_meas_slots
+    dev = vis.device
+    if k < n_cap:
+        raise ValueError(
+            "assemble_streams needs num_meas_slots >= landmark slots "
+            f"(got {k} < {n_cap})"
+        )
+    if est_poses.shape[1] != t_cap:
+        raise ValueError("stream length must equal cfg.num_iterations")
+    tidx = torch.arange(t_cap, device=dev)
+    live = tidx < t_cap - 1  # the final tick solves instead of adding
+    vis_live = vis & live[None, :, None]
+
+    # ---- first-sighting slot assignment; the first sighting as a min over
+    # ticks, which no argmax tie rule can change
+    first_t = torch.where(vis_live, tidx[None, :, None], t_cap).amin(dim=1)
+    order = torch.argsort(first_t, dim=1, stable=True)  # ties -> ascending id
+    slot_of_id = torch.argsort(order, dim=1, stable=True)  # its inverse
+    m = (first_t < t_cap).sum(dim=1)
+    slot_idx = torch.arange(n_cap, device=dev)
+    has_slot = slot_idx[None, :] < m[:, None]
+    ids = torch.where(has_slot, order, -1).to(torch.int32)
+
+    # ---- landmark seeds: the secondary pose at the first-sighting tick
+    tf = first_t.clamp(0, t_cap - 1)
+    p_at = torch.gather(est_poses, 1, tf[:, :, None].expand(-1, -1, 3))
+    r_at = torch.gather(r, 1, tf[:, None, :])[:, 0]
+    b_at = torch.gather(b, 1, tf[:, None, :])[:, 0]
+    seed_x = p_at[:, :, 0] + r_at * torch.cos(p_at[:, :, 2] + b_at)
+    seed_y = p_at[:, :, 1] + r_at * torch.sin(p_at[:, :, 2] + b_at)
+    seeds_by_id = torch.stack([seed_x, seed_y], dim=2)  # (B, N, 2) by id
+    lms_init = torch.where(
+        has_slot[:, :, None],
+        torch.gather(seeds_by_id, 1, order[:, :, None].expand(-1, -1, 2)),
+        0.0,
+    )
+
+    # ---- node values and odometry
+    pose0 = torch.tensor(cfg.init_pose, dtype=torch.float32, device=dev)
+    poses_init = torch.cat(
+        [pose0.expand(bsz, 1, 3),
+         torch.where(live[None, :, None], est_poses, 0.0)], dim=1,
+    )  # (B, T+1, 3); the row of the last tick stays zero
+    odom = torch.where(live[None, :, None], cmds, 0.0)
+    poses_sol = torch.zeros((bsz, t_cap + 1, 3), dtype=torch.float32, device=dev)
+    poses_sol[:, 0] = pose0
+
+    # ---- measurement factor tensors (slot j = landmark id j, the
+    # simulator's id-order emission; invalid slots zeroed)
+    meas_rb = torch.where(vis_live[..., None], torch.stack([r, b], dim=-1), 0.0)
+    meas_lm = torch.where(vis_live, slot_of_id[:, None, :], 0).to(torch.int32)
+    meas_valid = vis_live
+    if k > n_cap:
+        def pad(a):  # zero slots n_cap..k-1 on the slot axis
+            shape = list(a.shape)
+            shape[2] = k - n_cap
+            return torch.cat([a, a.new_zeros(shape)], dim=2)
+
+        meas_rb, meas_lm, meas_valid = pad(meas_rb), pad(meas_lm), pad(meas_valid)
+
+    return PoseGraphState(
+        poses_init=poses_init,
+        lms_init=lms_init,
+        odom=odom,
+        odom_valid=live.expand(bsz, t_cap),
+        meas_rb=meas_rb,
+        meas_lm=meas_lm,
+        meas_valid=meas_valid,
+        ids=ids,
+        M=m.to(torch.int32),
+        timestep=torch.full((bsz,), t_cap - 1, dtype=torch.int32, device=dev),
+        cur_pose=est_poses[:, -1],
+        poses_sol=poses_sol,
+        lms_sol=torch.zeros((bsz, n_cap, 2), dtype=torch.float32, device=dev),
+        solved=torch.zeros(bsz, dtype=torch.bool, device=dev),
+    )
+
+
+class LmSlots:
+    """How a graph's measurement slots (B, T, K) map to landmark slots: the
+    gather of a per-landmark value to every measurement and the scatter-add
+    of per-measurement values to landmarks.
+
+    ``by_column``: in every world, every valid measurement of column j binds
+    to one slot (true of graphs from ``assemble_streams``). Then the scatter
+    is a sum over ticks and a placement of K column sums, exact and the same
+    in every run, and the gather broadcasts over ticks. Invalid measurements
+    carry zero coefficients in every caller, so the slot they name is free.
+    """
+
+    def __init__(self, s: PoseGraphState, detect: bool = True):
+        """``detect=False`` takes the general form without looking at the
+        graph (no host synchronisation)."""
+        idx = s.meas_lm.long()
+        self.n = s.lms_init.shape[1]
+        self.shape = tuple(idx.shape)
+        self.by_column = False
+        if detect:
+            col = torch.where(s.meas_valid, idx, 0).amax(dim=1)  # (B, K)
+            self.by_column = bool(
+                ((idx == col[:, None, :]) | ~s.meas_valid).all())
+        if self.by_column:
+            self.col = col
+            self.onehot = torch.nn.functional.one_hot(col, self.n).to(
+                torch.float32)  # (B, K, N)
+        else:
+            self.flat = idx.reshape(self.shape[0], -1)
+
+    def gather(self, v: torch.Tensor) -> torch.Tensor:
+        """v (B, N) -> v at each measurement's slot, (B, T, K) or, by
+        column, its broadcastable (B, 1, K)."""
+        if self.by_column:
+            return torch.gather(v, 1, self.col)[:, None, :]
+        return torch.gather(v, 1, self.flat).reshape(self.shape)
+
+    def scatter(self, vals: torch.Tensor) -> torch.Tensor:
+        """vals (B, T, K) summed into their landmark slots, (B, N)."""
+        if self.by_column:
+            return (vals.sum(dim=1)[:, :, None] * self.onehot).sum(dim=1)
+        out = torch.zeros((self.shape[0], self.n), dtype=vals.dtype,
+                          device=vals.device)
+        return out.scatter_add_(1, self.flat, vals.reshape(self.shape[0], -1))
+
+
+# ----------------------------------------------------------------------
+# Residuals, Jacobians, gradient
+# ----------------------------------------------------------------------
+
+def _prior_sigmas(cfg, device=None) -> torch.Tensor:
+    """Pose-0 anchor sigmas: the reference's (1.3, 1.3, 1.2) in compat mode,
+    the true initialisation uncertainty in honest mode."""
+    pg = cfg.pose_graph
+    sig = (pg.prior_sigmas if cfg.compat.pg_variances_as_sigmas
+           else pg.prior_sigmas_honest)
+    return torch.tensor(sig, dtype=torch.float32, device=device)
+
+
+def _noise_sigmas(cfg, meas_scale: float = 1.0):
+    (v00, v11), (w00, w11) = cfg.filter_noise()
+    if cfg.compat.pg_variances_as_sigmas:
+        # GTSAM models are built from variances passed as sigmas
+        odom_s = (v00, v00, v11)
+        meas_s = (w11, w00)  # (bearing, range)
+    else:
+        # honest model of the simulator's noise: U(-V, V) has std V/sqrt(3);
+        # the unicycle has no lateral slip, so the lateral sigma is a small
+        # regulariser
+        odom_s = (v00 / S3, 1e-3, v11 / S3)
+        meas_s = (w11 / S3, w00 / S3)
+    meas_s = (meas_s[0] * meas_scale, meas_s[1] * meas_scale)
+    return odom_s, meas_s
+
+
+def _odom_moments(cfg, odom: torch.Tensor):
+    """Clip-aware per-tick odometry moments (honest mode): the simulator
+    clips the noisy command, so a saturated tick is biased toward the
+    interior and less noisy than U(-V, V). Returns (eff (B, T, 2) expected
+    executed [fwd, hdg], sig (B, T, 3) residual sigmas [fwd, lateral, hdg]).
+    Compat mode returns the reference's factors: raw commands,
+    variance-as-sigma scalars."""
+    (v00, v11), _ = cfg.filter_noise()
+    if cfg.compat.pg_variances_as_sigmas:
+        sig = torch.tensor([v00, v00, v11], dtype=torch.float32,
+                           device=odom.device)
+        return odom, sig.expand(*odom.shape[:-1], 3)
+    v_fwd = cfg.process_noise.V_00
+    v_hdg = cfg.process_noise.V_11
+    if v_fwd > 0.0:
+        eff_d, sig_d = clip_uniform_moments(
+            odom[..., 0], v_fwd, 0.0, cfg.constraints.commands.d_max
+        )
+        # a fully saturated tick has std -> 0; floor at 10% of the unclipped
+        # std so that no factor becomes near-infinitely stiff
+        sig_d = torch.clamp_min(sig_d, 0.1 * v_fwd / S3)
+    else:
+        eff_d, sig_d = odom[..., 0], torch.full_like(odom[..., 0], 1e-6)
+    th_max = cfg.constraints.commands.th_max
+    if v_hdg > 0.0:
+        eff_th, sig_th = clip_uniform_moments(
+            odom[..., 1], v_hdg, -th_max, th_max
+        )
+        sig_th = torch.clamp_min(sig_th, 0.1 * v_hdg / S3)
+    else:
+        eff_th, sig_th = odom[..., 1], torch.full_like(odom[..., 1], 1e-6)
+    sig_lat = torch.full_like(sig_d, 1e-3)
+    eff = torch.stack([eff_d, eff_th], dim=-1)
+    sig = torch.stack([sig_d, sig_lat, sig_th], dim=-1)
+    return eff, sig
+
+
+def _logmap_vinv(th: torch.Tensor):
+    """V(theta)^-1 of the SE(2) log map as (a, b), V^-1 = [[a, b], [-b, a]],
+    with Taylor fallbacks below 1e-4."""
+    small = th.abs() < 1e-4
+    th_safe = torch.where(small, 1.0, th)
+    a = torch.where(small, 1.0 - _div(th * th, 6.0), torch.sin(th) / th_safe)
+    b = torch.where(
+        small, th / 2.0 - _div(th ** 3, 24.0), (1.0 - torch.cos(th)) / th_safe
+    )
+    den = a * a + b * b
+    return a / den, b / den
+
+
+def _residuals(cfg, s: PoseGraphState, poses, lms, meas_scale=1.0, slots=None):
+    """All whitened residuals and masks, vectorised over factors: r_prior
+    (B, 3), r_odom (B, T, 3), r_meas (B, T, K, 2) in (bearing, range) order,
+    rng_safe and the masked geometry (mdx, mdy), each (B, T, K)."""
+    slots = slots or LmSlots(s, detect=False)
+    odom_eff, odom_sig = _odom_moments(cfg, s.odom)
+    _, meas_s = _noise_sigmas(cfg, meas_scale)
+    prior_s = _prior_sigmas(cfg, poses.device)
+
+    # prior on pose 0
+    p0 = s.poses_init[:, 0]
+    r_prior = torch.cat(
+        [poses[:, 0, :2] - p0[:, :2],
+         wrap_angle(poses[:, 0, 2] - p0[:, 2])[:, None]], dim=1,
+    ) / prior_s
+
+    # odometry between-factors t -> t+1
+    pa = poses[:, :-1]
+    pb = poses[:, 1:]
+    ca, sa = torch.cos(pa[..., 2]), torch.sin(pa[..., 2])
+    dx = pb[..., 0] - pa[..., 0]
+    dy = pb[..., 1] - pa[..., 1]
+    lx = ca * dx + sa * dy
+    ly = -sa * dx + ca * dy
+    lth = wrap_angle(pb[..., 2] - pa[..., 2])
+    if cfg.pose_graph.exact_logmap:
+        # GTSAM Pose2 between-factor error: Logmap(measured^-1 (pa^-1 pb))
+        m_th = odom_eff[..., 1]
+        cm, sm = torch.cos(m_th), torch.sin(m_th)
+        ex_ = lx - odom_eff[..., 0]
+        ey_ = ly  # the measured y component is 0
+        rx = cm * ex_ + sm * ey_
+        ry = -sm * ex_ + cm * ey_
+        rth = wrap_angle(lth - m_th)
+        va, vb = _logmap_vinv(rth)
+        r_odom = torch.stack(
+            [(va * rx + vb * ry) / odom_sig[..., 0],
+             (-vb * rx + va * ry) / odom_sig[..., 1],
+             rth / odom_sig[..., 2]], dim=-1,
+        )
+    else:
+        # local-coordinates approximation (difference in pose a's frame)
+        r_odom = torch.stack(
+            [(lx - odom_eff[..., 0]) / odom_sig[..., 0],
+             (ly - 0.0) / odom_sig[..., 1],
+             wrap_angle(lth - odom_eff[..., 1]) / odom_sig[..., 2]], dim=-1,
+        )
+    r_odom = torch.where(s.odom_valid[..., None], r_odom, 0.0)
+
+    # bearing-range factors: the measurement at row t attaches to pose t+1
+    pt = poses[:, 1:, None, :]  # (B, T, 1, 3)
+    # double where: masked slots get unit geometry BEFORE sqrt and atan2, so
+    # that they stay finite
+    mdx = torch.where(s.meas_valid, slots.gather(lms[..., 0]) - pt[..., 0], 1.0)
+    mdy = torch.where(s.meas_valid, slots.gather(lms[..., 1]) - pt[..., 1], 0.0)
+    rng = torch.sqrt(mdx * mdx + mdy * mdy)
+    rng_safe = torch.where(rng > 0, rng, 1.0)
+    brg = wrap_angle(torch.atan2(mdy, mdx) - pt[..., 2])
+    r_meas = torch.stack(
+        [_div(wrap_angle(brg - s.meas_rb[..., 1]), meas_s[0]),
+         _div(rng - s.meas_rb[..., 0], meas_s[1])], dim=-1,
+    )
+    r_meas = torch.where(s.meas_valid[..., None], r_meas, 0.0)
+    return r_prior, r_odom, r_meas, rng_safe, (mdx, mdy)
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Each world's inner product of two arrays, (B,)."""
+    return (a * b).reshape(a.shape[0], -1).sum(dim=1)
+
+
+def graph_error(cfg, s: PoseGraphState, poses, lms, meas_scale=1.0,
+                slots=None, res=None) -> torch.Tensor:
+    """0.5 * sum of squared whitened residuals of each world, (B,)."""
+    r_prior, r_odom, r_meas, _, _ = res or _residuals(
+        cfg, s, poses, lms, meas_scale, slots)
+    return 0.5 * (_dot(r_prior, r_prior) + _dot(r_odom, r_odom)
+                  + _dot(r_meas, r_meas))
+
+
+def _jacobians(cfg, s: PoseGraphState, poses, lms, meas_scale=1.0, slots=None,
+               res=None) -> dict:
+    """Whitened prior and odometry Jacobians with the residuals (``res``: a
+    ``_residuals`` result for these arguments, to save computing it again).
+    ja, jb (B, T, 3, 3): d residual / d pose_t and / d pose_{t+1}."""
+    odom_eff, odom_sig = _odom_moments(cfg, s.odom)
+    prior_s = _prior_sigmas(cfg, poses.device)
+    r_prior, r_odom, r_meas, _, _ = res or _residuals(
+        cfg, s, poses, lms, meas_scale, slots)
+
+    pa = poses[:, :-1]
+    ca, sa = torch.cos(pa[..., 2]), torch.sin(pa[..., 2])
+    dx = poses[:, 1:, 0] - pa[..., 0]
+    dy = poses[:, 1:, 1] - pa[..., 1]
+    zeros = torch.zeros_like(ca)
+    ones = torch.ones_like(ca)
+    ja = torch.stack(
+        [torch.stack([-ca, -sa, -sa * dx + ca * dy], dim=-1),
+         torch.stack([sa, -ca, -ca * dx - sa * dy], dim=-1),
+         torch.stack([zeros, zeros, -ones], dim=-1)], dim=-2,
+    )
+    jb = torch.stack(
+        [torch.stack([ca, sa, zeros], dim=-1),
+         torch.stack([-sa, ca, zeros], dim=-1),
+         torch.stack([zeros, zeros, ones], dim=-1)], dim=-2,
+    )
+    if cfg.pose_graph.exact_logmap:
+        # the translation rows pick up M2 = V^-1(rel_th) R(-m_th); the
+        # d(V^-1)/d(th) terms are proportional to the residual and dropped
+        # (the Gauss-Newton small-residual approximation)
+        m_th = odom_eff[..., 1]
+        cm, sm = torch.cos(m_th), torch.sin(m_th)
+        lth = wrap_angle(poses[:, 1:, 2] - pa[..., 2])
+        va, vb = _logmap_vinv(wrap_angle(lth - m_th))
+        m2 = torch.stack(
+            [torch.stack([va * cm - vb * sm, va * sm + vb * cm], dim=-1),
+             torch.stack([-vb * cm - va * sm, -vb * sm + va * cm], dim=-1)],
+            dim=-2,
+        )  # (B, T, 2, 2)
+
+        def rotate(j):
+            top = (m2[..., :, 0:1] * j[..., 0:1, :]
+                   + m2[..., :, 1:2] * j[..., 1:2, :])
+            return torch.cat([top, j[..., 2:, :]], dim=-2)
+
+        ja, jb = rotate(ja), rotate(jb)
+    inv_od = 1.0 / odom_sig  # per-tick whitening (clip-aware)
+    mask_od = s.odom_valid[..., None, None].to(torch.float32)
+    ja = ja * inv_od[..., :, None] * mask_od
+    jb = jb * inv_od[..., :, None] * mask_od
+    t_cap = s.odom.shape[1]
+    n_cap = s.lms_init.shape[1]
+    dev = poses.device
+    return {
+        "inv_pr": 1.0 / prior_s,
+        "r_prior": r_prior,
+        "ja": ja,
+        "jb": jb,
+        "r_odom": r_odom,
+        "r_meas": r_meas,
+        "p0": s.poses_init[:, 0],
+        "pose_active": torch.arange(t_cap + 1, device=dev)[None] <= s.timestep[:, None],
+        "lm_active": torch.arange(n_cap, device=dev)[None] < s.M[:, None],
+    }
+
+
+def _meas_coeffs(cfg, s: PoseGraphState, poses, lms, meas_scale, slots=None,
+                 res=None):
+    """Bearing-range Jacobian rows as five (B, T, K) coefficient arrays.
+
+    rows (whitened): bearing = [ab, bb, cb, -ab, -bb],
+                     range   = [ar, br,  0, -ar, -br]
+    over the variables (px, py, pth, lx, ly); zero where invalid.
+    """
+    _, meas_s = _noise_sigmas(cfg, meas_scale)
+    _, _, r_meas, rng_safe, (mdx, mdy) = res or _residuals(
+        cfg, s, poses, lms, meas_scale, slots)
+    valid = s.meas_valid.to(torch.float32)
+    r2 = rng_safe * rng_safe
+    ab = _div(mdy / r2, meas_s[0]) * valid
+    bb = _div(-mdx / r2, meas_s[0]) * valid
+    cb = _div(-torch.ones_like(valid), meas_s[0]) * valid
+    ar = _div(-mdx / rng_safe, meas_s[1]) * valid
+    br = _div(-mdy / rng_safe, meas_s[1]) * valid
+    return (ab, bb, cb, ar, br), r_meas
+
+
+def _mv(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(..., r, i) matrix times (..., i) vector, in float32 elementwise ops
+    (no library product: its precision mode and order are the caller's)."""
+    return (m * v[..., None, :]).sum(dim=-1)
+
+
+def _mtv(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Transposed (..., r, i) matrix times (..., r) vector."""
+    return (m * v[..., :, None]).sum(dim=-2)
+
+
+def _mtm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a^T b for (..., r, i) and (..., r, j) -> (..., i, j)."""
+    return (a[..., :, :, None] * b[..., :, None, :]).sum(dim=-3)
+
+
+def _meas_back(slots: LmSlots, coeffs, u_b, u_r, op, ol):
+    """Accumulate J_meas^T u into the pose (B, T+1, 3) and landmark (B, N, 2)
+    blocks (in place: both belong to the caller)."""
+    ab, bb, cb, ar, br = coeffs
+    px = ab * u_b + ar * u_r  # (B, T, K)
+    py = bb * u_b + br * u_r
+    pth = cb * u_b
+    op[:, 1:] += torch.stack([px.sum(dim=2), py.sum(dim=2), pth.sum(dim=2)], dim=-1)
+    ol += torch.stack([slots.scatter(-px), slots.scatter(-py)], dim=-1)
+    return op, ol
+
+
+def _zeros_like_graph(s: PoseGraphState):
+    bsz, t_cap = s.odom.shape[:2]
+    kw = dict(dtype=torch.float32, device=s.odom.device)
+    return (torch.zeros((bsz, t_cap + 1, 3), **kw),
+            torch.zeros((bsz, s.lms_init.shape[1], 2), **kw))
+
+
+def _grad(cfg, s: PoseGraphState, jac, coeffs, r_meas, slots=None):
+    """g = -J^T r as pose (B, T+1, 3) and landmark (B, N, 2) blocks."""
+    slots = slots or LmSlots(s, detect=False)
+    gp, gl = _zeros_like_graph(s)
+    gp[:, 0] += -jac["inv_pr"] * jac["r_prior"]
+    gp[:, :-1] += -_mtv(jac["ja"], jac["r_odom"])
+    gp[:, 1:] += -_mtv(jac["jb"], jac["r_odom"])
+    return _meas_back(slots, coeffs, -r_meas[..., 0], -r_meas[..., 1], gp, gl)
+
+
+def _hv(s: PoseGraphState, jac, coeffs, vp, vl, slots=None):
+    """Matrix-free H v = J^T (J v), H the Gauss-Newton Hessian."""
+    slots = slots or LmSlots(s, detect=False)
+    op, ol = _zeros_like_graph(s)
+    op[:, 0] += jac["inv_pr"] ** 2 * vp[:, 0]
+    # odometry: u = Ja v_t + Jb v_{t+1}
+    u = _mv(jac["ja"], vp[:, :-1]) + _mv(jac["jb"], vp[:, 1:])
+    op[:, :-1] += _mtv(jac["ja"], u)
+    op[:, 1:] += _mtv(jac["jb"], u)
+    # bearing-range: u = J_meas [v_pose(t+1); v_lm]
+    ab, bb, cb, ar, br = coeffs
+    ex = vp[:, 1:, 0:1] - slots.gather(vl[..., 0])
+    ey = vp[:, 1:, 1:2] - slots.gather(vl[..., 1])
+    u_b = ab * ex + bb * ey + cb * vp[:, 1:, 2:3]
+    u_r = ar * ex + br * ey
+    return _meas_back(slots, coeffs, u_b, u_r, op, ol)
+
+
+def _h_diag(s: PoseGraphState, jac, coeffs, slots=None):
+    """diag(J^T J) as pose and landmark blocks (the Jacobi preconditioner)."""
+    slots = slots or LmSlots(s, detect=False)
+    dp, dl = _zeros_like_graph(s)
+    dp[:, 0] += jac["inv_pr"] ** 2
+    dp[:, :-1] += (jac["ja"] * jac["ja"]).sum(dim=-2)
+    dp[:, 1:] += (jac["jb"] * jac["jb"]).sum(dim=-2)
+    ab, bb, cb, ar, br = coeffs
+    qx = ab * ab + ar * ar  # (B, T, K)
+    qy = bb * bb + br * br
+    qth = cb * cb
+    dp[:, 1:] += torch.stack([qx.sum(dim=2), qy.sum(dim=2), qth.sum(dim=2)], dim=-1)
+    dl += torch.stack([slots.scatter(qx), slots.scatter(qy)], dim=-1)
+    return dp, dl
+
+
+# ----------------------------------------------------------------------
+# Bulk solver: Schur-eliminated landmarks, CG on the poses, preconditioned
+# by the exact block-tridiagonal chain (block-Thomas)
+# ----------------------------------------------------------------------
+
+def _inv3(a: torch.Tensor) -> torch.Tensor:
+    """Closed-form inverse of (..., 3, 3) blocks by the adjugate (the blocks
+    are Jacobi-scaled SPD plus damping: entries O(1), determinant away from
+    0); a singular block is divided by 1 instead."""
+    c00 = a[..., 1, 1] * a[..., 2, 2] - a[..., 1, 2] * a[..., 2, 1]
+    c01 = a[..., 1, 2] * a[..., 2, 0] - a[..., 1, 0] * a[..., 2, 2]
+    c02 = a[..., 1, 0] * a[..., 2, 1] - a[..., 1, 1] * a[..., 2, 0]
+    c10 = a[..., 0, 2] * a[..., 2, 1] - a[..., 0, 1] * a[..., 2, 2]
+    c11 = a[..., 0, 0] * a[..., 2, 2] - a[..., 0, 2] * a[..., 2, 0]
+    c12 = a[..., 0, 1] * a[..., 2, 0] - a[..., 0, 0] * a[..., 2, 1]
+    c20 = a[..., 0, 1] * a[..., 1, 2] - a[..., 0, 2] * a[..., 1, 1]
+    c21 = a[..., 0, 2] * a[..., 1, 0] - a[..., 0, 0] * a[..., 1, 2]
+    c22 = a[..., 0, 0] * a[..., 1, 1] - a[..., 0, 1] * a[..., 1, 0]
+    det = a[..., 0, 0] * c00 + a[..., 0, 1] * c01 + a[..., 0, 2] * c02
+    det = torch.where(det.abs() > 1e-30, det, 1.0)
+    adj = torch.stack(
+        [torch.stack([c00, c10, c20], dim=-1),
+         torch.stack([c01, c11, c21], dim=-1),
+         torch.stack([c02, c12, c22], dim=-1)], dim=-2,
+    )
+    return adj / det[..., None, None]
+
+
+def _pose_blocks(cfg, s: PoseGraphState, jac, coeffs, damping):
+    """Block-tridiagonal pose part of the GN Hessian: diagonal blocks d
+    (B, T+1, 3, 3) and couplings u (B, T, 3, 3) between consecutive nodes
+    (the prior on node 0; between-factors couple t and t+1; bearing-range
+    factors are unary on pose t+1). Damped (``damping`` a float or (B,)),
+    inactive nodes pinned. Returns (d, u, active (B, T+1) float)."""
+    bsz, t_cap = s.odom.shape[:2]
+    ja, jb = jac["ja"], jac["jb"]
+    i3 = torch.arange(3, device=ja.device)
+    d = torch.zeros((bsz, t_cap + 1, 3, 3), dtype=torch.float32, device=ja.device)
+    d[:, 0, i3, i3] += jac["inv_pr"] ** 2
+    d[:, :-1] += _mtm(ja, ja)
+    d[:, 1:] += _mtm(jb, jb)
+    ab, bb, cb, ar, br = coeffs  # whitened, already masked by validity
+    hxx = (ab * ab + ar * ar).sum(dim=2)
+    hxy = (ab * bb + ar * br).sum(dim=2)
+    hxt = (ab * cb).sum(dim=2)
+    hyy = (bb * bb + br * br).sum(dim=2)
+    hyt = (bb * cb).sum(dim=2)
+    htt = (cb * cb).sum(dim=2)
+    d[:, 1:] += torch.stack(
+        [torch.stack([hxx, hxy, hxt], dim=-1),
+         torch.stack([hxy, hyy, hyt], dim=-1),
+         torch.stack([hxt, hyt, htt], dim=-1)], dim=-2,
+    )
+    u = _mtm(ja, jb)  # coupling block (t, t+1)
+
+    active = jac["pose_active"].to(torch.float32)  # (B, T+1)
+    diag = torch.diagonal(d, dim1=2, dim2=3)
+    damping = torch.as_tensor(damping, dtype=torch.float32, device=ja.device)
+    d[:, :, i3, i3] += (damping.reshape(-1, 1, 1) * diag
+                        + (1.0 - active[:, :, None]))
+    return d, u, active
+
+
+def _mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(B, 3, 3) a b, summed in index order k = 0, 1, 2 (the kernel's)."""
+    return (a[:, :, 0:1] * b[:, 0:1, :] + a[:, :, 1:2] * b[:, 1:2, :]
+            + a[:, :, 2:3] * b[:, 2:3, :])
+
+
+def _mv3(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """(B, 3, 3) a times (B, 3) v, summed in index order."""
+    return a[:, :, 0] * v[:, 0:1] + a[:, :, 1] * v[:, 1:2] + a[:, :, 2] * v[:, 2:3]
+
+
+def _check_blocks(name, t, shape, dev):
+    if t.device != dev or t.dtype != torch.float32 or tuple(t.shape) != shape:
+        raise ValueError(
+            f"{name}: expected float32 {shape} on {dev}, got {t.dtype} "
+            f"{tuple(t.shape)} on {t.device}")
+
+
+def _tridiag_factor(d: torch.Tensor, u: torch.Tensor) -> dict:
+    """Block-Thomas (block-LDL) factorisation of SPD block-tridiagonal
+    systems, d (B, T+1, 3, 3), u (B, T, 3, 3). Jacobi block scaling keeps
+    the recursion O(1) in float32 (raw whitened entries reach ~1e7). Returns
+    the reusable factor {"sinv" (B, T+1, 3, 3), "l" (B, T, 3, 3), "u" (the
+    scaled couplings), "dsc" (B, T+1, 3)} for ``_tridiag_solve``. On CUDA
+    tensors one launch of ``csrc/block_thomas.cu``; on the CPU the plain
+    loop."""
+    dev = d.device
+    if dev.type == "cpu":
+        return _tridiag_factor_reference(d, u)
+    if dev.type != "cuda":
+        raise ValueError(f"_tridiag_factor runs on cpu or cuda, not {dev}")
+    if d.dim() != 4:
+        raise ValueError(f"d must be (B, T+1, 3, 3), got {tuple(d.shape)}")
+    bsz, t1 = d.shape[:2]
+    _check_blocks("d", d, (bsz, t1, 3, 3), dev)
+    _check_blocks("u", u, (bsz, t1 - 1, 3, 3), dev)
+    d, u = d.contiguous(), u.contiguous()
+    fac = {"sinv": torch.empty_like(d), "l": torch.empty_like(u),
+           "u": torch.empty_like(u),
+           "dsc": torch.empty((bsz, t1, 3), dtype=torch.float32, device=dev)}
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        rc = lib.les_block_thomas_factor(
+            d.data_ptr(), u.data_ptr(), bsz, t1 - 1, fac["sinv"].data_ptr(),
+            fac["l"].data_ptr(), fac["u"].data_ptr(), fac["dsc"].data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "block-Thomas factor kernel")
+    launches["factor"] += 1
+    return fac
+
+
+def _tridiag_solve(fac: dict, rhs: torch.Tensor) -> torch.Tensor:
+    """Solve the factored systems for rhs (B, T+1, 3): forward, then back
+    substitution. On CUDA tensors one launch of ``csrc/block_thomas.cu``; on
+    the CPU the plain loop."""
+    dev = rhs.device
+    if dev.type == "cpu":
+        return _tridiag_solve_reference(fac, rhs)
+    if dev.type != "cuda":
+        raise ValueError(f"_tridiag_solve runs on cpu or cuda, not {dev}")
+    bsz, t1 = fac["dsc"].shape[:2]
+    _check_blocks("rhs", rhs, (bsz, t1, 3), dev)
+    _check_blocks("sinv", fac["sinv"], (bsz, t1, 3, 3), dev)
+    for key in ("l", "u"):
+        _check_blocks(key, fac[key], (bsz, t1 - 1, 3, 3), dev)
+    for key in ("sinv", "l", "u", "dsc"):
+        if not fac[key].is_contiguous():
+            raise ValueError(f"factor[{key!r}] must be contiguous")
+    rhs = rhs.contiguous()
+    x = torch.empty_like(rhs)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        rc = lib.les_block_thomas_solve(
+            fac["sinv"].data_ptr(), fac["l"].data_ptr(), fac["u"].data_ptr(),
+            fac["dsc"].data_ptr(), rhs.data_ptr(), bsz, t1 - 1, x.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "block-Thomas solve kernel")
+    launches["solve"] += 1
+    return x
+
+
+def _tridiag_factor_reference(d: torch.Tensor, u: torch.Tensor) -> dict:
+    """The plain version of the factor kernel: a loop over t on (B, 3, 3)
+    tensors, in the kernel's order of operations."""
+    dsc = torch.rsqrt(torch.clamp_min(torch.diagonal(d, dim1=2, dim2=3), 1e-12))
+    d_s = d * dsc[:, :, :, None] * dsc[:, :, None, :]
+    u_s = u * dsc[:, :-1, :, None] * dsc[:, 1:, None, :]
+    t_cap = u.shape[1]
+    sinv = torch.empty_like(d)
+    l_all = torch.empty_like(u)
+    s_t = d_s[:, 0]
+    for t in range(t_cap):
+        sinv[:, t] = _inv3(s_t)
+        l_all[:, t] = _mm3(u_s[:, t].transpose(1, 2), sinv[:, t])
+        s_t = d_s[:, t + 1] - _mm3(l_all[:, t], u_s[:, t])
+    sinv[:, t_cap] = _inv3(s_t)
+    return {"sinv": sinv, "l": l_all, "u": u_s, "dsc": dsc}
+
+
+def _tridiag_solve_reference(fac: dict, rhs: torch.Tensor) -> torch.Tensor:
+    """The plain version of the solve kernel, in its order of operations."""
+    g_s = rhs * fac["dsc"]
+    t_cap = fac["l"].shape[1]
+    y = torch.empty_like(g_s)
+    y[:, 0] = g_s[:, 0]
+    for t in range(t_cap):
+        y[:, t + 1] = g_s[:, t + 1] - _mv3(fac["l"][:, t], y[:, t])
+    x = torch.empty_like(g_s)
+    x[:, t_cap] = _mv3(fac["sinv"][:, t_cap], y[:, t_cap])
+    for t in range(t_cap - 1, -1, -1):
+        x[:, t] = _mv3(fac["sinv"][:, t],
+                       y[:, t] - _mv3(fac["u"][:, t], x[:, t + 1]))
+    return x * fac["dsc"]
+
+
+def _lm_hessian_inv(cfg, s: PoseGraphState, jac, coeffs, damping, slots=None):
+    """Per-landmark 2x2 GN Hessian blocks H_ll, inverted (landmarks are
+    independent given the poses): (inv (B, N, 3) as [xx, xy, yy], active)."""
+    slots = slots or LmSlots(s, detect=False)
+    ab, bb, cb, ar, br = coeffs
+    hxx = slots.scatter(ab * ab + ar * ar)
+    hxy = slots.scatter(ab * bb + ar * br)
+    hyy = slots.scatter(bb * bb + br * br)
+    active = jac["lm_active"].to(torch.float32)
+    damping = torch.as_tensor(damping, dtype=torch.float32, device=hxx.device)
+    damp = (1.0 + damping).reshape(-1, 1)
+    hxx = hxx * damp + (1.0 - active) + 1e-12
+    hyy = hyy * damp + (1.0 - active) + 1e-12
+    det = hxx * hyy - hxy * hxy
+    det = torch.where(det.abs() > 1e-30, det, 1.0)
+    return torch.stack([hyy / det, -hxy / det, hxx / det], dim=2), active
+
+
+def _hll_inv_apply(hll_inv, w):
+    """(B, N, 2) -> (B, N, 2): apply the per-landmark 2x2 inverse."""
+    return torch.stack(
+        [hll_inv[..., 0] * w[..., 0] + hll_inv[..., 1] * w[..., 1],
+         hll_inv[..., 1] * w[..., 0] + hll_inv[..., 2] * w[..., 1]], dim=-1,
+    )
+
+
+def _hpl_t_apply(s: PoseGraphState, coeffs, vp, slots=None):
+    """w_l = H_pl^T v_p: per measurement u = J_pose v_pose(t+1), then
+    J_lm^T u summed per landmark. (B, T+1, 3) -> (B, N, 2)."""
+    slots = slots or LmSlots(s, detect=False)
+    ab, bb, cb, ar, br = coeffs
+    vx, vy, vt = vp[:, 1:, 0:1], vp[:, 1:, 1:2], vp[:, 1:, 2:3]
+    u_b = ab * vx + bb * vy + cb * vt
+    u_r = ar * vx + br * vy
+    return torch.stack(
+        [slots.scatter(-(ab * u_b + ar * u_r)),
+         slots.scatter(-(bb * u_b + br * u_r))], dim=-1,
+    )
+
+
+def _hpl_apply(s: PoseGraphState, coeffs, vl, slots=None):
+    """y_p = H_pl v_l: per measurement u = J_lm v_lm, then J_pose^T u summed
+    per pose row. (B, N, 2) -> (B, T+1, 3)."""
+    slots = slots or LmSlots(s, detect=False)
+    ab, bb, cb, ar, br = coeffs
+    vlx, vly = slots.gather(vl[..., 0]), slots.gather(vl[..., 1])
+    u_b = -(ab * vlx + bb * vly)
+    u_r = -(ar * vlx + br * vly)
+    yp, _ = _zeros_like_graph(s)
+    yp[:, 1:] += torch.stack(
+        [(ab * u_b + ar * u_r).sum(dim=2),
+         (bb * u_b + br * u_r).sum(dim=2),
+         (cb * u_b).sum(dim=2)], dim=-1,
+    )
+    return yp
+
+
+def _retract(poses, lms, xp, xl, alpha: float):
+    pn = poses + alpha * xp
+    pn[..., 2] = wrap_angle(pn[..., 2])
+    return pn, lms + alpha * xl
+
+
+def solve_schur_pcg(
+    cfg, s: PoseGraphState, poses, lms,
+    n_gn: int = 8, n_cg: int = 12, damping: float = 1e-4,
+    meas_scale: float = 1.0, fix_theta: bool = False,
+):
+    """Bulk GN solver: eliminate the landmarks by Schur complement and solve
+    the reduced pose system with CG preconditioned by its exact
+    block-tridiagonal chain part (block-Thomas, factored once per GN step,
+    O(T) per apply).
+
+    The odometry chain carries the stiff information (whitened weights ~1e7)
+    and lives inside the preconditioner, so CG only corrects for the much
+    softer landmark coupling that the Schur complement spreads across
+    co-visible poses. Levenberg-style relative damping adapts per world and
+    GN iteration: a rejected step raises it, an accepted one lowers it. Each
+    call starts at ``damping`` again. Returns (poses, lms, err (B,)).
+    """
+    if fix_theta:
+        raise NotImplementedError(
+            "fix_theta belongs to chordal_init, which is not ported yet "
+            "(ROADMAP.md, chordal_init)")
+    slots = LmSlots(s)
+    err = graph_error(cfg, s, poses, lms, meas_scale, slots)
+    lam = torch.full_like(err, damping)
+
+    for _ in range(n_gn):
+        res = _residuals(cfg, s, poses, lms, meas_scale, slots)
+        jac = _jacobians(cfg, s, poses, lms, meas_scale, slots, res)
+        coeffs, r_meas = _meas_coeffs(cfg, s, poses, lms, meas_scale, slots, res)
+        gp, gl = _grad(cfg, s, jac, coeffs, r_meas, slots)
+        d, u, p_active = _pose_blocks(cfg, s, jac, coeffs, lam)
+        fac = _tridiag_factor(d, u)
+        hll_inv, l_active = _lm_hessian_inv(cfg, s, jac, coeffs, lam, slots)
+        p_mask = p_active[:, :, None]
+        gp = gp * p_mask
+        gl = gl * l_active[:, :, None]
+
+        def schur_mv(vp):
+            # S v = (chain + unary measurement blocks) v - H_pl H_ll^-1 H_pl^T v;
+            # the first term is exactly the preconditioner's matrix
+            hv = _mv(d, vp)
+            hv[:, :-1] += _mv(u, vp[:, 1:])
+            hv[:, 1:] += _mtv(u, vp[:, :-1])
+            w = _hll_inv_apply(hll_inv, _hpl_t_apply(s, coeffs, vp, slots))
+            return hv - _hpl_apply(s, coeffs, w, slots)
+
+        # reduced rhs: g_p - H_pl H_ll^-1 g_l
+        rhs = gp - _hpl_apply(s, coeffs, _hll_inv_apply(hll_inv, gl), slots)
+
+        xp = torch.zeros_like(rhs)
+        r = rhs
+        z = _tridiag_solve(fac, r)
+        p = z
+        rz = _dot(r, z)
+        for _ in range(n_cg):
+            sp = schur_mv(p)
+            alpha = (rz / torch.clamp_min(_dot(p, sp), 1e-30))[:, None, None]
+            xp = xp + alpha * p
+            r = r - alpha * sp
+            z = _tridiag_solve(fac, r)
+            rz_new = _dot(r, z)
+            beta = rz_new / torch.where(rz.abs() > 1e-30, rz, 1.0)
+            p = z + beta[:, None, None] * p
+            rz = rz_new
+        xp = xp * p_mask
+        # landmark back-substitution
+        xl = _hll_inv_apply(hll_inv, gl - _hpl_t_apply(s, coeffs, xp, slots))
+        xl = xl * l_active[:, :, None]
+
+        # halving line search, accept only what improves
+        p1, l1 = _retract(poses, lms, xp, xl, 1.0)
+        e1 = graph_error(cfg, s, p1, l1, meas_scale, slots)
+        p2, l2 = _retract(poses, lms, xp, xl, 0.5)
+        e2 = graph_error(cfg, s, p2, l2, meas_scale, slots)
+        half = (e2 < e1)[:, None, None]
+        e_new = torch.minimum(e1, e2)
+        ok = (e_new < err) & torch.isfinite(e_new)
+        okb = ok[:, None, None]
+        poses = torch.where(okb, torch.where(half, p2, p1), poses)
+        lms = torch.where(okb, torch.where(half, l2, l1), lms)
+        err = torch.where(ok, e_new, err)
+        lam = torch.where(
+            ok, torch.clamp_min(_div(lam, 3.0), 1e-6),
+            torch.clamp_max(lam * 8.0, 1e4),
+        )
+    return poses, lms, err
+
+
+# ----------------------------------------------------------------------
+# Iterative mode: matrix-free PCG Gauss-Newton, re-solved every tick
+# ----------------------------------------------------------------------
+
+def solve_pcg_gn(
+    cfg, s: PoseGraphState, poses, lms,
+    n_gn: int = 1, n_cg: int = 12, meas_scale: float = 1.0,
+    damping: float = 1e-4, slots=None,
+):
+    """Matrix-free damped Gauss-Newton with Jacobi-preconditioned CG: O(n_cg
+    F) with F = T + T K factor slots. With a warm start (the previous tick's
+    solution) one GN step of a dozen CG iterations tracks the optimum.
+    Iteration counts are fixed (no early exit); inactive variables are
+    pinned by masks. Returns (poses, lms)."""
+    slots = slots or LmSlots(s)
+
+    def dot(ap, al, bp, bl):
+        return _dot(ap, bp) + _dot(al, bl)
+
+    for _ in range(n_gn):
+        res = _residuals(cfg, s, poses, lms, meas_scale, slots)
+        err_old = graph_error(cfg, s, poses, lms, meas_scale, slots, res)
+        jac = _jacobians(cfg, s, poses, lms, meas_scale, slots, res)
+        coeffs, r_meas = _meas_coeffs(cfg, s, poses, lms, meas_scale, slots, res)
+        mp = jac["pose_active"][:, :, None].to(torch.float32)
+        ml = jac["lm_active"][:, :, None].to(torch.float32)
+        gp, gl = _grad(cfg, s, jac, coeffs, r_meas, slots)
+        gp, gl = gp * mp, gl * ml
+        dp, dl = _h_diag(s, jac, coeffs, slots)
+        # damped Jacobi preconditioner; inactive variables get a unit diagonal
+        dp = torch.where(mp > 0, dp * (1.0 + damping) + 1e-12, 1.0)
+        dl = torch.where(ml > 0, dl * (1.0 + damping) + 1e-12, 1.0)
+
+        def hv(vp, vl):
+            op, ol = _hv(s, jac, coeffs, vp * mp, vl * ml, slots)
+            # Levenberg damping keeps the warm-started step conservative
+            return (op + damping * dp * vp) * mp, (ol + damping * dl * vl) * ml
+
+        # PCG on H delta = g from delta = 0
+        xp, xl = torch.zeros_like(gp), torch.zeros_like(gl)
+        rp, rl = gp, gl
+        zp, zl = rp / dp, rl / dl
+        pp, pl = zp, zl
+        rz = dot(rp, rl, zp, zl)
+        for _ in range(n_cg):
+            hp_, hl_ = hv(pp, pl)
+            denom = dot(pp, pl, hp_, hl_)
+            alpha = rz / torch.where(denom.abs() > 1e-20, denom, 1.0)
+            alpha = torch.where(denom > 0, alpha, 0.0)[:, None, None]  # H PSD guard
+            xp = xp + alpha * pp
+            xl = xl + alpha * pl
+            rp = rp - alpha * hp_
+            rl = rl - alpha * hl_
+            zp, zl = rp / dp, rl / dl
+            rz_new = dot(rp, rl, zp, zl)
+            beta = (rz_new / torch.where(rz.abs() > 1e-20, rz, 1.0))[:, None, None]
+            pp = zp + beta * pp
+            pl = zl + beta * pl
+            rz = rz_new
+        # accept only improving steps (a rejected step keeps the warm start)
+        poses_new, lms_new = _retract(poses, lms, xp, xl, 1.0)
+        err_new = graph_error(cfg, s, poses_new, lms_new, meas_scale, slots)
+        ok = ((err_new < err_old) & torch.isfinite(err_new))[:, None, None]
+        poses = torch.where(ok, poses_new, poses)
+        lms = torch.where(ok, lms_new, lms)
+    return poses, lms
+
+
+def replay_iterative(cfg, s: PoseGraphState, ticks, poses_sol, lms_sol, m_at):
+    """Re-enact the per-tick incremental solves of iterative mode
+    (solve_graph_every_iteration) on fully assembled graphs.
+
+    For each live tick t of ``ticks`` (a sequence of ints): present the
+    graph as it stood at the end of tick t (prefix masks on the odometry and
+    measurement rows, timestep t+1, landmark count m_at[:, t]), copy the
+    newly added node's seed into the warm solution, and run the
+    ``solve_pcg_gn`` step that ``solve_iteration`` runs. m_at (B, T): the
+    landmark count at the end of each tick. Returns (poses_sol, lms_sol).
+    """
+    pg = cfg.pose_graph
+    dev = s.odom.device
+    tidx = torch.arange(s.odom.shape[1], device=dev)
+    slot = torch.arange(s.lms_init.shape[1], device=dev)[None, :, None]
+    slots = LmSlots(s)  # a prefix of the rows keeps the slot map
+    for t in ticks:
+        t = int(t)
+        m_prev = m_at[:, t - 1] if t > 0 else torch.zeros_like(m_at[:, 0])
+        upto = tidx <= t
+        s_t = s.replace(
+            timestep=torch.full_like(s.timestep, t + 1),
+            M=m_at[:, t],
+            odom_valid=s.odom_valid & upto,
+            meas_valid=s.meas_valid & upto[None, :, None],
+        )
+        poses0 = poses_sol.clone()
+        poses0[:, t + 1] = s.poses_init[:, t + 1]
+        lms0 = torch.where(slot < m_prev[:, None, None], lms_sol, s.lms_init)
+        poses_sol, lms_sol = solve_pcg_gn(
+            cfg, s_t, poses0, lms0, n_gn=pg.gn_steps_per_tick,
+            n_cg=pg.pcg_iters, slots=slots,
+        )
+    return poses_sol, lms_sol
+
+
+def solve_iteration(cfg, s: PoseGraphState, m_prev, node_t=None) -> PoseGraphState:
+    """One per-tick incremental solve: warm-start from the previous solution
+    with the newly added pose node (and any new landmarks) taken from the
+    secondary seeds, run PCG-GN, and store the result as the next initial
+    estimate. ``node_t``: the just-added node index, the same in every world
+    (default: world 0's timestep); m_prev (B,)."""
+    pg = cfg.pose_graph
+    t = int(s.timestep[0]) if node_t is None else int(node_t)
+    poses0 = s.poses_sol.clone()
+    poses0[:, t] = s.poses_init[:, t]
+    slot = torch.arange(s.lms_init.shape[1], device=s.odom.device)[None, :, None]
+    lms0 = torch.where(slot < m_prev[:, None, None], s.lms_sol, s.lms_init)
+    poses, lms = solve_pcg_gn(
+        cfg, s, poses0, lms0, n_gn=pg.gn_steps_per_tick, n_cg=pg.pcg_iters
+    )
+    return s.replace(poses_sol=poses, lms_sol=lms,
+                     solved=torch.ones_like(s.solved))

@@ -27,7 +27,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 # contraction off: a build whose kernels round as the plain versions do
-NO_FMA = ("-fmad=false",)
+# (LES_NO_FMA: the same for the few products kernel_math.cuh pins by hand)
+NO_FMA = ("-fmad=false", "-DLES_NO_FMA")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -37,11 +38,13 @@ SIGNATURES = {
     "les_fused_ekf_rollout": (_I, [
         _P, _P, _P, _P, _U, _I, _I, _I, _I,  # params, lms, cmds, noise, seed, B, T, N, predicated
         _P, _P, _P, _P, _P, _P,              # err_sum, err_max, true_pose, x, P, seen
+        _P, _P,                              # est_traj, true_traj (both null: no pose stream)
         _P,                                  # stream
     ]),
     "les_fused_iekf_rollout": (_I, [  # the same arguments
         _P, _P, _P, _P, _U, _I, _I, _I, _I,
         _P, _P, _P, _P, _P, _P,
+        _P, _P,
         _P,
     ]),
     "les_fused_ukf_rollout": (_I, [
@@ -50,7 +53,11 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P,          # err_sum, err_max, update_rejects, true_pose, x, P, seen
         _P,                                  # stream
     ]),
-    "les_philox_noise": (_I, [_U, _I, _I, _I, _P, _P]),  # seed, T, N, B, out, stream
+    "les_philox_noise": (_I, [_U, _I, _I, _I, _I, _P, _P]),  # seed, T, N, B, world0, out, stream
+    # d (B,T+1,3,3), u (B,T,3,3), B, T -> sinv, l, u scaled, dsc; stream
+    "les_block_thomas_factor": (_I, [_P, _P, _I, _I, _P, _P, _P, _P, _P]),
+    # sinv, l, u scaled, dsc, rhs (B,T+1,3), B, T -> x (B,T+1,3); stream
+    "les_block_thomas_solve": (_I, [_P, _P, _P, _P, _P, _I, _I, _P, _P]),
     "les_error_string": (ctypes.c_char_p, [_I]),
 }
 
@@ -84,24 +91,46 @@ def library_path(extra: tuple[str, ...] = ()) -> Path:
     return BUILD_DIR / f"libles_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _fail(cmd, proc, out):
+    raise RuntimeError(
+        f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n{out}"
+    )
+
+
 def build(extra: tuple[str, ...] = ()) -> Path:
     """Compile the kernels, with ``extra`` nvcc flags, unless the library
-    for these sources and flags exists."""
+    for these sources and flags exists: one nvcc per source, all started
+    together, then one link."""
     path = library_path(extra)
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_name(f"{path.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, *extra, "-o", str(tmp),
-           *(str(f) for f in sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed with code {proc.returncode}:\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
+    nvcc = find_nvcc()
+    stem = f"{path.stem}.{os.getpid()}"
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{stem}.{src.stem}.tmp.o"
+        cmd = [nvcc, *(f for f in NVCC_FLAGS if f != "-shared"), *extra,
+               "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    tmp = BUILD_DIR / f"{stem}.tmp.so"
+    try:
+        for cmd, _, proc in jobs:  # wait for all, so that none is left running
+            out = proc.communicate()[0]
+            if proc.returncode != 0:
+                for _, _, other in jobs:
+                    other.wait()
+                _fail(cmd, proc, out)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+               *(str(obj) for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            _fail(cmd, proc, proc.stdout + proc.stderr)
+        os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
+    finally:
+        for f in (tmp, *(obj for _, obj, _ in jobs)):
+            f.unlink(missing_ok=True)
     return path
 
 

@@ -38,9 +38,10 @@ from live_ekf_slam_tpu_torch.ops.philox import MASK32, philox_noise_reference
 # Initial pose covariance diag (ekf.cpp:11-18).
 P0 = (0.01 * 0.01, 0.01 * 0.01, 0.005 * 0.005)
 
-# launches of each CUDA kernel instantiation (not of the plain version)
-launches = {"ekf": 0, "iekf": 0}
-FILTER_KINDS = tuple(launches)
+# launches of each CUDA kernel instantiation (not of the plain version);
+# "_traj": the instantiations that also write the pose stream (emit_traj)
+launches = {"ekf": 0, "iekf": 0, "ekf_traj": 0, "iekf_traj": 0}
+FILTER_KINDS = ("ekf", "iekf")
 
 
 def _check_scope(cfg, filter_kind, profile_mode, emit_traj):
@@ -48,11 +49,8 @@ def _check_scope(cfg, filter_kind, profile_mode, emit_traj):
         raise ValueError("fused rollout requires known landmark ids")
     if filter_kind not in FILTER_KINDS:
         raise ValueError(f"unknown filter_kind {filter_kind!r}")
-    if emit_traj:
-        raise NotImplementedError(
-            "emit_traj: the per-tick pose stream is not ported yet "
-            "(ROADMAP.md, M7)"
-        )
+    if emit_traj and profile_mode != "full":
+        raise ValueError("emit_traj requires profile_mode='full'")
     if profile_mode != "full":
         raise NotImplementedError(
             f"profile_mode={profile_mode!r}: the phase-attribution variants "
@@ -72,7 +70,10 @@ def fused_ekf_rollout(
     landmarks (B, N, 2) true maps; cmds (B, T, 2) commanded odometry; seed
     keys the Philox noise stream, unless ``noise`` (T, 2N+8, B) in [-1, 1)
     is given, which replaces it. Returns err_sum (B,), err_max (B,),
-    true_pose (B, 3), x (B, D), P (B, D, D) and seen (B, N) bool, D = 3+2N.
+    true_pose (B, 3), x (B, D), P (B, D, D) and seen (B, N) bool, D = 3+2N;
+    with ``emit_traj`` also est_traj and true_traj (B, T, 3), the estimated
+    pose x[0:3] and the true pose after every tick (the node seeds of the
+    pose-graph streams path).
 
     ``predicated=False`` runs every landmark's update and insertion for every
     world, with the gain masked to zero; the result is the same, bit for bit.
@@ -84,11 +85,12 @@ def fused_ekf_rollout(
     if dev.type == "cpu":
         return fused_ekf_rollout_reference(
             cfg, landmarks, cmds, seed, noise=noise, predicated=predicated,
-            filter_kind=filter_kind,
+            filter_kind=filter_kind, emit_traj=emit_traj,
         )
     if dev.type != "cuda":
         raise ValueError(f"fused_ekf_rollout runs on cpu or cuda, not {dev}")
-    return _launch(cfg, landmarks, cmds, seed, noise, predicated, filter_kind)
+    return _launch(cfg, landmarks, cmds, seed, noise, predicated, filter_kind,
+                   emit_traj)
 
 
 def fused_iekf_rollout(cfg, landmarks, cmds, seed, **kw) -> dict:
@@ -129,7 +131,8 @@ def check_inputs(landmarks, cmds, noise) -> tuple[int, int, int]:
     return b, n, t_total
 
 
-def _launch(cfg, landmarks, cmds, seed, noise, predicated, filter_kind):
+def _launch(cfg, landmarks, cmds, seed, noise, predicated, filter_kind,
+            emit_traj):
     b, n, t_total = check_inputs(landmarks, cmds, noise)
     dev = landmarks.device
     d = 3 + 2 * n
@@ -142,6 +145,11 @@ def _launch(cfg, landmarks, cmds, seed, noise, predicated, filter_kind):
         "P": torch.empty((b, d, d), **f32),
         "seen": torch.empty((b, n), dtype=torch.bool, device=dev),
     }
+    if emit_traj:
+        res["est_traj"] = torch.empty((b, t_total, 3), **f32)
+        res["true_traj"] = torch.empty((b, t_total, 3), **f32)
+    traj = [res[k].data_ptr() if emit_traj else None
+            for k in ("est_traj", "true_traj")]
     kp = kernel_params(cfg)
     lib = _build.load()
     entry = (lib.les_fused_iekf_rollout if filter_kind == "iekf"
@@ -154,17 +162,17 @@ def _launch(cfg, landmarks, cmds, seed, noise, predicated, filter_kind):
             int(seed) & MASK32, b, t_total, n, int(predicated),
             res["err_sum"].data_ptr(), res["err_max"].data_ptr(),
             res["true_pose"].data_ptr(), res["x"].data_ptr(),
-            res["P"].data_ptr(), res["seen"].data_ptr(), stream,
+            res["P"].data_ptr(), res["seen"].data_ptr(), *traj, stream,
         )
     _build.check(rc, f"fused {filter_kind} rollout kernel")
-    launches[filter_kind] += 1
+    launches[filter_kind + ("_traj" if emit_traj else "")] += 1
     return res
 
 
 def fused_ekf_rollout_reference(
     cfg, landmarks: torch.Tensor, cmds: torch.Tensor, seed: int, *,
     noise: torch.Tensor | None = None, predicated: bool = True,
-    filter_kind: str = "ekf",
+    filter_kind: str = "ekf", emit_traj: bool = False,
 ) -> dict:
     """The plain version: the kernel's algebra as batched torch, worlds on
     the leading axis, in the JAX kernel's order of operations.
@@ -198,6 +206,9 @@ def fused_ekf_rollout_reference(
     tth = torch.full((b,), kp.yaw0, **f32)
     err_sum = torch.zeros(b, **f32)
     err_max = torch.zeros(b, **f32)
+    if emit_traj:
+        est_traj = torch.empty((b, t_total, 3), **f32)
+        true_traj = torch.empty((b, t_total, 3), **f32)
 
     for t in range(t_total):
         fwd, ang = cmds[:, t, 0], cmds[:, t, 1]
@@ -277,8 +288,11 @@ def fused_ekf_rollout_reference(
         e = torch.sqrt(ex * ex + ey * ey)
         err_sum = err_sum + e
         err_max = torch.maximum(err_max, e)
+        if emit_traj:
+            est_traj[:, t] = x[:, :3]
+            true_traj[:, t, 0], true_traj[:, t, 1], true_traj[:, t, 2] = tx, ty, tth
 
-    return {
+    res = {
         "err_sum": err_sum,
         "err_max": err_max,
         "true_pose": torch.stack([tx, ty, tth], dim=1),
@@ -286,6 +300,9 @@ def fused_ekf_rollout_reference(
         "P": P,
         "seen": seen > 0.5,
     }
+    if emit_traj:
+        res["est_traj"], res["true_traj"] = est_traj, true_traj
+    return res
 
 
 def _update(kp, x, P, x_lm, li, m_u, rn, bn, wrap_innov):

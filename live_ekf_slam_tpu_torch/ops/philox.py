@@ -66,16 +66,18 @@ launches = 0
 
 
 def philox_noise_reference(seed: int, t_total: int, n_lm: int, batch: int,
-                           device=None) -> torch.Tensor:
+                           device=None, world0: int = 0) -> torch.Tensor:
     """(T, 2N+8, B) float32 noise in [-1, 1): exactly what the rollout kernel
-    draws in-kernel for this seed. Plain torch, built T_CHUNK ticks at a
+    draws in-kernel for this seed (for worlds world0 .. world0+B-1 of a
+    larger batch, with ``world0``). Plain torch, built T_CHUNK ticks at a
     time to bound the int64 temporaries."""
     rows = 2 * n_lm + 8
     n_blk = (rows + 3) // 4
     out = torch.empty((t_total, rows, batch), dtype=torch.float32,
                       device=device)
     blk = torch.arange(n_blk, dtype=torch.int64, device=device)[None, :, None]
-    world = torch.arange(batch, dtype=torch.int64, device=device)[None, None]
+    world = torch.arange(world0, world0 + batch, dtype=torch.int64,
+                         device=device)[None, None]
     key0 = int(seed) & MASK32
     for t0 in range(0, t_total, T_CHUNK):
         t1 = min(t0 + T_CHUNK, t_total)
@@ -88,13 +90,14 @@ def philox_noise_reference(seed: int, t_total: int, n_lm: int, batch: int,
 
 
 def philox_noise(seed: int, t_total: int, n_lm: int, batch: int,
-                 device="cpu") -> torch.Tensor:
+                 device="cpu", world0: int = 0) -> torch.Tensor:
     """``philox_noise_reference``'s tensor, from the CUDA kernel when
     ``device`` is a CUDA device."""
     global launches
     device = torch.device(device)
     if device.type == "cpu":
-        return philox_noise_reference(seed, t_total, n_lm, batch, device)
+        return philox_noise_reference(seed, t_total, n_lm, batch, device,
+                                      world0)
     if device.type != "cuda":
         raise ValueError(f"philox_noise runs on cpu or cuda, not {device}")
     out = torch.empty((t_total, 2 * n_lm + 8, batch), dtype=torch.float32,
@@ -103,7 +106,7 @@ def philox_noise(seed: int, t_total: int, n_lm: int, batch: int,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.les_philox_noise(int(seed) & MASK32, t_total, n_lm, batch,
-                                  out.data_ptr(), stream)
+                                  world0, out.data_ptr(), stream)
     _build.check(rc, "philox_noise kernel")
     launches += 1
     return out

@@ -14,7 +14,13 @@ import torch
 
 import chip_smoke
 from live_ekf_slam_tpu_torch.config import CompatConfig, Config
-from live_ekf_slam_tpu_torch.eval.runner import fused_rollout, mc_inputs
+from live_ekf_slam_tpu_torch.bench import pg_config
+from live_ekf_slam_tpu_torch.eval.runner import (
+    fused_rollout,
+    mc_inputs,
+    run_monte_carlo_pg_streams,
+)
+from live_ekf_slam_tpu_torch.models import posegraph as pg
 from live_ekf_slam_tpu_torch.ops import _build, philox
 from live_ekf_slam_tpu_torch.ops import fused_rollout as fr
 from live_ekf_slam_tpu_torch.ops import fused_ukf as fu
@@ -122,6 +128,68 @@ def test_kernel_without_fma_equals_plain_bitwise(filt, cuda_device):
         p = fused_rollout(cfg, lms, cmds, 0, noise=noise, plain=True)
         for key in k:
             assert torch.equal(k[key], p[key]), (kind, key)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("filter_kind", ["ekf", "iekf"])
+def test_pose_stream_kernel_matches_plain(filter_kind, kind, cuda_device):
+    # K3: the pose streams at the tolerances of x and true_pose; the rest of
+    # the result bit for bit what emit_traj=False gives; with contraction
+    # off, the streams bit for bit the plain version's
+    cfg, lms, cmds, noise = _inputs(kind, cuda_device)
+    kw = dict(noise=noise, filter_kind=filter_kind)
+    before = fr.launches[filter_kind + "_traj"]
+    k = fr.fused_ekf_rollout(cfg, lms, cmds, 0, emit_traj=True, **kw)
+    torch.cuda.synchronize()
+    assert fr.launches[filter_kind + "_traj"] == before + 1
+    k0 = fr.fused_ekf_rollout(cfg, lms, cmds, 0, **kw)
+    for key in k0:
+        assert torch.equal(k0[key], k[key]), key
+    assert torch.equal(k["est_traj"][:, -1], k["x"][:, :3])
+    assert torch.equal(k["true_traj"][:, -1], k["true_pose"])
+    p = fr.fused_ekf_rollout_reference(cfg, lms, cmds, 0, emit_traj=True, **kw)
+    chip_smoke.compare(chip_smoke.stream_of(k), chip_smoke.stream_of(p),
+                       {o: chip_smoke.TOL[o] for o in ("x", "true_pose")})
+    with _build.without_fma():
+        kn = fr.fused_ekf_rollout(cfg, lms, cmds, 0, emit_traj=True, **kw)
+    for key in kn:
+        assert torch.equal(kn[key], p[key]), key
+
+
+@pytest.mark.parametrize("steps", [37, 200])  # 37: a ragged last chunk
+def test_block_thomas_kernels_match_plain(steps, cuda_device):
+    # P1 on the blocks of real graphs: the default build within
+    # chip_smoke.P1_RTOL of each output's scale, the -fmad=false build bit
+    # for bit (block_thomas_compare raises otherwise)
+    cfg = pg_config(steps, "ekf_slam", False)
+    graphs = chip_smoke.pg_graphs(cfg, 9, cuda_device, seed=1)[0]
+    for sc in (16.0, 1.0):
+        d, u, rhs = chip_smoke.chain_blocks(cfg, graphs, sc)
+        res = chip_smoke.block_thomas_compare(d, u, rhs, f"T={steps} scale={sc}")
+        assert all(res["no_fma_bitwise_equal"].values())
+    with pytest.raises(ValueError, match="expected float32"):
+        pg._tridiag_factor(d.double(), u)
+    with pytest.raises(ValueError, match="expected float32"):
+        pg._tridiag_solve(pg._tridiag_factor(d, u), rhs[:, :-1])
+
+
+def test_pg_streams_path_runs_on_the_card_and_repeats(cuda_device):
+    cfg = pg_config(200, "iekf_slam", False)
+    runs = [run_monte_carlo_pg_streams(cfg, 32, seed=2)[0] for _ in range(2)]
+    for key, v in runs[0].items():
+        assert np.array_equal(v, runs[1][key]), key
+    assert not runs[0]["diverged_pose_graph"].any()
+    assert (runs[0]["err_pose_graph_result"].mean()
+            < runs[0]["err_pose_graph_initial"].mean())
+    # the same study on the CPU, through the plain versions: the kernels'
+    # FMA rounding and the card's sum orders, amplified by the CG, stay
+    # within the 5e-3 the CPU tests hold the port to against JAX
+    cpu = run_monte_carlo_pg_streams(cfg, 4, seed=2, device="cpu")[0]
+    card = run_monte_carlo_pg_streams(cfg, 4, seed=2)[0]
+    np.testing.assert_allclose(card["err_iekf_slam"], cpu["err_iekf_slam"],
+                               rtol=0, atol=5e-3)
+    np.testing.assert_allclose(card["err_pose_graph_result"],
+                               cpu["err_pose_graph_result"], rtol=0, atol=5e-3)
 
 
 def test_wrapper_rejects_bad_inputs(cuda_device):

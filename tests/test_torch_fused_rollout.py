@@ -55,11 +55,11 @@ def _inputs(kind, seed=5, b=B, n=N, t=T, bound=BOUND):
     return cfg, lms, arc_commands(b, t), noise
 
 
-def _jax_rollout(kind, lms, cmds, noise, t=T, n=N, bound=BOUND):
+def _jax_rollout(kind, lms, cmds, noise, t=T, n=N, bound=BOUND, **kw):
     jcfg = small_cfg(JConfig, JCompat, kind, t, n, bound)
     out = j_rollout(jcfg, jnp.asarray(lms), jnp.asarray(cmds), 0,
                     block_worlds=lms.shape[0], noise=jnp.asarray(noise),
-                    interpret=True)
+                    interpret=True, **kw)
     return {k: np.asarray(v) for k, v in out.items()}
 
 
@@ -76,6 +76,30 @@ def test_plain_matches_pallas_kernel(kind):
     np.testing.assert_array_equal(got["seen"], want["seen"])
     for k, tol in JAX_TOL.items():
         np.testing.assert_allclose(got[k], want[k], err_msg=k, **tol)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_pose_stream_matches_pallas_kernel(kind):
+    # emit_traj=True: the estimated and the true pose after every tick, at
+    # the tolerances of x and true_pose above
+    cfg, lms, cmds, noise = _inputs(kind)
+    want = _jax_rollout(kind, lms, cmds, noise, emit_traj=True)
+    lt, ct, nt = inputs_from_numpy(lms, cmds, noise)
+    res = fr.fused_ekf_rollout(cfg, lt, ct, 0, noise=nt, emit_traj=True)
+    got = outputs_to_numpy(res)
+    assert set(got) == set(want) and got["est_traj"].shape == (B, T, 3)
+    np.testing.assert_allclose(got["est_traj"], want["est_traj"], **JAX_TOL["x"])
+    np.testing.assert_allclose(got["true_traj"], want["true_traj"],
+                               **JAX_TOL["true_pose"])
+    # the last tick is the final state, exactly; the rest of the result is
+    # what emit_traj=False gives, exactly
+    assert torch.equal(res["est_traj"][:, -1], res["x"][:, :3])
+    assert torch.equal(res["true_traj"][:, -1], res["true_pose"])
+    plain = fr.fused_ekf_rollout(cfg, lt, ct, 0, noise=nt)
+    for k in plain:
+        assert torch.equal(plain[k], res[k]), k
+    d = (res["est_traj"][..., :2] - res["true_traj"][..., :2]).norm(dim=-1)
+    torch.testing.assert_close(d.sum(dim=1), res["err_sum"], rtol=1e-5, atol=1e-6)
 
 
 @pytest.mark.parametrize("compat", [False, True])
@@ -159,9 +183,10 @@ def test_out_of_scope_requests_raise():
             cfg.constraints.measurements, landmark_id_is_known=False)))
     with pytest.raises(ValueError, match="known landmark ids"):
         fr.fused_ekf_rollout(unknown, lt, ct, 0)
-    for kw, item in [({"emit_traj": True}, "M7"), ({"profile_mode": "nolm"}, "K1p")]:
-        with pytest.raises(NotImplementedError, match=item):
-            fr.fused_ekf_rollout(cfg, lt, ct, 0, **kw)
+    with pytest.raises(NotImplementedError, match="K1p"):
+        fr.fused_ekf_rollout(cfg, lt, ct, 0, profile_mode="nolm")
+    with pytest.raises(ValueError, match="emit_traj requires profile_mode"):
+        fr.fused_ekf_rollout(cfg, lt, ct, 0, profile_mode="nolm", emit_traj=True)
     with pytest.raises(ValueError, match="unknown filter_kind"):
         fr.fused_ekf_rollout(cfg, lt, ct, 0, filter_kind="ukf")
     with pytest.raises(ValueError, match="cpu or cuda"):
@@ -177,6 +202,22 @@ def test_build_finds_no_nvcc_without_a_toolkit(monkeypatch, tmp_path):
         _build.find_nvcc()
     # sources are hashed into the library name
     assert _build.library_path().name.startswith("libles_kernels_")
+
+
+def test_every_kernel_entry_point_has_its_signature():
+    # each extern "C" function of csrc/ is bound with explicit argument
+    # types (ctypes would cut an untyped pointer to 32 bits), and the
+    # sources ship as package data
+    import re
+
+    entries = set()
+    for src in _build.CSRC.glob("*.cu"):
+        entries |= set(re.findall(r'extern "C" [\w* ]+?(les_\w+)\(', src.read_text()))
+    assert entries == set(_build.SIGNATURES)
+    assert {"les_block_thomas_factor", "les_block_thomas_solve"} <= entries
+    toml = (Path(_build.CSRC).parent.parent / "pyproject.toml").read_text()
+    assert '"csrc/*.cu", "csrc/*.cuh"' in toml
+    assert '"live_ekf_slam_tpu_torch.models"' in toml
 
 
 @pytest.mark.slow

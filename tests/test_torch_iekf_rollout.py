@@ -66,6 +66,29 @@ def test_plain_matches_pallas_kernel(kind):
         np.testing.assert_allclose(got[k], want[k], err_msg=k, **tol)
 
 
+@pytest.mark.parametrize("kind", KINDS)
+def test_pose_stream_matches_pallas_kernel(kind):
+    # emit_traj=True of the invariant filter, at the tolerances of x and
+    # true_pose above
+    cfg, lms, cmds, noise = _inputs(kind)
+    jcfg = small_cfg(JConfig, JCompat, kind, T, N, BOUND)
+    want = j_rollout(jcfg, jnp.asarray(lms), jnp.asarray(cmds), 0,
+                     block_worlds=B, noise=jnp.asarray(noise), interpret=True,
+                     emit_traj=True)
+    lt, ct, nt = inputs_from_numpy(lms, cmds, noise)
+    res = fr.fused_iekf_rollout(cfg, lt, ct, 0, noise=nt, emit_traj=True)
+    np.testing.assert_allclose(res["est_traj"].numpy(),
+                               np.asarray(want["est_traj"]), **JAX_TOL["x"])
+    np.testing.assert_allclose(res["true_traj"].numpy(),
+                               np.asarray(want["true_traj"]),
+                               **JAX_TOL["true_pose"])
+    assert torch.equal(res["est_traj"][:, -1], res["x"][:, :3])
+    assert torch.equal(res["true_traj"][:, -1], res["true_pose"])
+    plain = fr.fused_iekf_rollout(cfg, lt, ct, 0, noise=nt)
+    for k in plain:
+        assert torch.equal(plain[k], res[k]), k
+
+
 def test_predicated_equals_unpredicated_and_seed_replays():
     cfg, lms, cmds, _ = _inputs("default")
     lt, ct, _ = inputs_from_numpy(lms, cmds)
@@ -96,9 +119,10 @@ def test_iekf_differs_from_ekf_and_ignores_ekf_compat_quirks():
 def test_out_of_scope_requests_raise():
     cfg, lms, cmds, _ = _inputs("default")
     lt, ct, _ = inputs_from_numpy(lms, cmds)
-    for kw, item in [({"emit_traj": True}, "M7"), ({"profile_mode": "sim"}, "K1p")]:
-        with pytest.raises(NotImplementedError, match=item):
-            fr.fused_iekf_rollout(cfg, lt, ct, 0, **kw)
+    with pytest.raises(NotImplementedError, match="K1p"):
+        fr.fused_iekf_rollout(cfg, lt, ct, 0, profile_mode="sim")
+    with pytest.raises(ValueError, match="emit_traj requires profile_mode"):
+        fr.fused_iekf_rollout(cfg, lt, ct, 0, profile_mode="sim", emit_traj=True)
     with pytest.raises(ValueError, match="cpu or cuda"):
         fr.fused_iekf_rollout(cfg, lt.to("meta"), ct.to("meta"), 0)
 

@@ -132,7 +132,7 @@ def test_out_of_scope_runs_raise():
             runner.run_monte_carlo(cfg, 2, **kw)
     with pytest.raises(NotImplementedError, match="M9"):
         runner.run_monte_carlo(cfg.replace(filter="naive"), 2)
-    with pytest.raises(NotImplementedError, match="M10"):
+    with pytest.raises(NotImplementedError, match="run_monte_carlo_pg_streams"):
         runner.run_monte_carlo(cfg.replace(filter="pose_graph"), 2)
     with pytest.raises(NotImplementedError, match="M9"):
         runner.run_monte_carlo(cfg.replace(landmark_map="demo"), 2,
@@ -146,6 +146,8 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
         runner.run_monte_carlo(cfg, 2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["monte_carlo", "--batch", "2", "--steps", "5"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        runner.run_monte_carlo_pg_streams(cfg.replace(filter="pose_graph"), 2)
     assert runner.resolve_device("cpu") == torch.device("cpu")
 
 
@@ -161,11 +163,36 @@ def test_bench_refuses_to_run_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA"):
         bench.main(["--worlds", "4", "--steps", "2"])
+    with pytest.raises(SystemExit, match="CUDA"):
+        bench.main(["--filter", "pose_graph", "--worlds", "4", "--steps", "2"])
+
+
+def test_bench_pose_graph_config_and_summary():
+    # the study's config as the JAX bench script builds it: high noise,
+    # honest sigmas, the chosen secondary and solve mode
+    cfg = bench.pg_config(50, "iekf_slam", True)
+    assert (cfg.filter, cfg.num_iterations) == ("pose_graph", 50)
+    assert (cfg.process_noise.V_00, cfg.process_noise.V_11) == (0.01, 0.001)
+    assert (cfg.sensing_noise.W_00, cfg.sensing_noise.W_11) == (0.01, 0.01)
+    assert cfg.pose_graph.filter_to_compare == "iekf_slam"
+    assert cfg.pose_graph.solve_graph_every_iteration
+    assert not cfg.compat.pg_variances_as_sigmas
+    res = {"err_naive": np.array([1.0, 3.0]),
+           "err_pose_graph_initial": np.array([1.0, 2.0]),
+           "err_pose_graph_result": np.array([0.5, 0.25]),
+           "diverged_pose_graph": np.array([False, True])}
+    info = {"seconds": dict(inputs=9.0, streams=0.1, secondary=0.2,
+                            assemble=0.2, replay=3.0, solve=4.0)}
+    out = bench.pg_summary(res, info, 50, "naive")
+    assert out["accum_steps_per_s_per_world"] == pytest.approx(100.0)
+    assert (out["replay_s"], out["solve_s"], out["diverged"]) == (3.0, 4.0, 1)
+    assert out["mean_err_pose_graph_result"] == pytest.approx(0.375)
 
 
 def test_port_runs_its_slice_without_jax():
     # every module of the port and chip_smoke (imported, not run), then the
-    # CPU slice of all four filters; no module of jax, jaxlib, flax or the
+    # CPU slice of all four filters and the pose-graph streams path in both
+    # solve modes; no module of jax, jaxlib, flax or the
     # JAX package may be loaded (split on "." so that the port's own name,
     # live_ekf_slam_tpu_torch, does not match)
     code = (
@@ -181,6 +208,15 @@ def test_port_runs_its_slice_without_jax():
         "    assert res['err_' + f].shape == (4,)\n"
         "    assert out['x'].shape == (4, 4 if f == 'ukf_loc' else\n"
         "                              44 if f == 'ukf_slam' else 43)\n"
+        "import dataclasses\n"
+        "from live_ekf_slam_tpu_torch.eval.runner import run_monte_carlo_pg_streams\n"
+        "for sec, it in (('ekf_slam', False), ('naive', True)):\n"
+        "    cfg = Config(num_iterations=8).replace(filter='pose_graph')\n"
+        "    cfg = cfg.replace(pose_graph=dataclasses.replace(\n"
+        "        cfg.pose_graph, filter_to_compare=sec, bulk_gn_iters=2,\n"
+        "        bulk_cg_iters=2, solve_graph_every_iteration=it))\n"
+        "    res, _, _ = run_monte_carlo_pg_streams(cfg, 2, device='cpu')\n"
+        "    assert res['err_pose_graph_result'].shape == (2,)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'live_ekf_slam_tpu'))\n"
         "assert not bad, bad\n"
