@@ -8,15 +8,24 @@ UKF-Loc) against its plain torch version: on three configs with injected
 noise, predicated against unpredicated, in-kernel Philox against the
 replayed stream, and a build with FMA contraction off against the plain
 version bit for bit; the same for the EKF kernels' pose stream and for the
-block-Thomas factor and solve kernels on the blocks of real graphs. Then it
-drives the main paths. ``run_monte_carlo`` at 4096 worlds, T = 1000, N = 20
+block-Thomas factor and solve kernels on the blocks of real graphs. Those
+checks feed nothing later and wait mostly for the host, so they run in five
+processes side by side (``python3 chip_smoke.py --side-checks NAME ...`` is
+one of them). Then it drives the main paths, alone on the card.
+``run_monte_carlo`` at 4096 worlds, T = 1000, N = 20
 under the bench's shared protocol, once per filter, each through its own
 kernel, timed, the kernel compared with the plain version on the first 256
 worlds of that run. ``run_monte_carlo_pg_streams``, the pose-graph study, at
 1024 worlds with the EKF-SLAM secondary (twice: the results must repeat),
 and at 256 worlds with the naive and RI-EKF secondaries and in iterative
-mode, with the launch counts each run implies. Every phase prints one JSON
-line; any failure raises and the exit code is nonzero. The last three
+mode, with the launch counts each run implies. Last the kernel-attribution
+path at the bench's size: the EKF and RI-EKF rollouts in their ``sim``,
+``nolm`` and ``full`` profile modes (the split of a rollout into simulator,
+predict and landmark loop), the three microbenchmark tools, which time each
+primitive of a tick alone (every kernel and variant of ``ops/micro_ops``
+held against its plain version), and the sum of the passes a tick executes
+against the EKF and UKF-SLAM kernels' measured times. Every phase prints one
+JSON line; any failure raises and the exit code is nonzero. The last three
 lines are the kernels' record, the card's name and power limit as
 nvidia-smi reports them, and ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or without the rest of the repository beside it, it fails
@@ -26,8 +35,11 @@ before printing any result. Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import subprocess
+import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -50,9 +62,12 @@ from live_ekf_slam_tpu_torch.models import posegraph as pg
 from live_ekf_slam_tpu_torch.ops import _build, philox
 from live_ekf_slam_tpu_torch.ops import fused_rollout as fr
 from live_ekf_slam_tpu_torch.ops import fused_ukf as fu
+from live_ekf_slam_tpu_torch.ops import micro_ops as mo
 from live_ekf_slam_tpu_torch.ops.kernel_math import atan2, wrap
 from live_ekf_slam_tpu_torch.ops.precision import pin_fp32
 from live_ekf_slam_tpu_torch.sim.streams import sim_streams
+from live_ekf_slam_tpu_torch.tools import micro_downdate, micro_ukf, micro_ukf_probe
+from live_ekf_slam_tpu_torch.tools._common import DIM as MICRO_DIM
 
 # Kernel vs plain version (injected noise), as |kernel - plain| <= atol +
 # rtol * scale, where scale is the plain value for the per-world scalars and,
@@ -116,6 +131,27 @@ SMALL = dict(batch=250, steps=200)        # 250: not a multiple of 4 worlds
 SHORT = 25                                # ticks, before most chaos sets in
 MAIN = dict(batch=4096, steps=1000)       # the bench's size
 PLAIN_WORLDS = 256                        # the main-shape comparison's worlds
+K3_PLAIN_WORLDS = 64                      # the same for the pose stream: with a
+                                          # map per world the plain version rarely
+                                          # skips a landmark, ~45 ms a tick
+# The standalone primitives against their plain versions, default build:
+# |kernel - plain| <= MICRO_RTOL * max|plain| over the output, in a launch of
+# at most MICRO_CHECK_PASSES passes. A pass differs from the plain version by
+# FMA contraction alone: the product is not rounded before its sum. Where
+# the rounded product lands the sum on a tie and the exact one beside it, the
+# two round apart by one unit in the last place of the accumulated value, and
+# since every pass adds the same term they do so in every pass: the
+# difference grows by up to one ulp of the output's scale a pass (measured:
+# 1.0e-4 of the scale after 2000 one-term Joseph passes, 5.2e-5 after 4096
+# rank-2 passes), so a tolerance that held for a tool's thousands of passes
+# would be too wide to catch a fault. MICRO_CHECK_PASSES ulps are 3.1e-5 of
+# the scale, a third of MICRO_RTOL. The launch of the tool's own count of passes
+# is timed, its drift is reported, and its -fmad=false build must equal the
+# plain version bit for bit, as the short launch's must.
+MICRO_RTOL = 1e-4
+MICRO_CHECK_PASSES = 256
+# shared memory: 128 bytes a clock on each of the 132 SMs at 1.98 GHz
+PEAK_SMEM_BYTES = 128 * 132 * 1.98e9
 REPS = 5
 # H100 SXM peaks (NVIDIA data sheet, dense): fp32 without tensor cores, HBM
 PEAK_FLOPS = 67e12
@@ -142,8 +178,12 @@ KERNELS = {
 }
 
 
+LINES = []  # every phase's line of this run, the side processes' included
+
+
 def emit(phase: str, **kw):
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    LINES.append({"phase": phase, **kw})
+    print(json.dumps(LINES[-1]), flush=True)
 
 
 def configs(steps: int):
@@ -173,15 +213,37 @@ PG_KERNELS = {
 }
 
 
+# the kernels of the attribution path. K1p: name -> (filter, profile mode,
+# key of fr.launches, the branch of the TPU kernel it replaces)
+K1P_KERNELS = {
+    f"fused_{kind}_rollout[{mode}]": (
+        kind + "_slam", mode, f"{kind}_{mode}",
+        "live_ekf_slam_tpu/ops/fused_rollout.py:" + line)
+    for kind in fr.FILTER_KINDS for mode, line in (("sim", "188"), ("nolm", "268"))
+}
+# the standalone primitives: name -> (key of mo.launches, the first of the
+# TPU kernel factories it replaces, the variant whose time heads the record)
+MICRO_KERNELS = {
+    "micro_rank_update": ("rank_update", "scripts/micro_downdate.py:40", "R=2"),
+    "micro_column_gather": ("column_gather", "scripts/micro_downdate.py:71", "take"),
+    "micro_chol": ("chol", "scripts/micro_ukf.py:53", "lower"),
+    "micro_matvec": ("matvec", "scripts/micro_ukf.py:104", "row x4"),
+    "micro_joseph": ("joseph", "scripts/micro_ukf.py:132", "prod9"),
+    "micro_zstats": ("zstats", "scripts/micro_ukf.py:191", "zstats"),
+}
+
+
 def counts() -> dict:
     out = {name: c[key] for name, (_, (c, key), _, _) in KERNELS.items()}
     out.update({name: c[key] for name, (c, key, _, _) in PG_KERNELS.items()})
+    out.update({name: fr.launches[key] for name, (_, _, key, _) in K1P_KERNELS.items()})
+    out.update({name: mo.launches[key] for name, (key, _, _) in MICRO_KERNELS.items()})
     out["philox_noise"] = philox.launches
     return out
 
 
 def zero_counts():
-    for c in (fr.launches, fu.launches, pg.launches):
+    for c in (fr.launches, fu.launches, pg.launches, mo.launches):
         for key in c:
             c[key] = 0
     philox.launches = 0
@@ -202,25 +264,21 @@ def tol_ratio(a: dict, ref: dict, tol: dict) -> dict:
             for name, (rtol, atol) in tol.items()}
 
 
-def plain_run(cfg, lms, cmds, noise, tol: dict, p: dict | None = None
+def plain_run(cfg, lms, cmds, noise, tol: dict
               ) -> tuple[dict, torch.Tensor | None]:
     """The plain version's run on these inputs and, for the UKFs, the worlds
-    it flags as chaotic (see NUDGE); None for the EKFs, which have none.
-    Unless its run ``p`` is given, the run and the nudged one go in one
-    batch of twice the worlds (the plain version's time is launch-bound)."""
+    it flags as chaotic (see NUDGE); None for the EKFs, which have none. The
+    UKFs' run and the nudged one go in one batch of twice the worlds (the
+    plain version's time is launch-bound)."""
     if not cfg.filter.startswith("ukf"):
-        return (p if p is not None else
-                fused_rollout(cfg, lms, cmds, 0, noise=noise, plain=True)), None
+        return fused_rollout(cfg, lms, cmds, 0, noise=noise, plain=True), None
     nudged = noise * NUDGE
-    if p is None:
-        b = lms.shape[0]
-        both = fused_rollout(cfg, torch.cat([lms, lms]), torch.cat([cmds, cmds]),
-                             0, noise=torch.cat([noise, nudged], dim=2).contiguous(),
-                             plain=True)
-        p = {k: v[:b] for k, v in both.items()}
-        p_nudged = {k: v[b:] for k, v in both.items()}
-    else:
-        p_nudged = fused_rollout(cfg, lms, cmds, 0, noise=nudged, plain=True)
+    b = lms.shape[0]
+    both = fused_rollout(cfg, torch.cat([lms, lms]), torch.cat([cmds, cmds]),
+                         0, noise=torch.cat([noise, nudged], dim=2).contiguous(),
+                         plain=True)
+    p = {k: v[:b] for k, v in both.items()}
+    p_nudged = {k: v[b:] for k, v in both.items()}
     flags = torch.stack(list(tol_ratio(p_nudged, p, tol).values())).amax(
         dim=0) > CHAOS_RATIO
     for r in (p, p_nudged):
@@ -316,15 +374,21 @@ def gate_counts(cfg, lms, cmds, seed) -> dict:
     return tot
 
 
-def work(filt: str, g: dict, b: int, t_total: int, n: int) -> tuple[float, float]:
+def work(filt: str, g: dict, b: int, t_total: int, n: int,
+         mode: str = "full") -> tuple[float, float]:
     """(flops, bytes) the rollout of ``filt`` must do on these inputs: ops
     per event read off the algebra (the kernels' source notes), times the
     events the plain versions' gates count; bytes are each input read once
-    and each output written once (noise is drawn in-kernel)."""
+    and each output written once (noise is drawn in-kernel). ``mode`` "nolm"
+    counts no update or insertion, "sim" the simulator alone."""
     d = 3 + 2 * n
     ticks = g["ticks"]
     sense = 40.0 * n * ticks + 20.0 * ticks  # per landmark and tick; truth, error
-    if filt == "ekf_slam":
+    if mode != "full":
+        g = {**g, "updates": 0.0, "insertions": 0.0}
+    if mode == "sim":
+        flops = sense
+    elif filt == "ekf_slam":
         # predict: two rank-1 row and two column passes; update: gain and
         # H P (~34 D) and the rank-2 downdate (4 D^2); insertion: two rows
         flops = sense + 8.0 * d * ticks + g["updates"] * (4.0 * d * d + 34.0 * d) \
@@ -412,6 +476,44 @@ def pose_stream_checks(dev, n_lm: int):
             if not last or sum_rel > 1e-5:
                 raise AssertionError(f"{kind} {cname}: the pose stream does not "
                                      f"fit the final state or err_sum ({sum_rel})")
+
+
+# worlds of the pose-graph runs that launch each pose-stream kernel
+K3_WORLDS = {"ekf": PG_MAIN["batch"], "iekf": PG_SIDE}
+
+
+def pose_stream_inputs(kind: str, dev, n_lm: int):
+    """What the pose-graph run with this secondary hands its rollout kernel:
+    (cfg, lms, cmds, noise)."""
+    cfg = pg_config(PG_MAIN["steps"], kind + "_slam", False)
+    lms, cmds = mc_inputs(cfg, K3_WORLDS[kind], 0, dev)
+    noise = philox.philox_noise(0, PG_MAIN["steps"], n_lm, K3_WORLDS[kind], dev)
+    return cfg, lms, cmds, noise
+
+
+def pose_stream_main_check(kind: str, dev, n_lm: int):
+    """K3 at the pose-graph path's shape against the plain version, on the
+    first K3_PLAIN_WORLDS worlds over all its ticks: the default build's
+    streams within TOL_MAIN, the -fmad=false build bit for bit."""
+    name = f"fused_{kind}_rollout[emit_traj]"
+    cfg, lms, cmds, noise = pose_stream_inputs(kind, dev, n_lm)
+    w = K3_PLAIN_WORLDS
+    lw, cw = lms[:w].contiguous(), cmds[:w].contiguous()
+    kw_w = dict(emit_traj=True, noise=noise[:, :, :w].contiguous(), filter_kind=kind)
+    k = fr.fused_ekf_rollout(cfg, lw, cw, 0, **kw_w)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p = fr.fused_ekf_rollout_reference(cfg, lw, cw, 0, **kw_w)
+    torch.cuda.synchronize()
+    p_ms = 1e3 * (time.perf_counter() - t0)
+    errs = compare(stream_of(k), stream_of(p),
+                   {o: TOL_MAIN[o] for o in ("x", "true_pose")})
+    with _build.without_fma():
+        same = bitwise(fr.fused_ekf_rollout(cfg, lw, cw, 0, **kw_w),
+                       p, f"{name} main shape -fmad=false")
+    emit("pose_stream_main_vs_plain", kernel=name, steps=PG_MAIN["steps"],
+         plain_ms=p_ms, plain_worlds=w, est_traj=errs["x"],
+         true_traj=errs["true_pose"], no_fma_bitwise_equal=same)
 
 
 def pg_graphs(cfg, batch: int, dev, seed: int = 0):
@@ -545,33 +647,17 @@ def pose_graph_paths(dev, n_lm: int) -> tuple[list, int]:
 
     record = []
     # ---- K3 at the shapes those runs gave it: its time with and without
-    # the pose stream, and the streams against the plain version's
-    for kind, batch, ls in (("ekf", PG_MAIN["batch"], launches),
-                            ("iekf", PG_SIDE, launches_iekf)):
+    # the pose stream; its streams were held against the plain version's by
+    # pose_stream_main_check, among the side checks
+    for kind, ls in (("ekf", launches), ("iekf", launches_iekf)):
         name = f"fused_{kind}_rollout[emit_traj]"
-        filt = kind + "_slam"
-        cfg = pg_config(PG_MAIN["steps"], filt, False)
-        lms, cmds = mc_inputs(cfg, batch, 0, dev)
-        noise = philox.philox_noise(0, PG_MAIN["steps"], n_lm, batch, dev)
+        filt, batch = kind + "_slam", K3_WORLDS[kind]
+        cfg, lms, cmds, noise = pose_stream_inputs(kind, dev, n_lm)
         kw = dict(noise=noise, filter_kind=kind)
         ms = timed_ms(lambda: fr.fused_ekf_rollout(cfg, lms, cmds, 0, emit_traj=True, **kw))
         ms_off = timed_ms(lambda: fr.fused_ekf_rollout(cfg, lms, cmds, 0, **kw))
-        w = min(batch, PLAIN_WORLDS)
-        lw, cw = lms[:w].contiguous(), cmds[:w].contiguous()
-        nw = noise[:, :, :w].contiguous()
-        k = fr.fused_ekf_rollout(cfg, lw, cw, 0, emit_traj=True, noise=nw, filter_kind=kind)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        p = fr.fused_ekf_rollout_reference(cfg, lw, cw, 0, emit_traj=True,
-                                           noise=nw, filter_kind=kind)
-        torch.cuda.synchronize()
-        p_ms = 1e3 * (time.perf_counter() - t0)
-        errs = compare(stream_of(k), stream_of(p),
-                       {o: TOL_MAIN[o] for o in ("x", "true_pose")})
-        with _build.without_fma():
-            same = bitwise(fr.fused_ekf_rollout(cfg, lw, cw, 0, emit_traj=True,
-                                                noise=nw, filter_kind=kind),
-                           p, f"{name} main shape -fmad=false")
+        chk = next(d for d in LINES if d["phase"] == "pose_stream_main_vs_plain"
+                   and d["kernel"] == name)
         gates = gate_counts(cfg, lms, cmds, 0)
         flops, nbytes = work(filt, gates, batch, PG_MAIN["steps"], n_lm)
         # beside the rollout's own traffic: the injected noise read once,
@@ -579,18 +665,17 @@ def pose_graph_paths(dev, n_lm: int) -> tuple[list, int]:
         nbytes += 4.0 * noise.numel() + 2 * 4.0 * batch * PG_MAIN["steps"] * 3
         t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
         emit("pose_stream_main_shape", kernel=name, batch=batch,
-             steps=PG_MAIN["steps"], ms=ms, ms_without_stream=ms_off,
-             plain_ms=p_ms, plain_worlds=w, est_traj=errs["x"],
-             true_traj=errs["true_pose"], no_fma_bitwise_equal=same)
+             steps=PG_MAIN["steps"], ms=ms, ms_without_stream=ms_off)
         record.append({
             "name": name, "route": "cuda", "source": PG_KERNELS[name][2],
             "replaces": PG_KERNELS[name][3], "launches": ls[name],
-            "max_abs_err": max(errs[o]["max_abs_err"] for o in ("x", "true_pose")),
-            "ms": ms, "ms_without_stream": ms_off, "plain_ms": p_ms,
+            "max_abs_err": max(chk[o]["max_abs_err"] for o in ("est_traj", "true_traj")),
+            "ms": ms, "ms_without_stream": ms_off, "plain_ms": chk["plain_ms"],
             "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None, "flops": flops, "bytes": nbytes,
-            "batch": batch, "plain_worlds": w, "plain_steps": PG_MAIN["steps"],
+            "batch": batch, "plain_worlds": chk["plain_worlds"],
+            "plain_steps": chk["steps"], "plain_timed": "beside the other side checks",
         })
 
     # ---- P1 on the main path's own graphs
@@ -633,6 +718,511 @@ def pose_graph_paths(dev, n_lm: int) -> tuple[list, int]:
     return record, launches["philox_noise"]
 
 
+def phase_attribution(dev, n_lm: int, base, lms, cmds, gates: dict):
+    """K1p: the EKF and RI-EKF rollouts at MAIN in their sim, nolm and full
+    modes, each launched once through the runner's routing with the counts
+    zeroed before and read after, then timed; each cut mode's kernel against
+    its plain version on the first PLAIN_WORLDS worlds (default build within
+    TOL_MAIN, -fmad=false bit for bit), nolm predicated against unpredicated
+    and against the replayed Philox stream bit for bit, sim with the estimate
+    where it started. Returns the kernels' records and each filter's times
+    by mode."""
+    modes = ("sim", "nolm", "full")
+    b, t_total = MAIN["batch"], MAIN["steps"]
+    lw, cw = lms[:PLAIN_WORLDS].contiguous(), cmds[:PLAIN_WORLDS].contiguous()
+    noise_w = philox.philox_noise_reference(0, t_total, n_lm, PLAIN_WORLDS, dev)
+    noise_card = philox.philox_noise(0, t_total, n_lm, PLAIN_WORLDS, dev)
+    record, times = [], {}
+    for kind in fr.FILTER_KINDS:
+        filt = kind + "_slam"
+        cfg = base.replace(filter=filt)
+        names = {m: f"fused_{kind}_rollout" + ("" if m == "full" else f"[{m}]")
+                 for m in modes}
+        zero_counts()
+        outs = {m: fused_rollout(cfg, lms, cmds, 0, profile_mode=m) for m in modes}
+        torch.cuda.synchronize()
+        launches = counts()
+        want = {k_: int(k_ in names.values()) for k_ in launches}
+        if launches != want:
+            raise AssertionError(f"{filt}: the attribution path launched "
+                                 f"{launches}, not once each of {list(names.values())}")
+        ms = {m: timed_ms(lambda m=m: fused_rollout(cfg, lms, cmds, 1, profile_mode=m))
+              for m in modes}
+        times[filt] = ms
+        d = 3 + 2 * n_lm
+        x0 = torch.zeros((b, d), device=dev)
+        x0[:, :3] = torch.tensor(cfg.init_pose, dtype=torch.float32, device=dev)
+        p0 = torch.diag_embed(torch.tensor(
+            list(fr.P0) + [0.0] * (d - 3), dtype=torch.float32, device=dev)).expand(b, d, d)
+        sim = outs["sim"]
+        if not (torch.equal(sim["x"], x0) and torch.equal(sim["P"], p0)
+                and not bool(sim["seen"].any())):
+            raise AssertionError(f"{filt}: sim mode moved the estimate")
+        if bool(outs["nolm"]["seen"].any()):
+            raise AssertionError(f"{filt}: nolm mode marked a landmark seen")
+        for m in ("sim", "nolm"):
+            name = names[m]
+            k = {k_: v[:PLAIN_WORLDS] for k_, v in outs[m].items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p = fused_rollout(cfg, lw, cw, 0, noise=noise_w, plain=True, profile_mode=m)
+            torch.cuda.synchronize()
+            p_ms = 1e3 * (time.perf_counter() - t0)
+            errs = compare(k, p, TOL_MAIN)
+            with _build.without_fma():
+                same = bitwise(fused_rollout(cfg, lw, cw, 0, profile_mode=m), p,
+                               f"{name} main shape -fmad=false")
+            checks = {"no_fma_bitwise_equal": same}
+            if m == "nolm":
+                checks["unpredicated_bitwise_equal"] = bitwise(
+                    fused_rollout(cfg, lw, cw, 0, profile_mode=m, predicated=False),
+                    k, f"{name} predicated against unpredicated")
+                checks["philox_replay_bitwise_equal"] = bitwise(
+                    fused_rollout(cfg, lw, cw, 5, noise=noise_card, profile_mode=m),
+                    k, f"{name} in-kernel Philox against the replay")
+            worst = max(TOL_MAIN, key=lambda o: errs[o]["max_abs_err"])
+            flops, nbytes = work(filt, gates, b, t_total, n_lm, mode=m)
+            t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+            emit("profile_mode_vs_plain", kernel=name, worlds=PLAIN_WORLDS,
+                 steps=t_total, plain_ms=p_ms, errors=errs, **checks)
+            record.append({
+                "name": name, "route": "cuda", "source": SRC + "fused_ekf_rollout.cu",
+                "replaces": K1P_KERNELS[name][3], "launches": launches[name],
+                "max_abs_err": errs[worst]["max_abs_err"],
+                "ms": ms[m], "plain_ms": p_ms,
+                "bound_ms": 1e3 * max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "library_ms": None, "flops": flops, "bytes": nbytes,
+                "plain_worlds": PLAIN_WORLDS, "plain_steps": t_total,
+            })
+        split = {"sim": ms["sim"], "predict": ms["nolm"] - ms["sim"],
+                 "landmark_loop": ms["full"] - ms["nolm"]}
+        emit("phase_attribution", filter=filt, **MAIN, n_lm=n_lm, protocol="shared",
+             ms=ms, split_ms=split,
+             shares={k_: v / ms["full"] for k_, v in split.items()},
+             launches={k_: v for k_, v in launches.items() if v})
+    return record, times
+
+
+# flops an entry of one Joseph pass: the products, sums and the final add
+JOSEPH_FLOPS = {"prod9": 20.0, "hoist": 20.0}
+JOSEPH_TERM_FLOPS = (2.0, 2.0, 2.0, 2.0, 3.0, 3.0, 5.0)
+# flops a sigma column of one z-stats pass: a range-and-bearing evaluation of
+# each sigma half (a square root, a division, the atan2 polynomial and a
+# wrap: ~40 each), four sines and cosines (~20 each), the deviations and
+# sums (~35). The kernel evaluates range and bearing again in its second
+# sweep over the columns, which the function does not need.
+ZSTATS_FLOPS = 2 * 40.0 + 4 * 20.0 + 35.0
+ZSTATS_FLOPS_KERNEL = ZSTATS_FLOPS + 2 * 40.0
+
+
+def micro_work(c: dict, b: int, d: int) -> tuple[float, float, float, float]:
+    """(flops, device-memory bytes, shared-memory bytes, flops executed) of
+    one launch of a tool's case on b worlds of a (d, d) matrix. The flops
+    are what the function needs, whichever variant computes it: the
+    Cholesky's trailing updates over the lower triangle, one add an entry of
+    the gathered column. The bound comes from them and from the bytes, each
+    input read and each output written once in device memory. Beside the
+    bound: every 4-byte access a lane makes to shared memory, and the flops
+    this variant's loops execute, read off the kernel (the full-width and
+    trailing-column Cholesky subtract zeros left of the pivot, the
+    select-and-sum gather multiplies whole rows by a one-hot)."""
+    op, n = c["op"], float(c["passes"])
+    mat = 4.0 * b * d * d
+    if op == "rank_update":
+        r = c["rank"]
+        flops = n * b * 2.0 * r * d * d
+        return flops, 2 * mat + 2 * 4.0 * b * r * d, n * b * d * d * 4.0 * (2 + r), flops
+    if op == "column_gather":
+        sel = c["spelling"] == "select"
+        return (n * b * d, mat + 4.0 * b + 4.0 * b * d,
+                n * b * 4.0 * ((d * d if sel else d) + 2 * d),
+                n * b * (2.0 * d * d + d if sel else d))
+    if op == "chol":
+        du = c["du"]
+        e = c["per_pass_elems"] / b  # entries this variant's trailing updates walk
+        e_low = micro_ukf.chol_elems("lower", d, du)
+        scal = sum(d - j - 1 for j in range(du))
+        return (n * b * (2.0 * e_low + scal + 2.0 * du), 2 * mat,
+                n * b * 4.0 * (2.0 * d * d + 3.0 * e + 2.0 * scal),
+                n * b * (2.0 * e + scal + 2.0 * du))
+    if op == "matvec":
+        flops = n * b * 2.0 * d * d
+        return (flops, mat + 4.0 * b * d * (1 + c["args"][1].shape[1]),
+                n * b * 4.0 * (2.0 * d * d + 2 * d), flops)
+    if op == "joseph":
+        if c["spelling"] == "terms":
+            per, loads = sum(JOSEPH_TERM_FLOPS[:c["n_terms"]]), 2 + min(c["n_terms"], 4)
+        else:
+            per, loads = JOSEPH_FLOPS[c["spelling"]], 6
+        flops = n * b * per * d * d
+        return flops, 2 * mat + 4.0 * b * (4 * d + 3), n * b * d * d * 4.0 * loads, flops
+    if op == "zstats":
+        return (n * b * ZSTATS_FLOPS * d, 4.0 * b * (7 * d + 3), n * b * 4.0 * 14 * d,
+                n * b * ZSTATS_FLOPS_KERNEL * d)
+    raise ValueError(op)
+
+
+def library_ms(c: dict) -> float | None:
+    """Milliseconds of the PyTorch calls that compute a case's function on
+    its inputs, one call a pass (``baddbmm`` for the rank update and the
+    matvec, ``linalg.cholesky`` of the pivoted block, ``gather``), or None
+    where no one call does. A yardstick: nothing in the port calls these."""
+    op, args = c["op"], c["args"]
+    if op == "rank_update":
+        p, k, h, n = args
+        kt = k.transpose(1, 2).contiguous()
+        step, state = (lambda v: torch.baddbmm(v, kt, h, alpha=-1.0)), p
+    elif op == "column_gather":
+        p, idx, n, _ = args
+        index = idx.long()[:, None, None].expand(-1, p.shape[1], 1)
+        step, state = (lambda v: v + torch.gather(p, 2, index)[..., 0]), \
+            torch.zeros_like(p[:, :, 0])
+    elif op == "chol":
+        p, n, _, du = args
+        block = p[:, :du, :du].contiguous()
+        step, state = (lambda v: torch.linalg.cholesky(block)), None
+    elif op == "matvec":
+        l, g, n, order = args
+        m = l.transpose(1, 2).contiguous() if order == "col" else l
+        n = n * g.shape[1]
+        ga = g[:, 0, :, None].contiguous()
+        step, state = (lambda v: torch.baddbmm(v, m, ga)), torch.zeros_like(ga)
+    else:
+        return None
+    state = step(state)  # warm-up
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(n):
+        state = step(state)
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1)
+
+
+def micro_compare(c: dict, worlds: int, short: dict | None = None) -> dict:
+    """One case's kernel against its plain version on the first ``worlds``
+    worlds. ``short`` is the same case at no more than MICRO_CHECK_PASSES
+    passes (default: ``c`` itself): there the default build must lie within
+    MICRO_RTOL of the output's scale. At ``c``'s own passes the default
+    build's drift is reported. At both, the -fmad=false build must equal the
+    plain version bit for bit. Returns the errors and the milliseconds of
+    the plain version of ``c``."""
+    fn, ref = getattr(mo, c["op"]), getattr(mo, c["op"] + "_reference")
+
+    def run(case):
+        args = tuple(a[:worlds].contiguous() if torch.is_tensor(a) else a
+                     for a in case["args"])
+        before = mo.launches[case["op"]]
+        k = fn(*args)
+        torch.cuda.synchronize()
+        if mo.launches[case["op"]] != before + 1:
+            raise AssertionError(f"{case['name']}: the wrapper did not launch the kernel")
+        t0 = time.perf_counter()
+        p = ref(*args)
+        torch.cuda.synchronize()
+        p_ms = 1e3 * (time.perf_counter() - t0)
+        with _build.without_fma():
+            k_nofma = fn(*args)
+        if not torch.equal(k_nofma, p):
+            raise AssertionError(
+                f"{case['name']}, {case['passes']} passes: the -fmad=false build differs "
+                f"from the plain version by {float((k_nofma - p).abs().max())}")
+        return k, k_nofma, p, p_ms
+
+    k, k_nofma, p, p_ms = run(c)
+    k_s, _, p_s, _ = (k, k_nofma, p, p_ms) if short is None else run(short)
+    err, top = float((k_s - p_s).abs().max()), float(p_s.abs().max())
+    out = {"max_abs_err": err, "scale": top, "rel_to_scale": err / top,
+           "rtol_of_scale": MICRO_RTOL,
+           "checked_passes": (c if short is None else short)["passes"],
+           "drift_rel_to_scale": float((k - p).abs().max()) / float(p.abs().max()),
+           "plain_ms": p_ms, "plain_worlds": worlds, "no_fma_bitwise_equal": True}
+    if not err <= MICRO_RTOL * top:
+        raise AssertionError(f"{c['name']}: out of tolerance: {out}")
+    if c["op"] == "joseph" and c["spelling"] != "terms":
+        # both triangles from their own expressions: what FMA contraction
+        # does to the symmetry the plain version keeps exactly
+        out["asymmetry"] = float((k - k.transpose(1, 2)).abs().max())
+        out["asymmetry_no_fma"] = float((k_nofma - k_nofma.transpose(1, 2)).abs().max())
+    return out
+
+
+def phase_micro_ops(dev) -> list:
+    """The three tools at MAIN's batch and D = 48, through their ``run`` (the
+    counts zeroed before, read after); then every case of theirs against its
+    plain version and beside its bounds and library call. Returns the six
+    families' records."""
+    b, d = MAIN["batch"], MICRO_DIM
+    tools = {"micro_downdate": micro_downdate, "micro_ukf": micro_ukf,
+             "micro_ukf_probe": micro_ukf_probe}
+    zero_counts()
+    rows = {name: tool.run(b, dev, REPS) for name, tool in tools.items()}
+    torch.cuda.synchronize()
+    launches = counts()
+    want = {k_: 0 for k_ in launches}
+    n_cases = {}
+    for tool in tools.values():
+        for c in tool.cases(8, dev, passes=1):
+            n_cases[c["op"]] = n_cases.get(c["op"], 0) + 1
+    for name, (key, _, _) in MICRO_KERNELS.items():
+        want[name] = n_cases[key] * (REPS + 1)  # a warm-up and REPS timed launches
+    if launches != want:
+        raise AssertionError(f"the tools launched {launches}, expected {want}")
+    families = {name: [] for name in MICRO_KERNELS}
+    for tname, tool in tools.items():
+        for c, c_short, r in zip(tool.cases(b, dev),
+                                 tool.cases(b, dev, passes=MICRO_CHECK_PASSES),
+                                 rows[tname]):
+            if c_short["passes"] >= c["passes"]:
+                c_short = None  # the tool's own launch is short enough
+            flops, nbytes, smem, executed = micro_work(c, b, d)
+            t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+            v = {**r, "tool": tname, **micro_compare(c, PLAIN_WORLDS, c_short),
+                 "bound_ms": 1e3 * max(t_ops, t_bytes),
+                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                 "flops": flops, "bytes": nbytes, "flops_executed": executed,
+                 "smem_bytes": smem, "smem_ms": 1e3 * smem / PEAK_SMEM_BYTES,
+                 "library_ms": library_ms(c)}
+            emit("micro_ops", worlds=b, dim=d, **v)
+            families["micro_" + c["op"]].append(v)
+    # linearity in the passes: a launch of the tool's passes takes twice the
+    # time of one of half as many (within 5%), or the compiler folded passes
+    # together
+    lin = {}
+    for tool, op, variant in ((micro_ukf_probe, "rank_update", "R=2 (probe)"),
+                              (micro_downdate, "column_gather", "take"),
+                              (micro_ukf, "chol", "lower"),
+                              (micro_ukf_probe, "matvec", "row"),
+                              (micro_ukf, "joseph", "prod9"),
+                              (micro_ukf, "zstats", "zstats")):
+        def pick(passes=None):
+            return next(c for c in tool.cases(b, dev, passes=passes)
+                        if (c["op"], c["variant"]) == (op, variant))
+        full = pick()
+        t = [timed_ms(lambda: getattr(mo, op)(*c["args"]))
+             for c in (pick(full["passes"] // 2), full)]
+        lin[f"{op}[{variant}]"] = t[1] / t[0]
+    emit("micro_ops_linearity", time_ratio_for_twice_the_passes=lin)
+    if not all(1.9 <= r <= 2.1 for r in lin.values()):
+        raise AssertionError(f"time is not linear in the passes: {lin}")
+    record = []
+    for name, (key, replaces, head) in MICRO_KERNELS.items():
+        vs = families[name]
+        h = next(v for v in vs if v["variant"] == head)
+        record.append({
+            "name": name, "route": "cuda", "source": SRC + "micro_ops.cu",
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(v["max_abs_err"] for v in vs),
+            "max_rel_to_scale": max(v["rel_to_scale"] for v in vs),
+            "ms": h["ms"], "plain_ms": h["plain_ms"], "bound_ms": h["bound_ms"],
+            "bound_by": h["bound_by"], "library_ms": h["library_ms"],
+            "variant": head, "passes": h["passes"], "us_per_pass": h["us_per_pass"],
+            "smem_ms": h["smem_ms"], "batch": b, "dim": d,
+            "plain_worlds": PLAIN_WORLDS,
+            "variants": [{k_: v[k_] for k_ in (
+                "variant", "tool", "passes", "ms", "us_per_pass", "max_abs_err",
+                "checked_passes", "drift_rel_to_scale", "plain_ms", "bound_ms",
+                "bound_by", "flops", "flops_executed", "smem_ms", "library_ms")}
+                for v in vs],
+        })
+    return record
+
+
+def phase_op_sum(dev, n_lm: int, gates: dict, times: dict, kernel_ms: dict):
+    """The passes a tick executes, from the gates' counts, times each
+    primitive's measured time per pass at the kernel's own dimension, against
+    the kernel's measured time: for K1 (D = 43) and K4 SLAM (Du = 44). A pass
+    is timed over the whole batch, so a count per world-tick times the
+    batch's time per pass is the batch's time."""
+    b, t_total = MAIN["batch"], MAIN["steps"]
+    upd = gates["updates"] / gates["ticks"]  # updates per world and tick
+
+    def us_per_pass(c):
+        return 1e3 * timed_ms(lambda: getattr(mo, c["op"])(*c["args"])) / c["passes"]
+
+    d = 3 + 2 * n_lm
+    dd = us_per_pass(micro_ukf_probe.cases(b, dev, dim=d)[0])
+    parts = {
+        "sim_and_predict (the nolm kernel)": times["ekf_slam"]["nolm"],
+        "rank2_downdates": upd * t_total * dd / 1e3,
+    }
+    total = sum(parts.values())
+    emit("op_sum", kernel="fused_ekf_rollout", **MAIN, dim=d,
+         updates_per_world_tick=upd, rank2_downdate_us_per_pass=dd,
+         parts_ms=parts, op_sum_ms=total, kernel_ms=kernel_ms["ekf_slam"],
+         explained_share=total / kernel_ms["ekf_slam"],
+         not_timed_alone="gain and H P vectors, state update, insertions")
+
+    du = fu.state_dim(n_lm, True)
+    per = {c["variant"]: us_per_pass(c)
+           for c in micro_ukf.cases(b, dev, dim=du, du=du)}
+    # the rollout factors the active dimensions only (pivots past the
+    # highest seen slot are skipped): the mean of n_act^3 over Du^3; its
+    # matvecs walk the lower triangle (half of the rows' products); its
+    # Joseph pass computes i <= j and mirrors it, timed here as the
+    # both-triangles spelling; its z-stats use rotation algebra in place of
+    # this block's atan2, sin and cos
+    f_chol = gates["act3"] / gates["ticks"] / du ** 3
+    parts = {
+        "sim (the EKF kernel in sim mode)": times["ekf_slam"]["sim"],
+        "chol_lower": t_total * f_chol * per["lower"] / 1e3,
+        "predict_matvecs (4 a tick, triangular)": t_total * 4 * 0.5 * per["row x4"] / 1e3,
+        "update_matvecs (2 an update, triangular)": upd * t_total * 2 * 0.5 * per["row x4"] / 1e3,
+        "update_joseph": upd * t_total * per["prod9"] / 1e3,
+        "update_zstats": upd * t_total * per["zstats"] / 1e3,
+    }
+    total = sum(parts.values())
+    emit("op_sum", kernel="fused_ukf_rollout[slam]", **MAIN, dim=du,
+         updates_per_world_tick=upd, chol_active_share=f_chol,
+         us_per_pass=per, parts_ms=parts, op_sum_ms=total,
+         kernel_ms=kernel_ms["ukf_slam"],
+         explained_share=total / kernel_ms["ukf_slam"],
+         not_timed_alone="sigma propagation, the 4x4 block, gain and gate, insertions")
+
+
+def rollout_checks(kname: str, dev, n_lm: int):
+    """One rollout kernel against its plain version on three configs at
+    SMALL, then predicated against unpredicated and in-kernel Philox against
+    the replayed stream."""
+    filt, (ctr, key), _, _ = KERNELS[kname]
+    # ---- 3. kernel vs plain version, injected noise, three configs:
+    # the default build per world within TOL, over SMALL and over its
+    # first SHORT ticks, on the worlds the plain version does not flag as
+    # chaotic; the -fmad=false build bit for bit
+    rng = np.random.default_rng(3)
+    for cname, cfg in configs(SMALL["steps"]).items():
+        t_phase = time.perf_counter()
+        cfg = cfg.replace(filter=filt)
+        lms, cmds = mc_inputs(cfg, SMALL["batch"], 3, dev)
+        noise = torch.as_tensor(
+            rng.uniform(-1, 1, (SMALL["steps"], 2 * n_lm + 8,
+                                SMALL["batch"])).astype(np.float32),
+            device=dev)
+        before = ctr[key]
+        k = fused_rollout(cfg, lms, cmds, 0, noise=noise)
+        torch.cuda.synchronize()
+        if ctr[key] != before + 1:
+            raise AssertionError(f"{kname}: the wrapper did not launch the kernel")
+        p, exempt = plain_run(cfg, lms, cmds, noise, TOL)
+        errs = compare(k, p, TOL, exempt, AGG_RTOL)
+        with _build.without_fma():
+            k_nofma = fused_rollout(cfg, lms, cmds, 0, noise=noise)
+        same = bitwise(k_nofma, p, f"{kname} {cname} -fmad=false")
+        cs, ns = cmds[:, :SHORT].contiguous(), noise[:SHORT].contiguous()
+        p_short, exempt_short = plain_run(cfg, lms, cs, ns, TOL)
+        errs_short = compare(fused_rollout(cfg, lms, cs, 0, noise=ns),
+                             p_short, TOL, exempt_short)
+        emit("kernel_vs_plain", kernel=kname, config=cname, **SMALL,
+             seconds=time.perf_counter() - t_phase,
+             n_lm=n_lm, worlds_with_2plus_landmarks=int(
+                 (k["seen"].sum(1) >= 2).sum()), errors=errs,
+             short_steps=SHORT, errors_short=errs_short,
+             no_fma_bitwise_equal=same)
+
+    # ---- 4. predicated == unpredicated, bit for bit (in-kernel noise),
+    # ---- 5. in-kernel Philox == the replayed philox_noise stream
+    cfg = configs(SMALL["steps"])["default"].replace(filter=filt)
+    lms, cmds = mc_inputs(cfg, SMALL["batch"], 4, dev)
+    a = fused_rollout(cfg, lms, cmds, 11)
+    b = fused_rollout(cfg, lms, cmds, 11, predicated=False)
+    nz = philox.philox_noise(11, SMALL["steps"], n_lm, SMALL["batch"], dev)
+    c = fused_rollout(cfg, lms, cmds, 0, noise=nz)
+    torch.cuda.synchronize()
+    same = {k_: bool(torch.equal(a[k_], b[k_])) for k_ in a}
+    replay = {k_: bool(torch.equal(a[k_], c[k_])) for k_ in a}
+    emit("predicated_vs_unpredicated", kernel=kname, bitwise_equal=same)
+    emit("philox_replay", kernel=kname, inkernel_equals_replay=replay)
+    if not all(same.values()):
+        raise AssertionError(f"{kname}: predication changed the result: {same}")
+    if not all(replay.values()):
+        raise AssertionError(f"{kname}: in-kernel Philox differs from the replay")
+
+
+def philox_check(dev, n_lm: int):
+    """The standalone Philox kernel against its torch version."""
+    nz = philox.philox_noise(11, SMALL["steps"], n_lm, SMALL["batch"], dev)
+    nz_ref = philox.philox_noise_reference(11, SMALL["steps"], n_lm,
+                                           SMALL["batch"], dev)
+    emit("philox", kernel_equals_torch=bool(torch.equal(nz, nz_ref)),
+         mean=float(nz.mean()), var=float(nz.var()), min=float(nz.min()),
+         max=float(nz.max()))
+    if not torch.equal(nz, nz_ref):
+        raise AssertionError("Philox stream differs between kernel and torch")
+    if abs(float(nz.mean())) > 0.01 or abs(float(nz.var()) - 1 / 3) > 0.01:
+        raise AssertionError("Philox noise moments are off")
+
+
+# The checks whose results nothing later reads, by name, and the processes
+# they run in: the plain versions they wait for are bound by the host (one
+# Python thread issuing small launches), so processes side by side shorten
+# the run to what the longest group takes; the card is shared among them.
+# No kernel is timed meanwhile (the plain versions' host times are, and say
+# so). The last group runs in the calling process.
+SIDE_CHECKS = {
+    **{kname: (lambda dev, n_lm, kname=kname: rollout_checks(kname, dev, n_lm))
+       for kname in KERNELS},
+    "philox": philox_check,
+    "pose_stream": pose_stream_checks,
+    **{f"pose_stream_main[{kind}]":
+       (lambda dev, n_lm, kind=kind: pose_stream_main_check(kind, dev, n_lm))
+       for kind in fr.FILTER_KINDS},
+    "block_thomas": lambda dev, n_lm: block_thomas_checks(dev),
+}
+SIDE_GROUPS = (
+    ("fused_ukf_rollout[slam]",),
+    ("fused_ukf_rollout[loc]",),
+    ("fused_ekf_rollout", "pose_stream_main[ekf]"),
+    ("fused_iekf_rollout", "pose_stream_main[iekf]"),
+    ("philox", "pose_stream", "block_thomas"),
+)
+SIDE_FLAG = "--side-checks"
+
+
+def side_checks(dev, n_lm: int):
+    """Every group of SIDE_GROUPS at once: all but the last as ``python3
+    chip_smoke.py --side-checks NAME ...``, whose lines are printed when it
+    has ended and whose failure fails the run; no process is left behind."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               SIDE_FLAG, *group], stdout=subprocess.PIPE, text=True)
+             for group in SIDE_GROUPS[:-1]]
+    pool = ThreadPoolExecutor(len(procs))
+    try:
+        outs = [pool.submit(p.communicate) for p in procs]
+        for name in SIDE_GROUPS[-1]:
+            SIDE_CHECKS[name](dev, n_lm)
+        for group, p, out in zip(SIDE_GROUPS, procs, outs):
+            text = out.result()[0]
+            sys.stdout.write(text)
+            sys.stdout.flush()
+            LINES.extend(json.loads(line) for line in text.splitlines()
+                         if line.startswith("{"))
+            if p.returncode != 0:
+                raise AssertionError(f"the side checks {group} ended with "
+                                     f"code {p.returncode}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        pool.shutdown()  # every communicate() has returned: no process is left
+    emit("side_checks", seconds=time.perf_counter() - t0, groups=SIDE_GROUPS)
+
+
+def side_main(names: list):
+    """The process of one group: the named checks on the libraries the
+    caller built, their lines on the standard output."""
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
+    pin_fp32()
+    _build.load()
+    n_lm = Config().map.num_landmarks
+    for name in names:
+        t0 = time.perf_counter()
+        SIDE_CHECKS[name](torch.device("cuda"), n_lm)
+        emit("side_check", name=name, seconds=time.perf_counter() - t0)
+
+
 def main():
     # ---- 1. device
     if not torch.cuda.is_available():
@@ -655,76 +1245,9 @@ def main():
     emit("build", seconds=time.perf_counter() - t0,
          libraries=[str(lib.relative_to(_build.CSRC.parent.parent)) for lib in libs])
 
+    # ---- 3-5. the checks that feed nothing later, in processes side by side
     n_lm = Config().map.num_landmarks
-    for kname, (filt, (ctr, key), _, _) in KERNELS.items():
-        # ---- 3. kernel vs plain version, injected noise, three configs:
-        # the default build per world within TOL, over SMALL and over its
-        # first SHORT ticks, on the worlds the plain version does not flag as
-        # chaotic; the -fmad=false build bit for bit
-        rng = np.random.default_rng(3)
-        for cname, cfg in configs(SMALL["steps"]).items():
-            t_phase = time.perf_counter()
-            cfg = cfg.replace(filter=filt)
-            lms, cmds = mc_inputs(cfg, SMALL["batch"], 3, dev)
-            noise = torch.as_tensor(
-                rng.uniform(-1, 1, (SMALL["steps"], 2 * n_lm + 8,
-                                    SMALL["batch"])).astype(np.float32),
-                device=dev)
-            before = ctr[key]
-            k = fused_rollout(cfg, lms, cmds, 0, noise=noise)
-            torch.cuda.synchronize()
-            if ctr[key] != before + 1:
-                raise AssertionError(f"{kname}: the wrapper did not launch the kernel")
-            p, exempt = plain_run(cfg, lms, cmds, noise, TOL)
-            errs = compare(k, p, TOL, exempt, AGG_RTOL)
-            with _build.without_fma():
-                k_nofma = fused_rollout(cfg, lms, cmds, 0, noise=noise)
-            same = bitwise(k_nofma, p, f"{kname} {cname} -fmad=false")
-            cs, ns = cmds[:, :SHORT].contiguous(), noise[:SHORT].contiguous()
-            p_short, exempt_short = plain_run(cfg, lms, cs, ns, TOL)
-            errs_short = compare(fused_rollout(cfg, lms, cs, 0, noise=ns),
-                                 p_short, TOL, exempt_short)
-            emit("kernel_vs_plain", kernel=kname, config=cname, **SMALL,
-                 seconds=time.perf_counter() - t_phase,
-                 n_lm=n_lm, worlds_with_2plus_landmarks=int(
-                     (k["seen"].sum(1) >= 2).sum()), errors=errs,
-                 short_steps=SHORT, errors_short=errs_short,
-                 no_fma_bitwise_equal=same)
-
-        # ---- 4. predicated == unpredicated, bit for bit (in-kernel noise),
-        # ---- 5. in-kernel Philox == the replayed philox_noise stream
-        cfg = configs(SMALL["steps"])["default"].replace(filter=filt)
-        lms, cmds = mc_inputs(cfg, SMALL["batch"], 4, dev)
-        a = fused_rollout(cfg, lms, cmds, 11)
-        b = fused_rollout(cfg, lms, cmds, 11, predicated=False)
-        nz = philox.philox_noise(11, SMALL["steps"], n_lm, SMALL["batch"], dev)
-        c = fused_rollout(cfg, lms, cmds, 0, noise=nz)
-        torch.cuda.synchronize()
-        same = {k_: bool(torch.equal(a[k_], b[k_])) for k_ in a}
-        replay = {k_: bool(torch.equal(a[k_], c[k_])) for k_ in a}
-        emit("predicated_vs_unpredicated", kernel=kname, bitwise_equal=same)
-        emit("philox_replay", kernel=kname, inkernel_equals_replay=replay)
-        if not all(same.values()):
-            raise AssertionError(f"{kname}: predication changed the result: {same}")
-        if not all(replay.values()):
-            raise AssertionError(f"{kname}: in-kernel Philox differs from the replay")
-
-    # the standalone Philox kernel against its torch version
-    nz = philox.philox_noise(11, SMALL["steps"], n_lm, SMALL["batch"], dev)
-    nz_ref = philox.philox_noise_reference(11, SMALL["steps"], n_lm,
-                                           SMALL["batch"], dev)
-    emit("philox", kernel_equals_torch=bool(torch.equal(nz, nz_ref)),
-         mean=float(nz.mean()), var=float(nz.var()), min=float(nz.min()),
-         max=float(nz.max()))
-    if not torch.equal(nz, nz_ref):
-        raise AssertionError("Philox stream differs between kernel and torch")
-    if abs(float(nz.mean())) > 0.01 or abs(float(nz.var()) - 1 / 3) > 0.01:
-        raise AssertionError("Philox noise moments are off")
-
-    # the pose stream (K3) and the block-Thomas kernels (P1) against their
-    # plain versions
-    pose_stream_checks(dev, n_lm)
-    block_thomas_checks(dev)
+    side_checks(dev, n_lm)
 
     # ---- 6. the main path, once per filter, through its kernel; the counts
     # read right after run_monte_carlo are that path's own
@@ -782,10 +1305,12 @@ def main():
                                               PLAIN_WORLDS, dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        p = fused_rollout(cfg, lw, cw, 0, noise=noise, plain=True)
+        p, exempt = plain_run(cfg, lw, cw, noise, TOL_MAIN)
         torch.cuda.synchronize()
         p_ms = 1e3 * (time.perf_counter() - t0)
-        _, exempt = plain_run(cfg, lw, cw, noise, TOL_MAIN, p)
+        # the UKFs' plain time is that of the run and its nudged twin in one
+        # batch, with the chaos flags' eigenvalues
+        plain_worlds = PLAIN_WORLDS * (2 if filt.startswith("ukf") else 1)
         errs = compare(k, p, TOL_MAIN, exempt)
         with _build.without_fma():
             same = bitwise(fused_rollout(cfg, lw, cw, 0), p,
@@ -794,7 +1319,8 @@ def main():
         worst = max(outputs, key=lambda o: errs[o]["max_abs_err"])
         d_avg = (k["err_sum"] - p["err_sum"]).abs() / MAIN["steps"]
         emit("kernel_vs_plain_main_shape", kernel=kname, worlds=PLAIN_WORLDS,
-             steps=MAIN["steps"], plain_ms=p_ms, errors=errs,
+             steps=MAIN["steps"], plain_ms=p_ms, plain_worlds=plain_worlds,
+             errors=errs,
              exempt_share=errs["worlds_exempt"] / PLAIN_WORLDS,
              max_abs_err_output=worst, no_fma_bitwise_equal=same,
              avg_err_max_abs_diff_m=float(d_avg.max()),
@@ -813,9 +1339,16 @@ def main():
             "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None, "flops": flops, "bytes": nbytes,
-            "plain_worlds": PLAIN_WORLDS, "plain_steps": MAIN["steps"],
+            "plain_worlds": plain_worlds, "plain_steps": MAIN["steps"],
         })
     emit("gate_counts", **MAIN, **gates)
+
+    # ---- 6b. the kernel-attribution path: the profile modes of K1 and K2,
+    # the standalone primitives, and the sum of a tick's passes
+    kernel_ms = {KERNELS[r["name"]][0]: r["ms"] for r in record}
+    k1p_record, times = phase_attribution(dev, n_lm, base, lms, cmds, gates)
+    record += k1p_record + phase_micro_ops(dev)
+    phase_op_sum(dev, n_lm, gates, times, kernel_ms)
 
     # ---- 7. the pose-graph main path and its kernels
     pg_record, philox_launches = pose_graph_paths(dev, n_lm)
@@ -855,4 +1388,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == [SIDE_FLAG]:
+        side_main(sys.argv[2:])
+    else:
+        main()

@@ -7,9 +7,13 @@ rollout a hand-written CUDA kernel for Hopper (``csrc/``), built with nvcc at
 first use. ``eval.runner.run_monte_carlo_pg_streams`` is the pose-graph
 study on top of it: closed-form simulator streams, graphs assembled in vector
 ops, and a Schur / block-Thomas Gauss-Newton solver whose sequential
-recursions are a hand-written kernel too. The layout mirrors the JAX package (``core/``, ``sim/``,
-``models/``, ``ops/``, ``eval/``, ``utils/``), which stays the reference the port is
-tested against. Nothing here imports jax or the JAX package.
+recursions are a hand-written kernel too. ``tools/`` and the rollouts'
+``profile_mode`` say where a rollout kernel's time goes: each primitive of a
+tick as a standalone kernel (``ops/micro_ops``), timed alone. The layout
+mirrors the JAX package (``core/``, ``sim/``, ``models/``, ``ops/``,
+``eval/``, ``utils/``; ``tools/`` holds what the JAX package keeps under
+``scripts/``), which stays the reference the port is tested against. Nothing
+here imports jax or the JAX package.
 """
 
 __version__ = "0.1.0"

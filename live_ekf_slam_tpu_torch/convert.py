@@ -13,6 +13,10 @@ The pose-graph slice adds the state itself: ``posegraph_state_from_numpy``
 turns a JAX ``PoseGraphState`` (its fields as numpy arrays, one world or a
 ``vmap`` batch) into the port's batched one, ``streams_from_numpy`` the JAX
 ``sim_streams`` dict into the port's tensors.
+
+The kernel-attribution slice adds ``micro_inputs_from_numpy`` and
+``micro_output_to_numpy``, which carry the microbenchmark scripts' world-minor
+arrays into the port's world-major layout and back.
 """
 
 from __future__ import annotations
@@ -215,3 +219,27 @@ def streams_from_numpy(streams: dict, device="cpu") -> dict:
         t = torch.tensor(a, device=device)  # a copy: jax's arrays are read-only
         out[k] = t if k == "vis" else t.to(torch.float32)
     return out
+
+
+def micro_inputs_from_numpy(*arrays, device="cpu") -> tuple:
+    """The arrays that ``scripts/micro_*.py`` build, worlds on the last axis
+    ((DP, DP, BL) matrices, (R, DP, BL) vector stacks, (DP, BL) vectors,
+    (8, BL) scalar rows, (1, BL) int32 indices), -> the port's contiguous
+    tensors with worlds on the first axis ((BL, DP, DP), (BL, R, DP),
+    (BL, DP), (BL, 8)); an index row becomes (BL,) int32. Floats become
+    float32."""
+    out = []
+    for a in arrays:
+        a = np.moveaxis(np.asarray(a), -1, 0)
+        if np.issubdtype(a.dtype, np.integer):
+            a = a.reshape(a.shape[0]).astype(np.int32)
+        else:
+            a = a.astype(np.float32)
+        out.append(torch.tensor(np.ascontiguousarray(a), device=device))
+    return tuple(out)
+
+
+def micro_output_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A world-major result of ``ops/micro_ops`` -> numpy with worlds on the
+    last axis, the layout of the scripts' kernels."""
+    return np.moveaxis(t.detach().cpu().numpy(), 0, -1)

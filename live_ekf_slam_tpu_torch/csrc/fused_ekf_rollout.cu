@@ -2,9 +2,9 @@
 // rollout of every world in one launch.
 //
 // Replaces the Pallas TPU kernel live_ekf_slam_tpu/ops/fused_rollout.py,
-// function fused_ekf_rollout (kernel body _make_kernel, profile_mode="full"):
-// with filter_kind="ekf" as fused_ekf_rollout_kernel<false, .>, and with
-// filter_kind="iekf" (fused_iekf_rollout) as fused_ekf_rollout_kernel<true, .>.
+// function fused_ekf_rollout (kernel body _make_kernel): with
+// filter_kind="ekf" as fused_ekf_rollout_kernel<false, ., .>, and with
+// filter_kind="iekf" (fused_iekf_rollout) as fused_ekf_rollout_kernel<true, ., .>.
 // The scalar helpers of ops/kernel_math.py are inlined (kernel_math.cuh) and a
 // Philox stream takes the place of the TPU's on-core PRNG.
 //
@@ -45,6 +45,17 @@
 // with two pad rows was its tile shape). With kEmitTraj = false nothing of
 // it is compiled in: the instantiation is the kernel it was before.
 //
+// The phase-attribution modes (the JAX kernel's profile_mode, _make_kernel
+// lines 188-194 and 268) are a fourth template parameter, not a run-time
+// branch, so that the full kernels compile to what they compiled to without
+// it. kModeSim ends every tick after the noise draw, truth propagation and
+// sensing, with the error against the estimate that never moves: x, P and
+// seen leave the kernel as they were initialised. kModeNoLm adds the predict
+// and skips the landmark loop, so seen stays empty. Their times, taken from
+// the full kernel's, split a rollout into simulator, predict and landmark
+// loop. The JAX kernel's fourth name, "downdate", has no branch there and
+// runs the full tick; the wrapper maps it to kModeFull.
+//
 // Numerics. Operation order follows the JAX kernel wherever results depend
 // on it (see the comments below). nvcc contracts a*b+c into FMA by default,
 // which the JAX and torch versions do not: that, not the algorithm, is why
@@ -77,6 +88,8 @@ constexpr int kWorldsPerBlock = 4;
 constexpr size_t kMaxSmem = 232448;  // 227 KB: the most a Hopper block can use
 constexpr int kErrSmem = 100000;     // launcher's own code: see les_error_string
 constexpr int kTrajTicks = 32;       // ticks of the pose stream staged per store
+// where a tick ends: after the whole of it, after the predict, after sensing
+constexpr int kModeFull = 0, kModeNoLm = 1, kModeSim = 2;
 
 // floats of shared memory per world: P, then x, x snapshot, pr, pb, hp0,
 // hp1 (D each), noise rows, landmark x and y, vis, rn, bn, seen (N each),
@@ -397,7 +410,7 @@ __device__ __forceinline__ void iekf_insert(const EkfParams& p, const World& w,
   __syncwarp();
 }
 
-template <bool kInvariant, bool kEmitTraj>
+template <bool kInvariant, bool kEmitTraj, int kMode>
 __global__ void __launch_bounds__(32 * kWorldsPerBlock)
 fused_ekf_rollout_kernel(const EkfParams p, const float* __restrict__ lms,
                          const float* __restrict__ cmds,
@@ -494,6 +507,18 @@ fused_ekf_rollout_kernel(const EkfParams p, const float* __restrict__ lms,
       w.bn[j] = beta + p.w11s * w.u[2 + N + j];
     }
 
+    // ---- "sim" (:188-194): the error against the unmoved estimate, and the
+    // tick ends; the barrier keeps the next tick's noise off this tick's reads
+    if constexpr (kMode == kModeSim) {
+      const float ex = w.x[0] - tx;
+      const float ey = w.x[1] - ty;
+      const float e = sqrtf(ex * ex + ey * ey);
+      esum = esum + e;
+      emax = les::max_nan(emax, e);
+      __syncwarp();
+      continue;
+    }
+
     // ---- EKF predict (:195-259): rows 0 and 1 from row 2, THEN columns 0
     // and 1 from column 2, which holds the updated rows
     const float th = w.x[2];
@@ -547,8 +572,8 @@ fused_ekf_rollout_kernel(const EkfParams p, const float* __restrict__ lms,
 
     // ---- per landmark in id order: update, insert, then seen |= vis
     // (:278-593). The gates use the tick-start seen: seen[j] changes only
-    // at the end of its own iteration.
-    for (int j = 0; j < N; ++j) {
+    // at the end of its own iteration. "nolm" runs no iteration (:268).
+    for (int j = 0; j < (kMode == kModeFull ? N : 0); ++j) {
       const int li = 3 + 2 * j;
       const float sj = w.seen[j];
       const float vj = w.vis[j];
@@ -611,7 +636,7 @@ fused_ekf_rollout_kernel(const EkfParams p, const float* __restrict__ lms,
     seen_out[(size_t)world * N + j] = w.seen[j] > 0.5f ? 1 : 0;
 }
 
-template <bool kInvariant, bool kEmitTraj>
+template <bool kInvariant, bool kEmitTraj, int kMode>
 int launch_rollout(const EkfParams* p, const float* lms, const float* cmds,
                    const float* noise, uint32_t seed, int B, int T, int N,
                    int predicated, float* err_sum, float* err_max,
@@ -625,55 +650,71 @@ int launch_rollout(const EkfParams* p, const float* lms, const float* cmds,
   const size_t smem = wpb * per_world;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        fused_ekf_rollout_kernel<kInvariant, kEmitTraj>,
+        fused_ekf_rollout_kernel<kInvariant, kEmitTraj, kMode>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const unsigned blocks = (unsigned)((B + wpb - 1) / wpb);
-  fused_ekf_rollout_kernel<kInvariant, kEmitTraj>
+  fused_ekf_rollout_kernel<kInvariant, kEmitTraj, kMode>
       <<<blocks, 32 * wpb, smem, (cudaStream_t)stream>>>(
           *p, lms, cmds, noise, seed, B, T, N, predicated, err_sum, err_max,
           true_pose, x, P, seen, est_traj, true_traj);
   return (int)cudaGetLastError();
 }
 
-// est_traj and true_traj are both null (no pose stream) or both given
+// est_traj and true_traj are both null (no pose stream) or both given, and
+// given only with mode kModeFull
 template <bool kInvariant>
 int dispatch_rollout(const EkfParams* p, const float* lms, const float* cmds,
                      const float* noise, uint32_t seed, int B, int T, int N,
-                     int predicated, float* err_sum, float* err_max,
+                     int predicated, int mode, float* err_sum, float* err_max,
                      float* true_pose, float* x, float* P, uint8_t* seen,
                      float* est_traj, float* true_traj, void* stream) {
   if ((est_traj == nullptr) != (true_traj == nullptr))
     return (int)cudaErrorInvalidValue;
-  if (est_traj != nullptr)
-    return launch_rollout<kInvariant, true>(
+  if (est_traj != nullptr) {
+    if (mode != kModeFull) return (int)cudaErrorInvalidValue;
+    return launch_rollout<kInvariant, true, kModeFull>(
         p, lms, cmds, noise, seed, B, T, N, predicated, err_sum, err_max,
         true_pose, x, P, seen, est_traj, true_traj, stream);
-  return launch_rollout<kInvariant, false>(
-      p, lms, cmds, noise, seed, B, T, N, predicated, err_sum, err_max,
-      true_pose, x, P, seen, nullptr, nullptr, stream);
+  }
+  switch (mode) {
+    case kModeFull:
+      return launch_rollout<kInvariant, false, kModeFull>(
+          p, lms, cmds, noise, seed, B, T, N, predicated, err_sum, err_max,
+          true_pose, x, P, seen, nullptr, nullptr, stream);
+    case kModeNoLm:
+      return launch_rollout<kInvariant, false, kModeNoLm>(
+          p, lms, cmds, noise, seed, B, T, N, predicated, err_sum, err_max,
+          true_pose, x, P, seen, nullptr, nullptr, stream);
+    case kModeSim:
+      return launch_rollout<kInvariant, false, kModeSim>(
+          p, lms, cmds, noise, seed, B, T, N, predicated, err_sum, err_max,
+          true_pose, x, P, seen, nullptr, nullptr, stream);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// mode: 0 the full tick, 1 no landmark loop, 2 the simulator only
 extern "C" int les_fused_ekf_rollout(
     const EkfParams* p, const float* lms, const float* cmds,
     const float* noise, uint32_t seed, int B, int T, int N, int predicated,
-    float* err_sum, float* err_max, float* true_pose, float* x, float* P,
-    uint8_t* seen, float* est_traj, float* true_traj, void* stream) {
+    int mode, float* err_sum, float* err_max, float* true_pose, float* x,
+    float* P, uint8_t* seen, float* est_traj, float* true_traj, void* stream) {
   return dispatch_rollout<false>(p, lms, cmds, noise, seed, B, T, N,
-                                 predicated, err_sum, err_max, true_pose, x, P,
-                                 seen, est_traj, true_traj, stream);
+                                 predicated, mode, err_sum, err_max, true_pose,
+                                 x, P, seen, est_traj, true_traj, stream);
 }
 
 extern "C" int les_fused_iekf_rollout(
     const EkfParams* p, const float* lms, const float* cmds,
     const float* noise, uint32_t seed, int B, int T, int N, int predicated,
-    float* err_sum, float* err_max, float* true_pose, float* x, float* P,
-    uint8_t* seen, float* est_traj, float* true_traj, void* stream) {
+    int mode, float* err_sum, float* err_max, float* true_pose, float* x,
+    float* P, uint8_t* seen, float* est_traj, float* true_traj, void* stream) {
   return dispatch_rollout<true>(p, lms, cmds, noise, seed, B, T, N, predicated,
-                                err_sum, err_max, true_pose, x, P, seen,
+                                mode, err_sum, err_max, true_pose, x, P, seen,
                                 est_traj, true_traj, stream);
 }
 

@@ -81,15 +81,21 @@ def resolve_device(device=None) -> torch.device:
 
 
 def fused_rollout(cfg, lms, cmds, seed, *, noise=None, plain=False,
-                  predicated=True) -> dict:
+                  predicated=True, profile_mode="full") -> dict:
     """The fused rollout of ``cfg.filter`` (the routing of runner.py:402-415
     of the JAX package). ``plain=True`` calls the plain torch version
-    directly, on whatever device the tensors are."""
+    directly, on whatever device the tensors are. ``profile_mode`` other
+    than "full" cuts the EKF and RI-EKF ticks short (``ops/fused_rollout``);
+    the UKF rollout has no such modes."""
     kw = dict(noise=noise, predicated=predicated)
     if cfg.filter in ("ekf_slam", "iekf_slam"):
         fn = fused_ekf_rollout_reference if plain else fused_ekf_rollout
         kind = "iekf" if cfg.filter == "iekf_slam" else "ekf"
-        return fn(cfg, lms, cmds, seed, filter_kind=kind, **kw)
+        return fn(cfg, lms, cmds, seed, filter_kind=kind,
+                  profile_mode=profile_mode, **kw)
+    if profile_mode != "full":
+        raise ValueError(f"filter={cfg.filter!r} has no profile_mode "
+                         f"{profile_mode!r}: only the EKF and RI-EKF rollouts do")
     if cfg.filter in ("ukf_slam", "ukf_loc"):
         fn = fused_ukf_rollout_reference if plain else fused_ukf_rollout
         return fn(cfg, lms, cmds, seed, slam=cfg.filter == "ukf_slam", **kw)

@@ -37,12 +37,14 @@ _U = ctypes.c_uint32
 SIGNATURES = {
     "les_fused_ekf_rollout": (_I, [
         _P, _P, _P, _P, _U, _I, _I, _I, _I,  # params, lms, cmds, noise, seed, B, T, N, predicated
+        _I,                                  # mode: 0 full, 1 no landmark loop, 2 simulator only
         _P, _P, _P, _P, _P, _P,              # err_sum, err_max, true_pose, x, P, seen
         _P, _P,                              # est_traj, true_traj (both null: no pose stream)
         _P,                                  # stream
     ]),
     "les_fused_iekf_rollout": (_I, [  # the same arguments
         _P, _P, _P, _P, _U, _I, _I, _I, _I,
+        _I,
         _P, _P, _P, _P, _P, _P,
         _P, _P,
         _P,
@@ -58,6 +60,19 @@ SIGNATURES = {
     "les_block_thomas_factor": (_I, [_P, _P, _I, _I, _P, _P, _P, _P, _P]),
     # sinv, l, u scaled, dsc, rhs (B,T+1,3), B, T -> x (B,T+1,3); stream
     "les_block_thomas_solve": (_I, [_P, _P, _P, _P, _P, _I, _I, _P, _P]),
+    # the standalone primitives (csrc/micro_ops.cu); every matrix (B, D, D)
+    # p, k (B,R,D), h (B,R,D) -> p_out; B, D, R, passes; stream
+    "les_micro_rank_update": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
+    # p, idx (B,) int32 -> out (B,D); B, D, n, spelling; stream
+    "les_micro_column_gather": (_I, [_P, _P, _P, _I, _I, _I, _I, _P]),
+    # p -> l; B, D, du, n, variant; stream
+    "les_micro_chol": (_I, [_P, _P, _I, _I, _I, _I, _I, _P]),
+    # l, g (B,A,D) -> out (B,D); B, D, A, n, order; stream
+    "les_micro_matvec": (_I, [_P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # p, k0, k1, cr, cb (B,D), s (B,3) -> p_out; B, D, n, spelling, n_terms; stream
+    "les_micro_joseph": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    # sp, sm (B,3,D), lm (B,2), wm (B,D) -> out (B,); B, D, n; stream
+    "les_micro_zstats": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "les_error_string": (ctypes.c_char_p, [_I]),
 }
 

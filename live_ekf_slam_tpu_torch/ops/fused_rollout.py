@@ -21,6 +21,17 @@ F = I and one full rank-1 yaw-noise pass, an update with constant
 H = [-I | 0 | +I] and the exp retraction, and an insertion that copies the
 vehicle rows. It ignores the EKF compat quirks (stale landmarks, unwrapped
 innovation), as the JAX kernel does, but honours the noise V/W swap.
+
+``profile_mode`` cuts the tick short, to attribute a rollout's time to its
+phases by difference (``_make_kernel``'s ``profile_mode``, fused_rollout.py:
+188-194, 265-268): ``"sim"`` runs the noise draw, truth propagation and
+sensing, then takes the error against the estimate that never moves (x, P
+and seen keep their initial values); ``"nolm"`` adds the predict and skips
+the landmark loop, so seen stays empty; ``"full"`` is the rollout.
+``"downdate"`` is named in the JAX kernel's comment but no branch of it reads
+the name, so there it runs the full kernel, and here too. On the card each
+mode is its own instantiation of the kernel, counted under its own key of
+``launches``.
 """
 
 from __future__ import annotations
@@ -40,8 +51,12 @@ P0 = (0.01 * 0.01, 0.01 * 0.01, 0.005 * 0.005)
 
 # launches of each CUDA kernel instantiation (not of the plain version);
 # "_traj": the instantiations that also write the pose stream (emit_traj)
-launches = {"ekf": 0, "iekf": 0, "ekf_traj": 0, "iekf_traj": 0}
+launches = {"ekf": 0, "iekf": 0, "ekf_traj": 0, "iekf_traj": 0,
+            "ekf_nolm": 0, "iekf_nolm": 0, "ekf_sim": 0, "iekf_sim": 0}
 FILTER_KINDS = ("ekf", "iekf")
+# profile_mode -> the kernel's kMode ("downdate" has no branch of its own in
+# the JAX kernel and runs the full tick)
+PROFILE_MODES = {"full": 0, "downdate": 0, "nolm": 1, "sim": 2}
 
 
 def _check_scope(cfg, filter_kind, profile_mode, emit_traj):
@@ -49,13 +64,10 @@ def _check_scope(cfg, filter_kind, profile_mode, emit_traj):
         raise ValueError("fused rollout requires known landmark ids")
     if filter_kind not in FILTER_KINDS:
         raise ValueError(f"unknown filter_kind {filter_kind!r}")
+    if profile_mode not in PROFILE_MODES:
+        raise ValueError(f"unknown profile_mode {profile_mode!r}")
     if emit_traj and profile_mode != "full":
         raise ValueError("emit_traj requires profile_mode='full'")
-    if profile_mode != "full":
-        raise NotImplementedError(
-            f"profile_mode={profile_mode!r}: the phase-attribution variants "
-            "are not ported (ROADMAP.md, K1p)"
-        )
 
 
 def fused_ekf_rollout(
@@ -73,7 +85,9 @@ def fused_ekf_rollout(
     true_pose (B, 3), x (B, D), P (B, D, D) and seen (B, N) bool, D = 3+2N;
     with ``emit_traj`` also est_traj and true_traj (B, T, 3), the estimated
     pose x[0:3] and the true pose after every tick (the node seeds of the
-    pose-graph streams path).
+    pose-graph streams path). ``profile_mode`` "sim" or "nolm" ends every
+    tick after sensing or after the predict (see the module note); the
+    result has the same keys.
 
     ``predicated=False`` runs every landmark's update and insertion for every
     world, with the gain masked to zero; the result is the same, bit for bit.
@@ -85,12 +99,13 @@ def fused_ekf_rollout(
     if dev.type == "cpu":
         return fused_ekf_rollout_reference(
             cfg, landmarks, cmds, seed, noise=noise, predicated=predicated,
-            filter_kind=filter_kind, emit_traj=emit_traj,
+            filter_kind=filter_kind, profile_mode=profile_mode,
+            emit_traj=emit_traj,
         )
     if dev.type != "cuda":
         raise ValueError(f"fused_ekf_rollout runs on cpu or cuda, not {dev}")
     return _launch(cfg, landmarks, cmds, seed, noise, predicated, filter_kind,
-                   emit_traj)
+                   profile_mode, emit_traj)
 
 
 def fused_iekf_rollout(cfg, landmarks, cmds, seed, **kw) -> dict:
@@ -132,7 +147,7 @@ def check_inputs(landmarks, cmds, noise) -> tuple[int, int, int]:
 
 
 def _launch(cfg, landmarks, cmds, seed, noise, predicated, filter_kind,
-            emit_traj):
+            profile_mode, emit_traj):
     b, n, t_total = check_inputs(landmarks, cmds, noise)
     dev = landmarks.device
     d = 3 + 2 * n
@@ -160,19 +175,29 @@ def _launch(cfg, landmarks, cmds, seed, noise, predicated, filter_kind,
             ctypes.addressof(kp), landmarks.data_ptr(), cmds.data_ptr(),
             None if noise is None else noise.data_ptr(),
             int(seed) & MASK32, b, t_total, n, int(predicated),
+            PROFILE_MODES[profile_mode],
             res["err_sum"].data_ptr(), res["err_max"].data_ptr(),
             res["true_pose"].data_ptr(), res["x"].data_ptr(),
             res["P"].data_ptr(), res["seen"].data_ptr(), *traj, stream,
         )
     _build.check(rc, f"fused {filter_kind} rollout kernel")
-    launches[filter_kind + ("_traj" if emit_traj else "")] += 1
+    launches[launch_key(filter_kind, profile_mode, emit_traj)] += 1
     return res
+
+
+def launch_key(filter_kind: str, profile_mode: str = "full",
+               emit_traj: bool = False) -> str:
+    """The key of ``launches`` that counts this instantiation."""
+    if PROFILE_MODES[profile_mode]:
+        return f"{filter_kind}_{profile_mode}"
+    return filter_kind + ("_traj" if emit_traj else "")
 
 
 def fused_ekf_rollout_reference(
     cfg, landmarks: torch.Tensor, cmds: torch.Tensor, seed: int, *,
     noise: torch.Tensor | None = None, predicated: bool = True,
-    filter_kind: str = "ekf", emit_traj: bool = False,
+    filter_kind: str = "ekf", profile_mode: str = "full",
+    emit_traj: bool = False,
 ) -> dict:
     """The plain version: the kernel's algebra as batched torch, worlds on
     the leading axis, in the JAX kernel's order of operations.
@@ -190,6 +215,7 @@ def fused_ekf_rollout_reference(
         noise = philox_noise_reference(seed, t_total, n, b, device=dev)
     kp = kernel_params(cfg)
     invariant = filter_kind == "iekf"
+    mode = PROFILE_MODES[profile_mode]
     calibrated, wrap_innov = kp.calibrated, kp.wrap_innov
     stale = kp.stale and not invariant
     f32 = dict(dtype=torch.float32, device=dev)
@@ -231,6 +257,14 @@ def fused_ekf_rollout_reference(
         rn_all = r_true + kp.w00s * u[2:2 + n].T
         bn_all = beta + kp.w11s * u[2 + n:2 + 2 * n].T
 
+        if mode == 2:  # "sim": the error against the unmoved estimate
+            ex = x[:, 0] - tx
+            ey = x[:, 1] - ty
+            e = torch.sqrt(ex * ex + ey * ey)
+            err_sum = err_sum + e
+            err_max = torch.maximum(err_max, e)
+            continue
+
         # ---- EKF predict: rows 0, 1 from row 2, then columns 0, 1 from
         # column 2, which includes the updated rows
         th = x[:, 2]
@@ -265,9 +299,10 @@ def fused_ekf_rollout_reference(
         x_committed = x.clone() if stale else None
 
         # ---- per landmark in id order; gates from the tick-start seen
+        # ("nolm" skips the loop, and with it the update of seen)
         m_u_all = vis * seen
         m_i_all = vis * (1.0 - seen)
-        for j in range(n):
+        for j in range(n if mode == 0 else 0):
             li = 3 + 2 * j
             m_u, m_i = m_u_all[:, j], m_i_all[:, j]
             rn, bn = rn_all[:, j], bn_all[:, j]
@@ -280,7 +315,8 @@ def fused_ekf_rollout_reference(
             if not predicated or bool(m_i.any()):
                 insert = _insert_iekf if invariant else _insert
                 x, P = insert(kp, x, P, li, m_i > 0, rn, bn)
-        seen = torch.maximum(seen, vis)
+        if mode == 0:
+            seen = torch.maximum(seen, vis)
 
         # ---- error metric
         ex = x[:, 0] - tx

@@ -8,6 +8,8 @@ runs on a GPU machine without the JAX package's dependencies:
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_cuda.py -q
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +26,7 @@ from live_ekf_slam_tpu_torch.models import posegraph as pg
 from live_ekf_slam_tpu_torch.ops import _build, philox
 from live_ekf_slam_tpu_torch.ops import fused_rollout as fr
 from live_ekf_slam_tpu_torch.ops import fused_ukf as fu
+from live_ekf_slam_tpu_torch.ops import micro_ops as mo
 from port_harness import cuda_device, small_cfg  # noqa: F401  (fixture)
 
 pytestmark = pytest.mark.cuda
@@ -190,6 +193,80 @@ def test_pg_streams_path_runs_on_the_card_and_repeats(cuda_device):
                                rtol=0, atol=5e-3)
     np.testing.assert_allclose(card["err_pose_graph_result"],
                                cpu["err_pose_graph_result"], rtol=0, atol=5e-3)
+
+
+@pytest.mark.parametrize("mode", ["sim", "nolm"])
+@pytest.mark.parametrize("filter_kind", ["ekf", "iekf"])
+def test_profile_mode_kernels_match_plain(filter_kind, mode, cuda_device):
+    # K1p: each cut instantiation within the card tolerances of the default
+    # build and, with contraction off, bit for bit the plain version's; it
+    # counts its own launches
+    key = fr.launch_key(filter_kind, mode)
+    for kind in KINDS:
+        cfg, lms, cmds, noise = _inputs(kind, cuda_device)
+        kw = dict(noise=noise, filter_kind=filter_kind, profile_mode=mode)
+        before = dict(fr.launches)
+        k = fr.fused_ekf_rollout(cfg, lms, cmds, 0, **kw)
+        torch.cuda.synchronize()
+        assert fr.launches == {**before, key: before[key] + 1}
+        p = fr.fused_ekf_rollout_reference(cfg, lms, cmds, 0, **kw)
+        chip_smoke.compare(k, p, chip_smoke.TOL)
+        assert not bool(k["seen"].any())
+        with _build.without_fma():
+            kn = fr.fused_ekf_rollout(cfg, lms, cmds, 0, **kw)
+        for name in kn:
+            assert torch.equal(kn[name], p[name]), (kind, name)
+    if mode == "sim":  # the estimate stays where it started
+        assert float(k["x"][:, 3:].abs().max()) == 0.0
+        assert float(k["P"][:, 3:, :].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("filter_kind", ["ekf", "iekf"])
+def test_downdate_mode_is_the_full_kernel(filter_kind, cuda_device):
+    cfg, lms, cmds, _ = _inputs("default", cuda_device)
+    before = fr.launches[filter_kind]
+    a = fr.fused_ekf_rollout(cfg, lms, cmds, 11, filter_kind=filter_kind)
+    b = fr.fused_ekf_rollout(cfg, lms, cmds, 11, filter_kind=filter_kind,
+                             profile_mode="downdate")
+    torch.cuda.synchronize()
+    assert fr.launches[filter_kind] == before + 2
+    for name in a:
+        assert torch.equal(a[name], b[name]), name
+
+
+@pytest.mark.parametrize("tool", ["micro_downdate", "micro_ukf", "micro_ukf_probe"])
+def test_micro_kernels_match_plain(tool, cuda_device):
+    # every case of the tool at 250 worlds (a ragged last block), 3 passes:
+    # the default build within chip_smoke.MICRO_RTOL of the output's scale,
+    # the -fmad=false build bit for bit (micro_compare raises otherwise)
+    mod = importlib.import_module(f"live_ekf_slam_tpu_torch.tools.{tool}")
+    for dim in (48, 43):  # 43: the EKF's own D, an odd row stride by itself
+        for c in mod.cases(250, cuda_device, passes=3, dim=dim):
+            res = chip_smoke.micro_compare(c, 250)
+            assert res["no_fma_bitwise_equal"], c["name"]
+            if "asymmetry" in res:
+                # prod9 and hoist compute both triangles, each entry from
+                # its own expression: exactly symmetric without contraction,
+                # off by roundings of the scale with it
+                assert res["asymmetry_no_fma"] == 0.0, c["name"]
+                assert 0.0 < res["asymmetry"] <= 1e-5 * res["scale"], c["name"]
+
+
+def test_micro_wrappers_reject_bad_inputs(cuda_device):
+    p = torch.zeros(4, 8, 8, device=cuda_device)
+    v = torch.zeros(4, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="is on"):
+        mo.rank_update(p, v[:, None].cpu(), v[:, None], 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        mo.rank_update(p.transpose(1, 2), v[:, None], v[:, None], 1)
+    with pytest.raises(ValueError, match=r"\[0, 8\)"):
+        mo.check_index(torch.full((4,), 8, dtype=torch.int32,
+                                  device=cuda_device), 8)
+    before = dict(mo.launches)
+    out = mo.chol(p + torch.eye(8, device=cuda_device), 2, "lower")
+    torch.cuda.synchronize()
+    assert mo.launches == {**before, "chol": before["chol"] + 1}
+    assert torch.equal(out, torch.eye(8, device=cuda_device).expand(4, 8, 8))
 
 
 def test_wrapper_rejects_bad_inputs(cuda_device):

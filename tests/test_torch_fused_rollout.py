@@ -183,8 +183,12 @@ def test_out_of_scope_requests_raise():
             cfg.constraints.measurements, landmark_id_is_known=False)))
     with pytest.raises(ValueError, match="known landmark ids"):
         fr.fused_ekf_rollout(unknown, lt, ct, 0)
-    with pytest.raises(NotImplementedError, match="K1p"):
-        fr.fused_ekf_rollout(cfg, lt, ct, 0, profile_mode="nolm")
+    # the phase-attribution modes run (test_torch_profile_modes.py holds
+    # them against the JAX kernel); a name that is none of them raises
+    nolm = fr.fused_ekf_rollout(cfg, lt, ct, 0, profile_mode="nolm")
+    assert not nolm["seen"].any() and torch.isfinite(nolm["P"]).all()
+    with pytest.raises(ValueError, match="unknown profile_mode"):
+        fr.fused_ekf_rollout(cfg, lt, ct, 0, profile_mode="landmarks")
     with pytest.raises(ValueError, match="emit_traj requires profile_mode"):
         fr.fused_ekf_rollout(cfg, lt, ct, 0, profile_mode="nolm", emit_traj=True)
     with pytest.raises(ValueError, match="unknown filter_kind"):

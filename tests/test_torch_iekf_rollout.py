@@ -119,8 +119,12 @@ def test_iekf_differs_from_ekf_and_ignores_ekf_compat_quirks():
 def test_out_of_scope_requests_raise():
     cfg, lms, cmds, _ = _inputs("default")
     lt, ct, _ = inputs_from_numpy(lms, cmds)
-    with pytest.raises(NotImplementedError, match="K1p"):
-        fr.fused_iekf_rollout(cfg, lt, ct, 0, profile_mode="sim")
+    # the phase-attribution modes run (test_torch_profile_modes.py holds
+    # them against the JAX kernel); a name that is none of them raises
+    sim = fr.fused_iekf_rollout(cfg, lt, ct, 0, profile_mode="sim")
+    assert not sim["seen"].any() and float(sim["P"][:, 3:, 3:].abs().max()) == 0.0
+    with pytest.raises(ValueError, match="unknown profile_mode"):
+        fr.fused_iekf_rollout(cfg, lt, ct, 0, profile_mode="landmarks")
     with pytest.raises(ValueError, match="emit_traj requires profile_mode"):
         fr.fused_iekf_rollout(cfg, lt, ct, 0, profile_mode="sim", emit_traj=True)
     with pytest.raises(ValueError, match="cpu or cuda"):

@@ -190,7 +190,8 @@ def test_bench_pose_graph_config_and_summary():
 
 
 def test_port_runs_its_slice_without_jax():
-    # every module of the port and chip_smoke (imported, not run), then the
+    # every module of the port and chip_smoke (imported, not run), the three
+    # microbenchmark tools on the CPU at a tiny size, then the
     # CPU slice of all four filters and the pose-graph streams path in both
     # solve modes; no module of jax, jaxlib, flax or the
     # JAX package may be loaded (split on "." so that the port's own name,
@@ -202,6 +203,15 @@ def test_port_runs_its_slice_without_jax():
         "from live_ekf_slam_tpu_torch.eval.runner import FILTERS, run_monte_carlo\n"
         "import live_ekf_slam_tpu_torch.bench, live_ekf_slam_tpu_torch.cli\n"
         "import live_ekf_slam_tpu_torch.convert\n"
+        "import live_ekf_slam_tpu_torch.ops.micro_ops\n"
+        "import live_ekf_slam_tpu_torch.utils.profiling\n"
+        "from live_ekf_slam_tpu_torch.tools import (micro_downdate, micro_ukf,\n"
+        "                                           micro_ukf_probe)\n"
+        "tiny = ['--device', 'cpu', '--worlds', '2', '--passes', '1']\n"
+        "for tool in (micro_downdate, micro_ukf, micro_ukf_probe):\n"
+        "    assert tool.main(tiny) == 0\n"
+        "cfg = Config(num_iterations=5)\n"
+        "res, out, _ = run_monte_carlo(cfg, 2, device='cpu')\n"
         "for f in FILTERS:\n"
         "    cfg = Config(num_iterations=10).replace(filter=f)\n"
         "    res, out, _ = run_monte_carlo(cfg, 4, device='cpu')\n"
@@ -227,4 +237,22 @@ def test_port_runs_its_slice_without_jax():
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    assert r.stdout.strip() == "ok"
+    lines = r.stdout.strip().splitlines()
+    assert lines[-1] == "ok"
+    # the three tools printed their rows: 7 + 7 + 8, each under a header
+    assert sum(line.startswith("shapes: P=(2,48,48)") for line in lines) == 3
+    assert sum("G elem-" in line for line in lines) == 22
+
+
+@pytest.mark.parametrize("tool", ["micro_downdate", "micro_ukf", "micro_ukf_probe"])
+def test_tools_need_a_card_unless_asked_for_the_cpu(tool, monkeypatch, capsys):
+    import importlib
+
+    mod = importlib.import_module(f"live_ekf_slam_tpu_torch.tools.{tool}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        mod.main(["--worlds", "4", "--passes", "1"])
+    assert mod.main(["--device", "cpu", "--worlds", "2", "--passes", "1"]) == 0
+    out = capsys.readouterr().out.strip().splitlines()
+    assert out[0].startswith("shapes: P=(2,48,48) f32 on cpu")
+    assert all(("us/pass" in line) or (" ms " in line) for line in out[1:])
