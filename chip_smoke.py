@@ -24,8 +24,12 @@ path at the bench's size: the EKF and RI-EKF rollouts in their ``sim``,
 predict and landmark loop), the three microbenchmark tools, which time each
 primitive of a tick alone (every kernel and variant of ``ops/micro_ops``
 held against its plain version), and the sum of the passes a tick executes
-against the EKF and UKF-SLAM kernels' measured times. Every phase prints one
-JSON line; any failure raises and the exit code is nonzero. The last three
+against the EKF and UKF-SLAM kernels' measured times. Beside these, right
+after the build, every rollout kernel's occupancy (registers, spills,
+shared memory, resident worlds an SM; K4 SLAM must keep 16 without
+spilling), and after the main paths the UKF kernels' cycles by phase of the
+tick, from a third build compiled with -DLES_PHASE_CLOCKS. Every phase
+prints one JSON line; any failure raises and the exit code is nonzero. The last three
 lines are the kernels' record, the card's name and power limit as
 nvidia-smi reports them, and ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or without the rest of the repository beside it, it fails
@@ -34,6 +38,7 @@ before printing any result. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import subprocess
 import sys
@@ -1057,12 +1062,15 @@ def phase_op_sum(dev, n_lm: int, gates: dict, times: dict, kernel_ms: dict):
     du = fu.state_dim(n_lm, True)
     per = {c["variant"]: us_per_pass(c)
            for c in micro_ukf.cases(b, dev, dim=du, du=du)}
-    # the rollout factors the active dimensions only (pivots past the
-    # highest seen slot are skipped): the mean of n_act^3 over Du^3; its
-    # matvecs walk the lower triangle (half of the rows' products); its
-    # Joseph pass computes i <= j and mirrors it, timed here as the
-    # both-triangles spelling; its z-stats use rotation algebra in place of
-    # this block's atan2, sin and cos
+    # The micro kernels are the TPU scripts' loops at K4's counts, no longer
+    # K4's own (which factors four pivots a pass and walks lines of two
+    # rows; its split by phase is the ukf_phase_clocks line): the sum says
+    # what a tick would cost spelled as those loops. The rollout factors the
+    # active dimensions only (pivots past the highest seen slot are
+    # skipped): the mean of n_act^3 over Du^3; matvecs over the lower
+    # triangle (half of the rows' products); Joseph over one triangle,
+    # timed here as the both-triangles spelling; z-stats by rotation algebra
+    # in place of this block's atan2, sin and cos
     f_chol = gates["act3"] / gates["ticks"] / du ** 3
     parts = {
         "sim (the EKF kernel in sim mode)": times["ekf_slam"]["sim"],
@@ -1078,7 +1086,139 @@ def phase_op_sum(dev, n_lm: int, gates: dict, times: dict, kernel_ms: dict):
          us_per_pass=per, parts_ms=parts, op_sum_ms=total,
          kernel_ms=kernel_ms["ukf_slam"],
          explained_share=total / kernel_ms["ukf_slam"],
-         not_timed_alone="sigma propagation, the 4x4 block, gain and gate, insertions")
+         not_timed_alone="sigma propagation, the 4x4 block, gain and gate, insertions",
+         note="the TPU scripts' loops at K4's counts; K4's own split: ukf_phase_clocks")
+
+
+# fused_ekf_rollout.cu's launch shape: kWorldsPerBlock worlds a block (fewer
+# where they do not fit kMaxSmem), world_floats floats of shared memory a
+# world, kTrajTicks staged ticks of the pose stream
+EKF_WORLDS_PER_BLOCK, EKF_TRAJ_TICKS, MAX_SMEM = 4, 32, 232448
+# the EKF kernels' instantiations <kInvariant, kEmitTraj, kMode>
+EKF_INSTANCES = {
+    "fused_ekf_rollout": "false, false, 0",
+    "fused_iekf_rollout": "true, false, 0",
+    "fused_ekf_rollout[emit_traj]": "false, true, 0",
+    "fused_iekf_rollout[emit_traj]": "true, true, 0",
+    "fused_ekf_rollout[nolm]": "false, false, 1",
+    "fused_iekf_rollout[nolm]": "true, false, 1",
+    "fused_ekf_rollout[sim]": "false, false, 2",
+    "fused_iekf_rollout[sim]": "true, false, 2",
+}
+
+
+def ekf_launch_shape(n_lm: int, emit_traj: bool) -> tuple[int, int]:
+    """(worlds a block, dynamic shared bytes a block) of an EKF launch."""
+    def up(x, m):
+        return -(-x // m) * m
+    d = 3 + 2 * n_lm
+    per_world = 4 * (up(d * d + 6 * d + up(2 * n_lm + 8, 4) + 6 * n_lm, 4)
+                     + (6 * EKF_TRAJ_TICKS if emit_traj else 0))
+    wpb = EKF_WORLDS_PER_BLOCK
+    while wpb > 1 and wpb * per_world > MAX_SMEM:
+        wpb -= 1
+    return wpb, wpb * per_world
+
+
+def ekf_host_functions(lib) -> dict:
+    """Template arguments -> address in this process of the EKF kernels'
+    host functions, which fused_ekf_rollout.cu keeps in an anonymous
+    namespace: read off the library's symbol table (``nm``), moved by where
+    the exported ``les_fused_ekf_rollout`` landed."""
+    path = _build.library_path()  # the default build's
+    text = subprocess.run(["nm", "-C", "--defined-only", str(path)], check=True,
+                          capture_output=True, text=True).stdout
+    found, anchor = {}, None
+    head = "::fused_ekf_rollout_kernel<"  # nvcc names the namespace _GLOBAL__N__...
+    for line in text.splitlines():
+        addr, _, name = line.split(" ", 2)
+        if name == "les_fused_ekf_rollout":
+            anchor = int(addr, 16)
+        if head in name and ">(" in name:
+            args = name[name.index(head) + len(head):name.index(">(")]
+            found.setdefault(args, int(addr, 16))
+    base = ctypes.cast(lib.les_fused_ekf_rollout, ctypes.c_void_p).value - anchor
+    return {args: base + a for args, a in found.items()}
+
+
+def ptxas_report(src: str) -> dict:
+    """What ptxas reports of every kernel of one source, compiled with the
+    default build's flags: mangled name -> registers, stack frame and spill
+    store and load bytes a thread."""
+    cmd = [_build.find_nvcc(), *(f for f in _build.NVCC_FLAGS if f != "-shared"),
+           "-Xptxas", "-v", "-c", "-o", "/dev/null", str(_build.CSRC / src)]
+    proc = subprocess.run(cmd, check=True, capture_output=True, text=True)
+    text = proc.stdout + proc.stderr
+    out, name = {}, None
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            out[name] = {}
+        elif name and "stack frame" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            out[name].update(stack_bytes=nums[0], spill_store_bytes=nums[1],
+                             spill_load_bytes=nums[2])
+        elif name and "Used" in line and "registers" in line:
+            out[name]["ptxas_registers"] = int(line.split("Used")[1].split()[0])
+    return out
+
+
+def mangled_args(args: str) -> str:
+    """Template arguments as they are mangled: "true, false, 0" -> ILb1ELb0ELi0EE."""
+    parts = {"true": "Lb1E", "false": "Lb0E"}
+    return "I" + "".join(parts.get(a, f"Li{a}E") for a in args.split(", ")) + "E"
+
+
+def phase_occupancy(n_lm: int, ptxas: dict) -> list:
+    """Every rollout kernel's launch at N = n_lm as the card takes it:
+    registers and local bytes a thread, shared bytes a block, worlds a
+    block, and resident blocks and worlds an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor); beside them the stack
+    and spill bytes ptxas reports (``ptxas``: ptxas_report of both rollout
+    sources). K4 SLAM must keep 16 worlds on an SM without spilling."""
+    lib = _build.load()
+    fns = ekf_host_functions(lib)
+    rows = []
+    for name, args in EKF_INSTANCES.items():
+        wpb, smem = ekf_launch_shape(n_lm, "emit_traj" in name)
+        out = (ctypes.c_int * 4)()
+        _build.check(lib.les_kernel_occupancy(fns[args], 32 * wpb, smem, out), name)
+        rows.append({"kernel": name, **dict(zip(fu.OCCUPANCY_KEYS[:4], out)),
+                     "worlds_per_block": wpb, "smem_bytes_per_block": smem,
+                     "worlds_per_sm": out[3] * wpb})
+    for slam in (True, False):
+        rows.append({"kernel": f"fused_ukf_rollout[{'slam' if slam else 'loc'}]",
+                     **fu.occupancy(n_lm, slam)})
+    args = {**EKF_INSTANCES, "fused_ukf_rollout[slam]": "true",
+            "fused_ukf_rollout[loc]": "false"}
+    for r in rows:
+        kind = "ukf" if r["kernel"].startswith("fused_ukf") else "ekf"
+        stem = f"fused_{kind}_rollout_kernel" + mangled_args(args[r["kernel"]])
+        r.update(next(v for k_, v in ptxas.items() if stem in k_))
+        emit("occupancy", n_lm=n_lm, **r)
+    slam = rows[-2]
+    if slam["worlds_per_sm"] < 16 or slam["spill_store_bytes"] or slam["spill_load_bytes"]:
+        raise AssertionError(f"K4 SLAM: fewer than 16 worlds an SM, or spills: {slam}")
+    return rows
+
+
+def phase_ukf_clocks(lms, cmds, n_lm: int, kernel_ms: dict) -> dict:
+    """K4 SLAM and Loc at MAIN once each in the build that counts cycles by
+    phase of the tick: each phase's share of the cycles and that share of
+    the default build's measured time."""
+    out = {}
+    for filt, slam in (("ukf_slam", True), ("ukf_loc", False)):
+        cfg = Config(num_iterations=MAIN["steps"]).replace(filter=filt)
+        cycles, res = fu.phase_clocks(cfg, lms, cmds, 0, slam=slam)
+        if not bool(torch.isfinite(res["err_sum"]).all()):
+            raise AssertionError(f"{filt}: the phase-clock build's errors are not finite")
+        total = sum(cycles.values())
+        shares = {k_: v / total for k_, v in cycles.items()}
+        out[filt] = shares
+        emit("ukf_phase_clocks", filter=filt, **MAIN, n_lm=n_lm, cycles=cycles,
+             shares=shares, kernel_ms=kernel_ms[filt],
+             ms_by_share={k_: v * kernel_ms[filt] for k_, v in shares.items()})
+    return out
 
 
 def rollout_checks(kname: str, dev, n_lm: int):
@@ -1239,14 +1379,18 @@ def main():
     # build the port runs and the -fmad=false build of the bitwise checks,
     # one nvcc each, side by side
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        libs = list(pool.map(_build.build, [(), _build.NO_FMA]))
+    with ThreadPoolExecutor(5) as pool:
+        libs = list(pool.map(_build.build, [(), _build.NO_FMA, _build.PHASE_CLOCKS]))
+        ptxas = {}
+        for rep in pool.map(ptxas_report, ["fused_ekf_rollout.cu", "fused_ukf_rollout.cu"]):
+            ptxas.update(rep)
     _build.load()
     emit("build", seconds=time.perf_counter() - t0,
          libraries=[str(lib.relative_to(_build.CSRC.parent.parent)) for lib in libs])
+    n_lm = Config().map.num_landmarks
+    phase_occupancy(n_lm, ptxas)
 
     # ---- 3-5. the checks that feed nothing later, in processes side by side
-    n_lm = Config().map.num_landmarks
     side_checks(dev, n_lm)
 
     # ---- 6. the main path, once per filter, through its kernel; the counts
@@ -1342,10 +1486,11 @@ def main():
             "plain_worlds": plain_worlds, "plain_steps": MAIN["steps"],
         })
     emit("gate_counts", **MAIN, **gates)
+    kernel_ms = {KERNELS[r["name"]][0]: r["ms"] for r in record}
+    phase_ukf_clocks(lms, cmds, n_lm, kernel_ms)
 
     # ---- 6b. the kernel-attribution path: the profile modes of K1 and K2,
     # the standalone primitives, and the sum of a tick's passes
-    kernel_ms = {KERNELS[r["name"]][0]: r["ms"] for r in record}
     k1p_record, times = phase_attribution(dev, n_lm, base, lms, cmds, gates)
     record += k1p_record + phase_micro_ops(dev)
     phase_op_sum(dev, n_lm, gates, times, kernel_ms)

@@ -19,33 +19,56 @@
 //
 // What bounds it on the card. A world is a serial chain of 1000 ticks. Each
 // tick factors an up to Du x Du matrix (Du = 4+2N, 44 at N = 20: ~Du^3/6
-// multiply-adds), and each update runs two L-matvecs and a Du x Du Joseph
-// pass. Device memory is not the limit: at B = 4096, T = 1000, N = 20 the
-// kernel reads about 33 MB of commands and writes about 32 MB of covariance,
-// once. The limit is the latency of the pivot-by-pivot Cholesky, whose steps
-// depend on each other, and the instruction throughput of the shared-memory
-// passes.
+// multiply-adds), and each update runs two L-matvecs and a Du(Du+1)/2-entry
+// Joseph pass. Device memory is not the limit: at B = 4096, T = 1000, N = 20
+// the kernel reads about 33 MB of commands and writes about 32 MB of
+// covariance, once. The limit is the latency of the per-world chain (the
+// pivot-by-pivot Cholesky, the sums over sigma columns that end in shuffles)
+// and the instructions of the shared-memory passes; enough warps on each SM
+// hide the first, lanes that share the passes evenly shorten the second.
 //
-// What the design does about it. One warp per world, four worlds per block.
-// P and the Cholesky factor L stay in shared memory for the whole rollout,
-// row stride Du | 1 (odd, so a warp reading a column hits distinct banks),
-// beside x, the predicted mean, the sigma weights, the eight sigma-row
-// vectors and six scratch vectors: about 19.5 KB a world at N = 20. Lanes own
-// rows of P and L for the factorisation, the matvecs and the Joseph pass, and
-// sigma columns for the weighted sums, which end in butterfly shuffles (every
-// lane gets the same bits). Only the lower triangle of L is computed; the
-// Joseph pass computes each entry with i <= j once and mirrors it, so P stays
-// exactly symmetric whatever nvcc contracts into FMA. Pivots past a world's
-// highest seen slot, and landmarks a world does not update or insert, are
-// skipped with warp-uniform branches (the TPU kernel skips per block of 128
-// worlds); skipped or not, the result is the same.
+// What the design does about it. One warp per world, kWorldsPerBlock worlds
+// a block, at most 128 registers a thread, so that 16 worlds are resident on
+// an SM (the register file's limit). P and the Cholesky factor L are kept as
+// packed lower triangles (row i at i(i+1)/2): a world takes 11.1 KB of shared
+// memory at N = 20 (19.5 KB with both full squares, which let only 8 worlds
+// share an SM). The Cholesky factors kPanel = 4 pivots at a time: each
+// column of the panel takes the earlier panel columns' products and is
+// scaled, its pivot handed to all lanes by shuffle; then one rank-4 pass
+// (trailing_update) updates the rest, one load and one store an entry for
+// four pivots, the panel's four values of a row read as one float4 (8
+// pivots a panel measured 7% slower). Every entry loses the same products
+// in the same pivot order as pivot by pivot, so the bits are those of the
+// one-pivot loop. That pass and the Joseph pass share a triangle out as
+// lines, row l with row m-1-l, so every busy lane walks m+1 entries (whole
+// rows gave the lanes with two rows twice the mean); a triangle of at most
+// 32 entries (UKF-Loc's) goes an entry a lane. The row sums
+// (the matvecs) keep their k order and hand the longest rows out first,
+// the second round reversed. Exact zeros are not summed: the vehicle rows of
+// L vanish past column 3, so every sigma column past 3 has the same vehicle
+// rows and the predict's cross rows take 4 terms; the landmark rows li,
+// li + 1 of L vanish past column li + 1, so the update's sigma columns past
+// it all see the landmark alike (their z is evaluated once) and its matvecs
+// stop there. Such a dropped term is +0 or -0, and a sum that starts at +0 is
+// never -0, so the result is the same bits. The first sweep's z of each
+// column stays in registers for the second. Pivots, rows and columns past a
+// world's highest seen slot hold +0 and are skipped with warp-uniform
+// branches (the TPU kernel skips per block of 128 worlds); skipped or not,
+// the result is the same. The Joseph pass computes each entry of the one
+// triangle it keeps, so P is exactly symmetric whatever nvcc contracts into
+// FMA. Built with -DLES_PHASE_CLOCKS the kernel also counts its cycles by
+// phase of the tick (LES_PHASE; a measurement build).
 //
 // Numerics. Operation order follows the JAX kernel wherever it is not a sum
 // over sigma columns or a matvec; those sums run in another order here, which
 // the plain torch version copies (fused_ukf.py: lane_sum, row_dot), so that
 // built with -fmad=false the kernel equals it bit for bit. nvcc contracts
 // a*b+c into FMA by default, which is why the comparison of the default build
-// with the plain version carries a tolerance. No fast-math: IEEE sqrtf and
+// with the plain version carries a tolerance. Where predication changes
+// which loop computes a value (the Joseph entry's two loops, the state
+// update, the insertion), its products are pinned (les::mad_pinned), or the
+// two paths could contract apart and predicated runs would part from
+// unpredicated ones (ROADMAP F10). No fast-math: IEEE sqrtf and
 // division, full-accuracy sinf and cosf; rsqrtf where the JAX kernel takes
 // rsqrt.
 #include <cuda_runtime.h>
@@ -72,24 +95,63 @@ struct UkfParams {
 
 namespace {
 
+// 4: measured 3-4% faster than 1 or 2 for UKF-SLAM, alike for UKF-Loc
 constexpr int kWorldsPerBlock = 4;
+// 16 resident warps an SM: 65536 registers / (16 * 32) = 128 a thread
+constexpr int kMinBlocksPerSm = 16 / kWorldsPerBlock;
 constexpr size_t kMaxSmem = 232448;  // 227 KB: the most a Hopper block can use
 constexpr int kErrSmem = 100000;     // les_error_string (fused_ekf_rollout.cu)
 constexpr float kCholEps = 1e-8f;
+// sigma columns kept: 0..3, and the one all columns past 3 share
+constexpr int kSig = 5;
+constexpr int kPanel = 4;  // Cholesky pivots factored together: a float4
+
+// The tick's phases, as the -DLES_PHASE_CLOCKS build counts them.
+enum Phase {
+  kPhSim, kPhChol, kPhSigma, kPhCross, kPhZ1, kPhSweep2, kPhGain, kPhJoseph,
+  kPhInsert, kPhError, kPhases
+};
+
+#ifdef LES_PHASE_CLOCKS
+// Per phase, the clock64() cycles lane 0 of every warp spent in it, summed
+// over warps and ticks. A measurement build: the default build compiles none
+// of it.
+__device__ unsigned long long g_phase_cycles[kPhases];
+#define LES_PHASE(k)                                               \
+  do {                                                             \
+    __syncwarp();                                                  \
+    const long long now_ = clock64();                              \
+    if (lane == 0) clk[(k)] += (unsigned long long)(now_ - clk_t); \
+    clk_t = now_;                                                  \
+  } while (0)
+constexpr int kClockFloats = 2 * kPhases;
+#else
+#define LES_PHASE(k) \
+  do {               \
+  } while (0)
+constexpr int kClockFloats = 0;
+#endif
 
 __host__ __device__ inline int state_dim(int n, bool slam) {
   return slam ? 4 + 2 * n : 4;
 }
 
-// floats of shared memory per world: P and L (Du rows of stride Du | 1),
-// then x, the predicted mean, the sigma weights, 8 sigma-row vectors and 6
-// scratch vectors (Du each), the tick's noise rows, landmark x and y, vis,
-// rn, bn, seen (N each)
+// offset of row i in a packed lower triangle
+__host__ __device__ __forceinline__ int tri(int i) { return i * (i + 1) / 2; }
+
+// floats of shared memory per world: the gain and cross-covariance rows
+// (float4 k0, k1, c_r, c_b per row), the Cholesky panel's scaled columns
+// (a float4 per row), P and L (packed lower triangles), x, the predicted
+// mean, the sigma weights and the update's two g vectors (Du each), the
+// propagated vehicle rows of the kSig sigma columns (+ and - halves), the
+// predict's g_a of columns 0..3, the tick's noise rows, landmark x and y,
+// vis, rn, bn, seen (N each)
 __host__ __device__ inline int world_floats(int n, bool slam) {
   const int du = state_dim(n, slam);
-  return les::round_up(2 * du * (du | 1) + 17 * du +
+  return les::round_up(8 * du + 2 * tri(du) + 5 * du + 8 * kSig + 16 +
                            les::round_up(2 * n + 8, 4) + 6 * n,
-                       4);
+                       4) +
+         kClockFloats;
 }
 
 // Sum over the warp; the xor butterfly gives every lane the same bits.
@@ -103,6 +165,38 @@ __device__ __forceinline__ int warp_max(int v) {
 #pragma unroll
   for (int m = 16; m > 0; m >>= 1) v = max(v, __shfl_xor_sync(0xffffffffu, v, m));
   return v;
+}
+
+// Rank-R trailing update of the Cholesky: rows and columns j0..dm-1 of the
+// packed L lose the products of the panel's R scaled columns (cb[i].x, .y,
+// ... = L[i][j0 - R], L[i][j0 - R + 1], ...), in pivot order, as R rank-1
+// steps would, one load and store an entry. A triangle of m rows is shared
+// out as lines: row j0 + l, then row j0 + m-1-l (m+1 entries) on one lane,
+// the middle row of an odd m alone.
+template <int R>
+__device__ __forceinline__ void trailing_update(float* L, const float4* cb,
+                                                int j0, int dm, int lane) {
+  const int m = dm - j0;
+  for (int line = lane; 2 * line < m; line += 32) {
+    const int rb = j0 + m - 1 - line;
+    const int len = 2 * line + 1 == m ? line + 1 : m + 1;
+    float4 b = cb[j0 + line];
+    float* e = L + tri(j0 + line) + j0;
+    for (int c = 0, k = 0; c < len; ++c, ++k) {
+      if (c == line + 1) {  // on to the line's second row
+        b = cb[rb];
+        e = L + tri(rb) + j0;
+        k = 0;
+      }
+      const float4 col = cb[j0 + k];
+      float v = e[k];
+      v = v - b.x * col.x;
+      if (R > 1) v = v - b.y * col.y;
+      if (R > 2) v = v - b.z * col.z;
+      if (R > 3) v = v - b.w * col.w;
+      e[k] = v;
+    }
+  }
 }
 
 // Sigma-point motion without per-element transcendentals (fused_ukf.py:
@@ -150,8 +244,13 @@ __device__ __forceinline__ float dev_b(float cb, float sb, float mcb,
   return les::atan2p(sb * mcb - cb * msb, cb * mcb + sb * msb);
 }
 
+// z of one sigma column, both halves: (r, cos b, sin b) of + then -
+struct ZCol {
+  float rp, cbp, sbp, rm, cbm, sbm;
+};
+
 template <bool kSlam>
-__global__ void __launch_bounds__(32 * kWorldsPerBlock)
+__global__ void __launch_bounds__(32 * kWorldsPerBlock, kMinBlocksPerSm)
 fused_ukf_rollout_kernel(const UkfParams p, const float* __restrict__ lms,
                          const float* __restrict__ cmds,
                          const float* __restrict__ noise, uint32_t seed,
@@ -162,50 +261,49 @@ fused_ukf_rollout_kernel(const UkfParams p, const float* __restrict__ lms,
                          float* __restrict__ true_pose,
                          float* __restrict__ x_out, float* __restrict__ P_out,
                          uint8_t* __restrict__ seen_out) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem4[];
   const int lane = threadIdx.x & 31;
   const int wib = threadIdx.x >> 5;
   const int world = blockIdx.x * (blockDim.x >> 5) + wib;
   if (world >= B) return;  // ragged edge: whole warps leave; no block barrier
 
   const int Du = state_dim(N, kSlam);
-  const int S = Du | 1;  // row stride of P and L
   const int R = 2 * N + 8;
-  float* P = smem + (size_t)wib * world_floats(N, kSlam);
-  float* L = P + Du * S;
-  float* x = L + Du * S;
-  float* xp0 = x + Du;    // predicted mean, before this tick's updates
-  float* wm = xp0 + Du;   // weight of each +/- sigma column pair
-  float* pxn = wm + Du;   // propagated sigma rows, + half ...
-  float* pyn = pxn + Du;
-  float* pcn = pyn + Du;
-  float* psn = pcn + Du;
-  float* mxn = psn + Du;  // ... and - half
-  float* myn = mxn + Du;
-  float* mcn = myn + Du;
-  float* msn = mcn + Du;
-  float* g0 = msn + Du;   // scratch: predict's g_a (4 rows); update's
-  float* g1 = g0 + Du;    // g_r, g_b, c_r, c_b, k0, k1
-  float* g2 = g1 + Du;
-  float* g3 = g2 + Du;
-  float* k0v = g3 + Du;
-  float* k1v = k0v + Du;
-  float* u = k1v + Du;
+  float* base = reinterpret_cast<float*>(smem4) +
+                (size_t)wib * world_floats(N, kSlam);
+  float4* kc = reinterpret_cast<float4*>(base);  // (k0, k1, c_r, c_b) of row i
+  float4* cb = kc + Du;  // Cholesky panel: cb[i] = scaled L[i][j..j+3]
+  float* cbf = reinterpret_cast<float*>(cb);  // cbf[4 i + q] = L[i][j + q]
+  float* P = base + 8 * Du;  // packed lower triangles
+  float* L = P + tri(Du);
+  float* x = L + tri(Du);
+  float* xp0 = x + Du;  // predicted mean, before this tick's updates
+  float* wm = xp0 + Du;  // weight of each +/- sigma column pair
+  float* g0 = wm + Du;   // update: wm (d_p - d_m) of range and bearing
+  float* g1 = g0 + Du;
+  float* sg = g1 + Du;  // sg[a * kSig + c]: vehicle row a of sigma
+                                 // column c (+ half); sg[(4 + a) * kSig + c]
+                                 // (- half)
+  float* ga = sg + 8 * kSig;  // predict's g_a of columns 0..3: ga[4 a + k]
+  float* u = ga + 16;
   float* lmx = u + les::round_up(R, 4);
   float* lmy = lmx + N;
   float* vis = lmy + N;
   float* rn = vis + N;
   float* bn = rn + N;
   float* seen = bn + N;
-  const float* sig_p[4] = {pxn, pyn, pcn, psn};
-  const float* sig_m[4] = {mxn, myn, mcn, msn};
   const float w0 = p.w0;
+  const bool committed = p.committed_yaw != 0;
+#ifdef LES_PHASE_CLOCKS
+  unsigned long long* clk = reinterpret_cast<unsigned long long*>(
+      base + world_floats(N, kSlam) - kClockFloats);
+  if (lane == 0)
+    for (int k = 0; k < kPhases; ++k) clk[k] = 0;
+  long long clk_t = clock64();
+#endif
 
   // ---- init (fused_ukf.py:120-134); P0 diag from ukf.cpp:9-18
-  for (int i = lane; i < Du * S; i += 32) {
-    P[i] = 0.0f;
-    L[i] = 0.0f;
-  }
+  for (int i = lane; i < 2 * tri(Du); i += 32) P[i] = 0.0f;  // P and L
   for (int i = lane; i < Du; i += 32) x[i] = 0.0f;
   for (int j = lane; j < N; j += 32) {
     seen[j] = 0.0f;
@@ -218,10 +316,10 @@ fused_ukf_rollout_kernel(const UkfParams p, const float* __restrict__ lms,
     x[1] = p.y0;
     x[2] = p.cyaw0;
     x[3] = p.syaw0;
-    P[0] = (float)(0.01 * 0.01);
-    P[S + 1] = (float)(0.01 * 0.01);
-    P[2 * S + 2] = (float)(0.005 * 0.005);
-    P[3 * S + 3] = (float)(0.005 * 0.005);
+    P[tri(0) + 0] = (float)(0.01 * 0.01);
+    P[tri(1) + 1] = (float)(0.01 * 0.01);
+    P[tri(2) + 2] = (float)(0.005 * 0.005);
+    P[tri(3) + 3] = (float)(0.005 * 0.005);
   }
   float tx = p.x0, ty = p.y0, tth = p.yaw0;
   float esum = 0.0f, emax = 0.0f, rej = 0.0f;
@@ -261,6 +359,7 @@ fused_ukf_rollout_kernel(const UkfParams p, const float* __restrict__ lms,
       rn[j] = r + p.w00s * u[2 + j];
       bn[j] = beta + p.w11s * u[2 + N + j];
     }
+    LES_PHASE(kPhSim);
 
     // ---- UKF predict (:174-358). Committed-yaw direction of the tick-start
     // state; weights from the tick-start seen
@@ -282,33 +381,59 @@ fused_ukf_rollout_kernel(const UkfParams p, const float* __restrict__ lms,
     const float n_act = 4.0f + 2.0f * n_seen;
     const float scale = n_act / p.one_m_w0;
     const float wbar = p.one_m_w0 / (2.0f * n_act);
+    // rows, columns and pivots past the highest seen slot hold +0 and stay
+    // so; with predication they are skipped
+    const int dm = kSlam && predicated ? 4 + 2 * top : Du;
     for (int k = lane; k < Du; k += 32)
       wm[k] = wbar * (k < 4 ? 1.0f : seen[(k - 4) >> 1]);
-    // L = lower triangle of P * scale (the upper one stays zero)
-    for (int i = lane; i < Du; i += 32)
-      for (int k = 0; k <= i; ++k) L[i * S + k] = P[i * S + k] * scale;
+    // L = P * scale, lower triangle
+    for (int e = lane; e < tri(dm); e += 32) L[e] = P[e] * scale;
     __syncwarp();
 
-    // pivot-clamped Cholesky in place (:205-245); pivots past the world's
-    // highest seen slot are exact no-ops (rows and columns of unseen slots
-    // are zero) and are skipped
-    const int dmax = kSlam && predicated ? 4 + 2 * top : Du;
-    for (int j = 0; j < Du; ++j) {
-      if (j >= 4 && j >= dmax) break;
-      const float pivot = L[j * S + j];
-      const float ok = pivot > kCholEps ? 1.0f : 0.0f;
-      const float dval = sqrtf(les::max_nan(pivot, kCholEps));
-      const float f = ok / dval;
-      for (int i = j + 1 + lane; i < Du; i += 32) L[i * S + j] = L[i * S + j] * f;
-      __syncwarp();
-      if (lane == 0) L[j * S + j] = dval;
-      for (int i = j + 1 + lane; i < Du; i += 32) {
-        const float bi = L[i * S + j];
-        float* Li = L + i * S;
-        for (int k = j + 1; k <= i; ++k) Li[k] = Li[k] - bi * L[k * S + j];
+    // pivot-clamped Cholesky in place (:205-245), kPanel pivots at a time:
+    // each column of the panel takes the earlier panel columns' updates and
+    // is scaled; then one rank-kPanel pass updates the rest. Every entry
+    // loses the same products in the same pivot order as pivot by pivot.
+    // Lane l holds rows jq + l and jq + l + 32 of column jq in registers
+    // (rows past them, Du > 64, go through its own shared memory), and
+    // lane 0, which holds the pivot, hands it to all by shuffle.
+    for (int j = 0; j < dm; j += kPanel) {
+      const int R = min(kPanel, dm - j);
+      for (int q = 0; q < R; ++q) {
+        const int jq = j + q;
+        auto updated = [&](int i) {  // L[i][jq] after the panel's pivots
+          float v = L[tri(i) + jq];
+          for (int p = 0; p < q; ++p) v = v - cbf[4 * i + p] * cbf[4 * jq + p];
+          return v;
+        };
+        const int i0 = jq + lane, i1 = i0 + 32;
+        const float u0 = i0 < dm ? updated(i0) : 0.0f;
+        const float u1 = i1 < dm ? updated(i1) : 0.0f;
+        for (int i = i1 + 32; i < dm; i += 32) L[tri(i) + jq] = updated(i);
+        const float pivot = __shfl_sync(0xffffffffu, u0, 0);
+        const float ok = pivot > kCholEps ? 1.0f : 0.0f;
+        const float dval = sqrtf(les::max_nan(pivot, kCholEps));
+        const float f = ok / dval;
+        auto scaled = [&](int i, float v) {
+          const float b = v * f;
+          L[tri(i) + jq] = b;
+          cbf[4 * i + q] = b;
+        };
+        if (lane == 0)
+          L[tri(jq) + jq] = dval;
+        else if (i0 < dm)
+          scaled(i0, u0);
+        if (i1 < dm) scaled(i1, u1);
+        for (int i = i1 + 32; i < dm; i += 32) scaled(i, L[tri(i) + jq]);
+        __syncwarp();
       }
+      if (R == kPanel)  // dm is even: the last panel has 2 columns or kPanel
+        trailing_update<kPanel>(L, cb, j + R, dm, lane);
+      else
+        trailing_update<2>(L, cb, j + R, dm, lane);
       __syncwarp();
     }
+    LES_PHASE(kPhChol);
 
     float mv, ath, var_d, var_th;
     if (p.calibrated) {
@@ -321,16 +446,27 @@ fused_ukf_rollout_kernel(const UkfParams p, const float* __restrict__ lms,
     }
     const float ca = cosf(ath), sa = sinf(ath);
 
-    // sigma vehicle rows, column k of L is sigma pair k (:247-296)
+    // sigma vehicle rows (:247-296): column k of L is sigma pair k; its
+    // vehicle rows L[0..3][k] vanish past k = 3, so every column past 3 is
+    // column kSig - 1
+    if (lane < kSig) {
+      float la[4];
+      for (int a = 0; a < 4; ++a) la[a] = lane <= a ? L[tri(a) + lane] : 0.0f;
+      propagate(xv0 + la[0], xv1 + la[1], xc + la[2], xs + la[3], mv, ca, sa,
+                sg[0 * kSig + lane], sg[1 * kSig + lane], sg[2 * kSig + lane],
+                sg[3 * kSig + lane]);
+      propagate(xv0 - la[0], xv1 - la[1], xc - la[2], xs - la[3], mv, ca, sa,
+                sg[4 * kSig + lane], sg[5 * kSig + lane], sg[6 * kSig + lane],
+                sg[7 * kSig + lane]);
+    }
+    __syncwarp();
+    const float* sig_p = sg;
+    const float* sig_m = sg + 4 * kSig;
     float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    for (int k = lane; k < Du; k += 32) {
-      const float la0 = L[k], la1 = L[S + k], la2 = L[2 * S + k];
-      const float la3 = L[3 * S + k];
-      propagate(xv0 + la0, xv1 + la1, xc + la2, xs + la3, mv, ca, sa, pxn[k],
-                pyn[k], pcn[k], psn[k]);
-      propagate(xv0 - la0, xv1 - la1, xc - la2, xs - la3, mv, ca, sa, mxn[k],
-                myn[k], mcn[k], msn[k]);
-      for (int a = 0; a < 4; ++a) acc[a] += wm[k] * (sig_p[a][k] + sig_m[a][k]);
+    for (int k = lane; k < dm; k += 32) {
+      const int c = min(k, kSig - 1);
+      for (int a = 0; a < 4; ++a)
+        acc[a] += wm[k] * (sig_p[a * kSig + c] + sig_m[a * kSig + c]);
     }
     float sc[4];
     propagate(xv0, xv1, xc, xs, mv, ca, sa, sc[0], sc[1], sc[2], sc[3]);
@@ -358,16 +494,24 @@ fused_ukf_rollout_kernel(const UkfParams p, const float* __restrict__ lms,
       has_q[0][0] = has_q[0][1] = has_q[1][1] = true;
       has_q[2][2] = has_q[2][3] = has_q[3][3] = true;
     }
+    // the ten sums in one pass over the columns, then ten butterflies side
+    // by side (each sum's own order is unchanged)
+    float part[4][4] = {};
+    for (int k = lane; k < dm; k += 32) {
+      const int c = min(k, kSig - 1);
+      float dp[4], dmn[4];
+      for (int a = 0; a < 4; ++a) {
+        dp[a] = sig_p[a * kSig + c] - m[a];
+        dmn[a] = sig_m[a * kSig + c] - m[a];
+      }
+      for (int a = 0; a < 4; ++a)
+        for (int b = a; b < 4; ++b)
+          part[a][b] += wm[k] * (dp[a] * dp[b] + dmn[a] * dmn[b]);
+    }
     float p44[4][4];
     for (int a = 0; a < 4; ++a) {
       for (int b = a; b < 4; ++b) {
-        float part = 0.0f;
-        for (int k = lane; k < Du; k += 32) {
-          const float dpa = sig_p[a][k] - m[a], dpb = sig_p[b][k] - m[b];
-          const float dma = sig_m[a][k] - m[a], dmb = sig_m[b][k] - m[b];
-          part += wm[k] * (dpa * dpb + dma * dmb);
-        }
-        float s = w0 * dcs[a] * dcs[b] + warp_sum(part);
+        float s = w0 * dcs[a] * dcs[b] + warp_sum(part[a][b]);
         if (has_q[a][b]) s = s + q[a][b];
         p44[a][b] = s;
         p44[b][a] = s;
@@ -379,28 +523,31 @@ fused_ukf_rollout_kernel(const UkfParams p, const float* __restrict__ lms,
       x[i] = v;
       xp0[i] = v;
     }
-    // vehicle-landmark cross rows: L @ g_a, g_a = wm (dps_a - dms_a)
-    float* ga[4] = {g0, g1, g2, g3};
-    for (int k = lane; k < Du; k += 32)
+    // g_a = wm (dps_a - dms_a) of columns 0..3; past them dps_a = dms_a
+    if (lane < 4)
       for (int a = 0; a < 4; ++a)
-        ga[a][k] = wm[k] * ((sig_p[a][k] - m[a]) - (sig_m[a][k] - m[a]));
+        ga[4 * a + lane] = wm[lane] * ((sig_p[a * kSig + lane] - m[a]) -
+                                       (sig_m[a * kSig + lane] - m[a]));
     __syncwarp();
-    for (int i = 4 + lane; i < Du; i += 32) {
-      const float* Li = L + i * S;
+    LES_PHASE(kPhSigma);
+
+    // vehicle-landmark cross rows: L @ g_a, whose terms past column 3 are
+    // +/-0 (g_a vanishes there)
+    for (int i = 4 + lane; i < dm; i += 32) {
+      const float* Li = L + tri(i);
       for (int a = 0; a < 4; ++a) {
         float c = 0.0f;
-        for (int k = 0; k <= i; ++k) c += Li[k] * ga[a][k];
-        P[a * S + i] = c;
-        P[i * S + a] = c;
+        for (int k = 0; k < 4; ++k) c += Li[k] * ga[4 * a + k];
+        P[tri(i) + a] = c;
       }
     }
     if (lane == 0)
       for (int a = 0; a < 4; ++a)
-        for (int b = 0; b < 4; ++b) P[a * S + b] = p44[a][b];
+        for (int b = 0; b <= a; ++b) P[tri(a) + b] = p44[a][b];
     __syncwarp();
+    LES_PHASE(kPhCross);
 
     // ---- pass 1: landmark updates in id order (:370-560)
-    const bool committed = p.committed_yaw != 0;
     for (int j = 0; j < N; ++j) {
       const float m_u = kSlam ? vis[j] * seen[j] : vis[j];
       if (predicated && !(m_u > 0.0f)) continue;
@@ -408,32 +555,58 @@ fused_ukf_rollout_kernel(const UkfParams p, const float* __restrict__ lms,
       const int li = 4 + 2 * j;
       const float lmx_c = kSlam ? xp0[li] : lmx[j];
       const float lmy_c = kSlam ? xp0[li + 1] : lmy[j];
+      // sigma columns k < kz see the landmark each their own way; past kz
+      // the landmark rows of L vanish and every column is column kSig - 1
+      // at the landmark's mean
+      const int kz = kSlam ? li + 2 : Du;
+      const float* Lx = L + tri(li);
+      const float* Ly = L + tri(li + 1);
 
-      // z of sigma column k (recomputed in the second sweep: bitwise the same)
-      auto z_col = [&](int k, float& r_p, float& cb_p, float& sb_p, float& r_m,
-                       float& cb_m, float& sb_m) {
+      // z of sigma column k (c: its vehicle rows' column)
+      auto z_col = [&](int k, int c) {
+        ZCol z;
         float lxp = lmx_c, lxm = lmx_c, lyp = lmy_c, lym = lmy_c;
         if (kSlam) {
-          const float ll0 = L[li * S + k], ll1 = L[(li + 1) * S + k];
+          const float ll0 = k < kz && k <= li ? Lx[k] : 0.0f;
+          const float ll1 = k < kz ? Ly[k] : 0.0f;
           lxp = lmx_c + ll0;
           lxm = lmx_c - ll0;
           lyp = lmy_c + ll1;
           lym = lmy_c - ll1;
         }
-        z_of(p, lxp, lyp, pxn[k], pyn[k], committed ? cyawv : pcn[k],
-             committed ? syawv : psn[k], r_p, cb_p, sb_p);
-        z_of(p, lxm, lym, mxn[k], myn[k], committed ? cyawv : mcn[k],
-             committed ? syawv : msn[k], r_m, cb_m, sb_m);
+        z_of(p, lxp, lyp, sig_p[c], sig_p[kSig + c],
+             committed ? cyawv : sig_p[2 * kSig + c],
+             committed ? syawv : sig_p[3 * kSig + c], z.rp, z.cbp, z.sbp);
+        z_of(p, lxm, lym, sig_m[c], sig_m[kSig + c],
+             committed ? cyawv : sig_m[2 * kSig + c],
+             committed ? syawv : sig_m[3 * kSig + c], z.rm, z.cbm, z.sbm);
+        return z;
       };
 
+      // first sweep: the z of every column, kept for the second (columns
+      // lane and lane + 32 in registers; past them, Du > 64, recomputed:
+      // bitwise the same)
+      ZCol zc = {};
+      if (kSlam && kz < dm) zc = z_col(Du, kSig - 1);
+      auto z_at = [&](int k) {
+        return k < kz ? z_col(k, min(k, kSig - 1)) : zc;
+      };
       float a_r = 0.0f, a_s = 0.0f, a_c = 0.0f;
-      for (int k = lane; k < Du; k += 32) {
-        float r_p, cb_p, sb_p, r_m, cb_m, sb_m;
-        z_col(k, r_p, cb_p, sb_p, r_m, cb_m, sb_m);
-        a_r += wm[k] * (r_p + r_m);
-        a_s += wm[k] * (sb_p + sb_m);
-        a_c += wm[k] * (cb_p + cb_m);
+      auto first = [&](int k, const ZCol& z) {
+        a_r += wm[k] * (z.rp + z.rm);
+        a_s += wm[k] * (z.sbp + z.sbm);
+        a_c += wm[k] * (z.cbp + z.cbm);
+      };
+      ZCol zk0 = {}, zk1 = {};
+      if (lane < dm) {
+        zk0 = z_at(lane);
+        first(lane, zk0);
       }
+      if (lane + 32 < dm) {
+        zk1 = z_at(lane + 32);
+        first(lane + 32, zk1);
+      }
+      for (int k = lane + 64; k < dm; k += 32) first(k, z_at(k));
       float r_c, cb_c, sb_c;
       z_of(p, lmx_c, lmy_c, sc[0], sc[1], committed ? cyawv : sc[2],
            committed ? syawv : sc[3], r_c, cb_c, sb_c);
@@ -452,18 +625,18 @@ fused_ukf_rollout_kernel(const UkfParams p, const float* __restrict__ lms,
       const float db_c = dev_b(cb_c, sb_c, mcb, msb);
       float dev4c[4];
       for (int a = 0; a < 4; ++a) dev4c[a] = sc[a] - x[a];
+      LES_PHASE(kPhZ1);
 
       // second sweep: S entries, sigma-weighted deviation sums, vehicle rows
       // of the cross-covariance, and g = wm (d_p - d_m) for the matvecs
       float a00 = 0.0f, a01 = 0.0f, a11 = 0.0f, a_swr = 0.0f, a_swb = 0.0f;
       float a_hr[4] = {0.0f, 0.0f, 0.0f, 0.0f};
       float a_hb[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      for (int k = lane; k < Du; k += 32) {
-        float r_p, cb_p, sb_p, r_m, cb_m, sb_m;
-        z_col(k, r_p, cb_p, sb_p, r_m, cb_m, sb_m);
-        const float dr_p = r_p - z_r, dr_m = r_m - z_r;
-        const float db_p = dev_b(cb_p, sb_p, mcb, msb);
-        const float db_m = dev_b(cb_m, sb_m, mcb, msb);
+      auto second = [&](int k, const ZCol& z) {
+        const int c = min(k, kSig - 1);
+        const float dr_p = z.rp - z_r, dr_m = z.rm - z_r;
+        const float db_p = dev_b(z.cbp, z.sbp, mcb, msb);
+        const float db_m = dev_b(z.cbm, z.sbm, mcb, msb);
         const float wk = wm[k];
         a00 += wk * (dr_p * dr_p + dr_m * dr_m);
         a01 += wk * (dr_p * db_p + dr_m * db_m);
@@ -471,14 +644,19 @@ fused_ukf_rollout_kernel(const UkfParams p, const float* __restrict__ lms,
         a_swr += wk * (dr_p + dr_m);
         a_swb += wk * (db_p + db_m);
         for (int a = 0; a < 4; ++a) {
-          const float dpa = sig_p[a][k] - x[a];
-          const float dma = sig_m[a][k] - x[a];
+          const float dpa = sig_p[a * kSig + c] - x[a];
+          const float dma = sig_m[a * kSig + c] - x[a];
           a_hr[a] += wk * (dpa * dr_p + dma * dr_m);
           a_hb[a] += wk * (dpa * db_p + dma * db_m);
         }
-        g0[k] = wk * (dr_p - dr_m);
-        g1[k] = wk * (db_p - db_m);
-      }
+        if (k < kz) {
+          g0[k] = wk * (dr_p - dr_m);
+          g1[k] = wk * (db_p - db_m);
+        }
+      };
+      if (lane < dm) second(lane, zk0);
+      if (lane + 32 < dm) second(lane + 32, zk1);
+      for (int k = lane + 64; k < dm; k += 32) second(k, z_at(k));
       const float s00 = w0 * (dr_c * dr_c) + warp_sum(a00) + p.w00f;
       const float s01 = w0 * (dr_c * db_c) + warp_sum(a01);
       const float s11 = w0 * (db_c * db_c) + warp_sum(a11) + p.w11f;
@@ -489,27 +667,8 @@ fused_ukf_rollout_kernel(const UkfParams p, const float* __restrict__ lms,
         h_r[a] = w0 * dev4c[a] * dr_c + warp_sum(a_hr[a]);
         h_b[a] = w0 * dev4c[a] * db_c + warp_sum(a_hb[a]);
       }
-      __syncwarp();
-
-      // cross-covariance rows: vehicle explicit, landmark delta + L-matvec
-      float* c_r = g2;
-      float* c_b = g3;
-      for (int i = lane; i < Du; i += 32) {
-        if (i < 4) {
-          c_r[i] = h_r[i];
-          c_b[i] = h_b[i];
-        } else {
-          const float* Li = L + i * S;
-          float mr = 0.0f, mb = 0.0f;
-          for (int k = 0; k <= i; ++k) {
-            mr += Li[k] * g0[k];
-            mb += Li[k] * g1[k];
-          }
-          const float delta = xp0[i] - x[i];
-          c_r[i] = delta * sw_r + mr;
-          c_b[i] = delta * sw_b + mb;
-        }
-      }
+      __syncwarp();  // g0, g1 written; every lane has read x[0..3]
+      LES_PHASE(kPhSweep2);
 
       const float det_raw = s00 * s11 - s01 * s01;
       const float det = fabsf(det_raw) > 0.0f ? det_raw : 1.0f;
@@ -523,54 +682,105 @@ fused_ukf_rollout_kernel(const UkfParams p, const float* __restrict__ lms,
       const float sane = sane_b ? 1.0f : 0.0f;
       rej = rej + m_u * (1.0f - sane);
       const float m_g = m_u * sane;
-      __syncwarp();  // every lane has read x[0..3] before they change
-      for (int i = lane; i < Du; i += 32) {
-        const float k0 = (c_r[i] * i00 + c_b[i] * i01) * m_g;
-        const float k1 = (c_r[i] * i01 + c_b[i] * i11) * m_g;
-        k0v[i] = k0;
-        k1v[i] = k1;
-        x[i] = x[i] + k0 * nu_r + k1 * nu_b;
+      // cross-covariance rows (vehicle explicit, landmark delta + L-matvec
+      // over k <= min(i, li + 1): g vanishes past kz), gain and state. Row i
+      // sums in k order; rows go out longest first, the second round
+      // reversed, so a lane with a long row gets a short one
+      for (int rd = 0; dm - 1 - 32 * rd >= 0; ++rd) {
+        const int i = dm - 1 - 32 * rd - ((rd & 1) ? 31 - lane : lane);
+        if (i < 0) continue;
+        float cri, cbi;
+        if (i < 4) {
+          cri = h_r[0];
+          cbi = h_b[0];
+          for (int a = 1; a < 4; ++a)
+            if (i == a) {
+              cri = h_r[a];
+              cbi = h_b[a];
+            }
+        } else {
+          const float* Li = L + tri(i);
+          const int kend = min(i, kz - 1);
+          float mr = 0.0f, mb = 0.0f;
+          for (int k = 0; k <= kend; ++k) {
+            mr += Li[k] * g0[k];
+            mb += Li[k] * g1[k];
+          }
+          const float delta = xp0[i] - x[i];
+          cri = delta * sw_r + mr;
+          cbi = delta * sw_b + mb;
+        }
+        const float k0 = (cri * i00 + cbi * i01) * m_g;
+        const float k1 = (cri * i01 + cbi * i11) * m_g;
+        kc[i] = make_float4(k0, k1, cri, cbi);
+        x[i] = les::mad_pinned(k1, nu_b, les::mad_pinned(k0, nu_r, x[i]));
       }
       __syncwarp();
-      // one-pass Joseph form, each entry with i <= j once and mirrored
-      for (int i = lane; i < Du; i += 32) {
-        const float k0i = k0v[i], k1i = k1v[i], cri = c_r[i], cbi = c_b[i];
-        for (int jj = i; jj < Du; ++jj) {
-          const float k0j = k0v[jj], k1j = k1v[jj];
-          const float v = -(k0i * c_r[jj] + cri * k0j) -
-                          (k1i * c_b[jj] + cbi * k1j) + s00 * (k0i * k0j) +
-                          s01 * (k0i * k1j + k1i * k0j) + s11 * (k1i * k1j);
-          const float pij = P[i * S + jj] + v;
-          P[i * S + jj] = pij;
-          P[jj * S + i] = pij;
+      LES_PHASE(kPhGain);
+
+      // one-pass Joseph form over the lower triangle: entry (r, c), c <= r,
+      // from the expression of (i, j) = (c, r). Its products and sums are
+      // pinned (mad_pinned), so the two loops below round it alike: which
+      // one runs depends on dm, which predication changes
+      auto joseph = [&](float* e, const float4& ki, const float4& kj) {
+        const float k0i = ki.x, k1i = ki.y, cri = ki.z, cbi = ki.w;
+        const float k0j = kj.x, k1j = kj.y;
+        const float t_r = les::mad_pinned(k0i, kj.z, __fmul_rn(cri, k0j));
+        const float t_b = les::mad_pinned(k1i, kj.w, __fmul_rn(cbi, k1j));
+        const float t_x = les::mad_pinned(k0i, k1j, __fmul_rn(k1i, k0j));
+        float v = __fsub_rn(-t_r, t_b);
+        v = les::mad_pinned(s00, __fmul_rn(k0i, k0j), v);
+        v = les::mad_pinned(s01, t_x, v);
+        v = les::mad_pinned(s11, __fmul_rn(k1i, k1j), v);
+        *e = __fadd_rn(*e, v);
+      };
+      if (tri(dm) <= 32) {  // localization, Du = 4: an entry a lane
+        int r = 0, c = lane;
+        while (c > r) c -= ++r;
+        if (r < dm) joseph(P + tri(r) + c, kc[c], kc[r]);
+      } else {  // lines of two rows (row l and row dm-1-l) a lane
+        for (int line = lane; 2 * line < dm; line += 32) {
+          const int ra = line, rb = dm - 1 - line;
+          const int len = 2 * line + 1 == dm ? line + 1 : dm + 1;
+          const float4 kja = kc[ra], kjb = kc[rb];
+          for (int cc = 0; cc < len; ++cc) {
+            const bool a = cc <= line;
+            const int c = a ? cc : cc - line - 1;
+            joseph(P + tri(a ? ra : rb) + c, kc[c], a ? kja : kjb);
+          }
         }
       }
       __syncwarp();
+      LES_PHASE(kPhJoseph);
     }
+    __syncwarp();  // every lane is past the loop's reads of seen
+    LES_PHASE(kPhJoseph);  // the loop over the landmarks not updated
 
     // ---- pass 2: insertions (SLAM only; :562-596): fresh W block, zero
-    // cross terms; then seen |= vis
+    // cross terms; then seen |= vis. Each landmark reads the vehicle rows
+    // only, so the lanes take one each
     if (kSlam) {
       const float yaw_now = les::atan2p(x[3], x[2]);
-      for (int j = 0; j < N; ++j) {
+      const float xv = x[0], yv = x[1];
+      for (int j = lane; j < N; j += 32) {
         const float m_i = vis[j] * (1.0f - seen[j]);
-        if (predicated && !(m_i > 0.0f)) continue;
-        const int li = 4 + 2 * j;
-        const float tb = yaw_now + bn[j];
-        const float sx = x[0] + rn[j] * cosf(tb);
-        const float sy = x[1] + rn[j] * sinf(tb);
-        __syncwarp();
-        if (m_i > 0.0f && lane == 0) {
-          x[li] = sx;
-          x[li + 1] = sy;
-          P[li * S + li] = p.w00f;
-          P[(li + 1) * S + li + 1] = p.w11f;
+        if (!predicated || m_i > 0.0f) {
+          const int li = 4 + 2 * j;
+          const float tb = yaw_now + bn[j];
+          const float sx = les::mad_pinned(rn[j], cosf(tb), xv);
+          const float sy = les::mad_pinned(rn[j], sinf(tb), yv);
+          if (m_i > 0.0f) {
+            x[li] = sx;
+            x[li + 1] = sy;
+            P[tri(li) + li] = p.w00f;
+            P[tri(li + 1) + li + 1] = p.w11f;
+          }
         }
-        __syncwarp();
+        seen[j] = les::max_nan(seen[j], vis[j]);
       }
-      for (int j = lane; j < N; j += 32) seen[j] = les::max_nan(seen[j], vis[j]);
     }
     __syncwarp();
+    LES_PHASE(kPhInsert);
 
     // ---- error metric (:598-605)
     const float ex = x[0] - tx;
@@ -579,7 +789,12 @@ fused_ukf_rollout_kernel(const UkfParams p, const float* __restrict__ lms,
     esum = esum + e;
     emax = les::max_nan(emax, e);
     __syncwarp();
+    LES_PHASE(kPhError);
   }
+#ifdef LES_PHASE_CLOCKS
+  if (lane == 0)
+    for (int k = 0; k < kPhases; ++k) atomicAdd(&g_phase_cycles[k], clk[k]);
+#endif
 
   if (lane == 0) {
     err_sum[world] = esum;
@@ -590,10 +805,24 @@ fused_ukf_rollout_kernel(const UkfParams p, const float* __restrict__ lms,
     true_pose[(size_t)world * 3 + 2] = tth;
   }
   for (int i = lane; i < Du; i += 32) x_out[(size_t)world * Du + i] = x[i];
-  for (int e = lane; e < Du * Du; e += 32)
-    P_out[(size_t)world * Du * Du + e] = P[(e / Du) * S + e % Du];
+  for (int e = lane; e < Du * Du; e += 32) {
+    const int r = e / Du, c = e % Du;
+    P_out[(size_t)world * Du * Du + e] = r >= c ? P[tri(r) + c] : P[tri(c) + r];
+  }
   for (int j = lane; j < N; j += 32)
     seen_out[(size_t)world * N + j] = seen[j] > 0.5f ? 1 : 0;
+}
+
+// worlds a block and dynamic shared bytes a block of the launch for N, or
+// kErrSmem where a world does not fit
+template <bool kSlam>
+int launch_shape(int N, int& wpb, size_t& smem) {
+  const size_t per_world = (size_t)world_floats(N, kSlam) * sizeof(float);
+  if (per_world > kMaxSmem) return kErrSmem;
+  wpb = kWorldsPerBlock;
+  while (wpb > 1 && wpb * per_world > kMaxSmem) --wpb;
+  smem = wpb * per_world;
+  return 0;
 }
 
 template <bool kSlam>
@@ -602,11 +831,10 @@ int launch_ukf(const UkfParams* p, const float* lms, const float* cmds,
                int predicated, float* err_sum, float* err_max, float* rejects,
                float* true_pose, float* x, float* P, uint8_t* seen,
                void* stream) {
-  const size_t per_world = (size_t)world_floats(N, kSlam) * sizeof(float);
-  if (per_world > kMaxSmem) return kErrSmem;
-  int wpb = kWorldsPerBlock;
-  while (wpb > 1 && wpb * per_world > kMaxSmem) --wpb;
-  const size_t smem = wpb * per_world;
+  int wpb = 0;
+  size_t smem = 0;
+  const int rc = launch_shape<kSlam>(N, wpb, smem);
+  if (rc != 0) return rc;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         fused_ukf_rollout_kernel<kSlam>,
@@ -621,6 +849,47 @@ int launch_ukf(const UkfParams* p, const float* lms, const float* cmds,
 }
 
 }  // namespace
+
+extern "C" int les_kernel_occupancy(const void* fn, int threads, int smem,
+                                    int* out);  // occupancy.cu
+
+// The launch of N landmarks as the card takes it: out = registers a thread,
+// local (spill) bytes a thread, static shared bytes a block, blocks an SM,
+// worlds a block, dynamic shared bytes a block.
+extern "C" int les_ukf_occupancy(int slam, int N, int* out) {
+  int wpb = 0;
+  size_t smem = 0;
+  const int rc = slam ? launch_shape<true>(N, wpb, smem)
+                      : launch_shape<false>(N, wpb, smem);
+  if (rc != 0) return rc;
+  out[4] = wpb;
+  out[5] = (int)smem;
+  const void* fn = slam ? (const void*)fused_ukf_rollout_kernel<true>
+                        : (const void*)fused_ukf_rollout_kernel<false>;
+  return les_kernel_occupancy(fn, 32 * wpb, (int)smem, out);
+}
+
+// Copies the phase counters of the -DLES_PHASE_CLOCKS build into out
+// (n = kPhases entries) and, with reset, zeroes them. Any other build has no
+// counters and returns cudaErrorNotSupported.
+extern "C" int les_ukf_phase_clocks(unsigned long long* out, int n,
+                                    int reset) {
+#ifdef LES_PHASE_CLOCKS
+  if (n != kPhases) return (int)cudaErrorInvalidValue;
+  cudaError_t e =
+      cudaMemcpyFromSymbol(out, g_phase_cycles, sizeof(g_phase_cycles));
+  if (e == cudaSuccess && reset) {
+    const unsigned long long zero[kPhases] = {};
+    e = cudaMemcpyToSymbol(g_phase_cycles, zero, sizeof(zero));
+  }
+  return (int)e;
+#else
+  (void)out;
+  (void)n;
+  (void)reset;
+  return (int)cudaErrorNotSupported;
+#endif
+}
 
 extern "C" int les_fused_ukf_rollout(
     const UkfParams* p, const float* lms, const float* cmds,

@@ -29,6 +29,9 @@ NVCC_FLAGS = (
 # contraction off: a build whose kernels round as the plain versions do
 # (LES_NO_FMA: the same for the few products kernel_math.cuh pins by hand)
 NO_FMA = ("-fmad=false", "-DLES_NO_FMA")
+# a measurement build: the UKF kernel counts clock64() cycles by phase of its
+# tick (fused_ukf_rollout.cu, LES_PHASE); the default build compiles that out
+PHASE_CLOCKS = ("-DLES_PHASE_CLOCKS",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -74,6 +77,13 @@ SIGNATURES = {
     # sp, sm (B,3,D), lm (B,2), wm (B,D) -> out (B,); B, D, n; stream
     "les_micro_zstats": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
     "les_error_string": (ctypes.c_char_p, [_I]),
+    # a kernel's host function, threads and dynamic shared bytes a block ->
+    # out[4]: registers, local bytes, static shared bytes, blocks an SM
+    "les_kernel_occupancy": (_I, [_P, _I, _I, _P]),
+    # slam, N -> out[6]: the four above, worlds a block, shared bytes a block
+    "les_ukf_occupancy": (_I, [_I, _I, _P]),
+    # out (uint64 per phase), n, reset: the PHASE_CLOCKS build's counters
+    "les_ukf_phase_clocks": (_I, [_P, _I, _I]),
 }
 
 _libs: dict[tuple[str, ...], ctypes.CDLL] = {}
@@ -162,16 +172,26 @@ def load() -> ctypes.CDLL:
 
 
 @contextlib.contextmanager
-def without_fma():
-    """Within, the wrappers launch the build with FMA contraction off, whose
-    kernels give the plain versions' bits (a check; the default build is
-    the one the port runs)."""
+def _flags(extra: tuple[str, ...]):
     global _extra
-    saved, _extra = _extra, NO_FMA
+    saved, _extra = _extra, extra
     try:
         yield
     finally:
         _extra = saved
+
+
+def without_fma():
+    """Within, the wrappers launch the build with FMA contraction off, whose
+    kernels give the plain versions' bits (a check; the default build is
+    the one the port runs)."""
+    return _flags(NO_FMA)
+
+
+def phase_clocks():
+    """Within, the wrappers launch the build whose UKF kernel counts its
+    cycles by phase (``fused_ukf.phase_clocks`` reads them)."""
+    return _flags(PHASE_CLOCKS)
 
 
 def check(rc: int, what: str) -> None:

@@ -39,6 +39,12 @@ LANES = 32  # the kernel's warp: the lanes that share a world's sums
 
 # launches of each CUDA kernel instantiation (not of the plain version)
 launches = {"slam": 0, "loc": 0}
+# the phases of a tick, in the order of the kernel's Phase enum
+PHASES = ("sim", "cholesky", "sigma_and_4x4", "cross_rows", "z_sweep",
+          "second_sweep_and_S", "gain_and_matvecs", "joseph", "insertions",
+          "error")
+OCCUPANCY_KEYS = ("registers", "local_bytes", "static_smem_bytes",
+                  "blocks_per_sm", "worlds_per_block", "smem_bytes_per_block")
 
 
 def state_dim(n_lm: int, slam: bool) -> int:
@@ -109,6 +115,34 @@ def _launch(cfg, landmarks, cmds, seed, noise, slam, predicated):
     _build.check(rc, "fused_ukf_rollout kernel")
     launches["slam" if slam else "loc"] += 1
     return res
+
+
+def phase_clocks(cfg, landmarks, cmds, seed, *, slam=True) -> tuple[dict, dict]:
+    """One rollout on the card in the build that counts cycles by phase
+    (``_build.PHASE_CLOCKS``): returns the clock64() cycles of each phase of
+    ``PHASES``, lane 0 of every warp summed over warps and ticks, and the
+    rollout's result. A measurement: the clocks slow the kernel a little."""
+    with _build.phase_clocks():
+        lib = _build.load()
+        cycles = (ctypes.c_uint64 * len(PHASES))()
+        _build.check(lib.les_ukf_phase_clocks(cycles, len(PHASES), 1),
+                     "les_ukf_phase_clocks")
+        res = _launch(cfg, landmarks, cmds, seed, None, slam, True)
+        torch.cuda.synchronize(landmarks.device)
+        _build.check(lib.les_ukf_phase_clocks(cycles, len(PHASES), 1),
+                     "les_ukf_phase_clocks")
+    return dict(zip(PHASES, (int(c) for c in cycles))), res
+
+
+def occupancy(n_lm: int, slam: bool = True) -> dict:
+    """The kernel's launch for ``n_lm`` landmarks as the card takes it:
+    ``OCCUPANCY_KEYS`` and the worlds resident on one SM at once."""
+    out = (ctypes.c_int * len(OCCUPANCY_KEYS))()
+    _build.check(_build.load().les_ukf_occupancy(int(slam), n_lm, out),
+                 "les_ukf_occupancy")
+    occ = dict(zip(OCCUPANCY_KEYS, out))
+    occ["worlds_per_sm"] = occ["blocks_per_sm"] * occ["worlds_per_block"]
+    return occ
 
 
 def lane_sum(t: torch.Tensor) -> torch.Tensor:

@@ -8,6 +8,7 @@ runs on a GPU machine without the JAX package's dependencies:
     JAX_PLATFORMS=cpu python -m pytest tests/test_torch_cuda.py -q
 """
 
+import ctypes
 import importlib
 
 import numpy as np
@@ -280,3 +281,46 @@ def test_wrapper_rejects_bad_inputs(cuda_device):
         fr.fused_ekf_rollout(cfg, lms, cmds, 0, noise=noise[:, :, :10])
     with pytest.raises(ValueError, match="is on"):
         fr.fused_ekf_rollout(cfg, lms, cmds.cpu(), 0)
+
+
+def test_ukf_slam_keeps_16_worlds_resident_per_sm(cuda_device):
+    # K4's packed layout: 16 worlds on an SM at N = 20 (the register file's
+    # limit at 128 registers a thread; full squares of P and L let only 8
+    # share an SM's shared memory), and no local memory beyond the stack
+    for slam in (True, False):
+        occ = fu.occupancy(N, slam)
+        assert occ["worlds_per_sm"] >= 16, occ
+        assert occ["registers"] <= 128, occ
+
+
+@pytest.mark.parametrize("slam, n_lm", [(True, 3), (True, 14), (True, 20),
+                                        (True, 31), (False, 20)],
+                         ids=["slam-N3", "slam-N14", "slam-N20", "slam-N31", "loc"])
+def test_ukf_without_fma_equals_plain_at_the_lane_schedules_edges(slam, n_lm,
+                                                                  cuda_device):
+    # Du = 10, 32, 44, 66: one warp's width and past it, for the triangle
+    # lines, the row rounds of the matvecs and the two register-held sigma
+    # columns of each lane
+    cfg = small_cfg(Config, CompatConfig, "default", T, n_lm).replace(
+        filter="ukf_slam" if slam else "ukf_loc")
+    lms, cmds = mc_inputs(cfg, B, 3, cuda_device)
+    noise = torch.as_tensor(np.random.default_rng(n_lm).uniform(
+        -1, 1, (T, 2 * n_lm + 8, B)).astype(np.float32), device=cuda_device)
+    with _build.without_fma():
+        k = fu.fused_ukf_rollout(cfg, lms, cmds, 0, slam=slam, noise=noise)
+    p = fu.fused_ukf_rollout_reference(cfg, lms, cmds, 0, slam=slam, noise=noise)
+    for key in k:
+        assert torch.equal(k[key], p[key]), key
+    if slam:
+        assert int(k["seen"].sum(dim=1).max()) >= 2
+
+
+def test_ukf_phase_clock_build_counts_every_phase(cuda_device):
+    cfg, lms, cmds, _ = _inputs("default", cuda_device, filt="ukf_slam")
+    cycles, res = fu.phase_clocks(cfg, lms, cmds, 5)
+    assert set(cycles) == set(fu.PHASES)
+    assert all(v > 0 for v in cycles.values()), cycles
+    assert bool(torch.isfinite(res["err_sum"]).all())
+    with pytest.raises(RuntimeError, match="CUDA error"):  # the default build has none
+        _build.check(_build.load().les_ukf_phase_clocks(
+            (ctypes.c_uint64 * len(fu.PHASES))(), len(fu.PHASES), 0), "clocks")

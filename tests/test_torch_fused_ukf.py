@@ -34,6 +34,15 @@ KINDS = ["default", "compat", "calibrated"]
 # several landmarks in one tick (asserted), so the per-landmark updates of a
 # tick share one set of sigma points, and insertions grow the active set.
 B, N, T, BOUND = 4, 4, 20, 3.0
+# Wider maps, where the CUDA kernel's lane schedule has its edges: Du = 32
+# (N = 14, a triangle row of every length up to the warp) and Du = 66
+# (N = 31, rows past two warps' width); T cut to keep each case short (the
+# JAX kernel's compile takes 2-3 minutes at these widths, whatever T). So
+# many landmarks so close make a world refuse updates now and then (one of
+# the four at N = 14); such a world's estimate is chaotic (ROADMAP F6: a
+# one-ulp change moves it beyond JAX_TOL), so as in the sanity-gate test its
+# refusals are compared exactly and its estimate is held to finiteness.
+WIDE = {14: 8, 31: 6}
 
 # Plain version vs the Pallas kernel (interpret mode, CPU): the same float32
 # algebra; XLA's and torch's CPU sin/cos/rsqrt and their sums over sigma
@@ -49,20 +58,20 @@ JAX_TOL = {
 }
 
 
-def _inputs(kind, seed=5, **replace):
-    cfg = small_cfg(Config, CompatConfig, kind, T, N, BOUND).replace(**replace)
+def _inputs(kind, seed=5, n_lm=N, steps=T, **replace):
+    cfg = small_cfg(Config, CompatConfig, kind, steps, n_lm, BOUND).replace(**replace)
     rng = np.random.default_rng(seed)
     lms = random_landmarks_batched(cfg, rng, B)
-    noise = rng.uniform(-1, 1, size=(T, 2 * N + 8, B)).astype(np.float32)
-    return cfg, lms, arc_commands(B, T), noise
+    noise = rng.uniform(-1, 1, size=(steps, 2 * n_lm + 8, B)).astype(np.float32)
+    return cfg, lms, arc_commands(B, steps), noise
 
 
-def _run_both(kind, slam, **replace):
+def _run_both(kind, slam, n_lm=N, steps=T, **replace):
     """(port's plain version, JAX kernel in interpret mode) on the same
     seeded inputs, as numpy in the JAX layout."""
-    cfg, lms, cmds, noise = _inputs(kind, **replace)
+    cfg, lms, cmds, noise = _inputs(kind, n_lm=n_lm, steps=steps, **replace)
     assert max_co_observed(cfg, lms, cmds, noise) >= 2, "no co-observation"
-    jcfg = small_cfg(JConfig, JCompat, kind, T, N, BOUND).replace(**replace)
+    jcfg = small_cfg(JConfig, JCompat, kind, steps, n_lm, BOUND).replace(**replace)
     want = {k: np.asarray(v) for k, v in j_rollout(
         jcfg, jnp.asarray(lms), jnp.asarray(cmds), 0, slam=slam,
         block_worlds=B, noise=jnp.asarray(noise), interpret=True).items()}
@@ -79,12 +88,17 @@ def _run_both(kind, slam, **replace):
     return got, want
 
 
-@pytest.mark.parametrize("kind", KINDS)
-@pytest.mark.parametrize("slam", [True, False], ids=["slam", "loc"])
-def test_plain_matches_pallas_kernel(kind, slam):
-    got, want = _run_both(kind, slam)
+@pytest.mark.parametrize("slam, kind, n_lm", [
+    pytest.param(slam, kind, N, id=f"{'slam' if slam else 'loc'}-{kind}")
+    for slam in (True, False) for kind in KINDS] + [
+    pytest.param(True, "default", n, id=f"slam-default-N{n}") for n in WIDE])
+def test_plain_matches_pallas_kernel(slam, kind, n_lm):
+    got, want = _run_both(kind, slam, n_lm=n_lm, steps=WIDE.get(n_lm, T))
+    calm = got["update_rejects"] == 0
+    assert calm.all() if n_lm == N else calm.sum() >= B - 1
     for k, tol in JAX_TOL.items():
-        np.testing.assert_allclose(got[k], want[k], err_msg=k, **tol)
+        np.testing.assert_allclose(got[k][calm], want[k][calm], err_msg=k, **tol)
+        assert np.isfinite(got[k]).all(), k
     if slam:
         assert got["seen"].sum(axis=1).max() >= 2
     else:
