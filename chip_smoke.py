@@ -26,9 +26,10 @@ primitive of a tick alone (every kernel and variant of ``ops/micro_ops``
 held against its plain version), and the sum of the passes a tick executes
 against the EKF and UKF-SLAM kernels' measured times. Beside these, right
 after the build, every rollout kernel's occupancy (registers, spills,
-shared memory, resident worlds an SM; K4 SLAM must keep 16 without
-spilling), and after the main paths the UKF kernels' cycles by phase of the
-tick, from a third build compiled with -DLES_PHASE_CLOCKS. Every phase
+shared memory, resident worlds an SM; K1, K2 and K4 SLAM must keep 16
+without spilling), and after the main paths the UKF, EKF and RI-EKF
+kernels' cycles by phase of the tick (``ukf_phase_clocks``,
+``ekf_phase_clocks``), from a third build compiled with -DLES_PHASE_CLOCKS. Every phase
 prints one JSON line; any failure raises and the exit code is nonzero. The last three
 lines are the kernels' record, the card's name and power limit as
 nvidia-smi reports them, and ``{"ok": true, "device": {...}}``. Without a
@@ -38,7 +39,6 @@ before printing any result. Imports nothing of JAX.
 
 from __future__ import annotations
 
-import ctypes
 import json
 import subprocess
 import sys
@@ -343,7 +343,9 @@ def gate_counts(cfg, lms, cmds, seed) -> dict:
     """Counts, summed over worlds and ticks, of the filters' work on these
     inputs: the plain versions' gates (vis * seen updates, vis * (1 - seen)
     insertions, the UKF's active dimension n_act = 4 + 2 * seen and its
-    powers), replayed from the simulator and the kernels' Philox stream."""
+    powers, the EKF's seen block D_act = 3 + 2 (1 + the highest id seen or
+    visible) and its square, a tick and an update), replayed from the
+    simulator and the kernels' Philox stream."""
     b, n, _ = lms.shape
     t_total = cmds.shape[1]
     noise = philox.philox_noise_reference(seed, t_total, n, b, lms.device)
@@ -353,7 +355,9 @@ def gate_counts(cfg, lms, cmds, seed) -> dict:
     tth = torch.full_like(tx, kp.yaw0)
     seen = torch.zeros((b, n), dtype=torch.bool, device=lms.device)
     tot = {k: 0.0 for k in ("updates", "insertions", "visible", "act1",
-                            "act2", "act3", "act1u", "act2u")}
+                            "act2", "act3", "act1u", "act2u", "dact1", "dact2",
+                            "dact1u", "dact2u")}
+    ids = torch.arange(1, n + 1, device=lms.device)
     for t in range(t_total):
         u = noise[t]
         d_n = torch.clamp(cmds[:, t, 0] + kp.v00s * u[0], 0.0, kp.d_max)
@@ -369,10 +373,14 @@ def gate_counts(cfg, lms, cmds, seed) -> dict:
         # n_act: the UKF's active dimensions, 4 + 2 per landmark seen
         n_act = (4 + 2 * seen.sum(dim=1)).to(torch.float64)
         n_upd = (vis & seen).sum(dim=1).to(torch.float64)
+        # D_act: the EKF kernels' seen block, rows past it hold +0
+        dact = (3 + 2 * torch.where(vis | seen, ids, 0).amax(dim=1)).to(torch.float64)
         for key, v in (("updates", n_upd), ("insertions", (vis & ~seen).sum(dim=1)),
                        ("visible", vis.sum(dim=1)), ("act1", n_act),
                        ("act2", n_act ** 2), ("act3", n_act ** 3),
-                       ("act1u", n_upd * n_act), ("act2u", n_upd * n_act ** 2)):
+                       ("act1u", n_upd * n_act), ("act2u", n_upd * n_act ** 2),
+                       ("dact1", dact), ("dact2", dact ** 2),
+                       ("dact1u", n_upd * dact), ("dact2u", n_upd * dact ** 2)):
             tot[key] += float(v.sum())
         seen |= vis
     tot["ticks"] = float(b * t_total)
@@ -389,20 +397,23 @@ def work(filt: str, g: dict, b: int, t_total: int, n: int,
     d = 3 + 2 * n
     ticks = g["ticks"]
     sense = 40.0 * n * ticks + 20.0 * ticks  # per landmark and tick; truth, error
-    if mode != "full":
-        g = {**g, "updates": 0.0, "insertions": 0.0}
+    if mode != "full":  # and seen stays empty: the vehicle block alone
+        g = {**g, "updates": 0.0, "insertions": 0.0, "dact1": 3.0 * ticks,
+             "dact2": 9.0 * ticks, "dact1u": 0.0, "dact2u": 0.0}
     if mode == "sim":
         flops = sense
     elif filt == "ekf_slam":
+        # over the seen block D_act (the rest of P is +0 and stays so):
         # predict: two rank-1 row and two column passes; update: gain and
         # H P (~34 D) and the rank-2 downdate (4 D^2); insertion: two rows
-        flops = sense + 8.0 * d * ticks + g["updates"] * (4.0 * d * d + 34.0 * d) \
+        flops = sense + 8.0 * g["dact1"] + 4.0 * g["dact2u"] + 34.0 * g["dact1u"] \
             + g["insertions"] * (4.0 * d + 30.0)
     elif filt == "iekf_slam":
-        # predict: one full rank-1 pass (2 D^2); update: ~19 D of gain,
-        # retraction and H P, the rank-2 downdate (4 D^2); insertion: ~30
-        flops = sense + (2.0 * d * d + 3.0 * d) * ticks \
-            + g["updates"] * (4.0 * d * d + 19.0 * d + 60.0) + g["insertions"] * 30.0
+        # over the seen block: predict: one rank-1 pass (2 D^2); update:
+        # ~19 D of gain, retraction and H P, the rank-2 downdate (4 D^2);
+        # insertion: ~30
+        flops = sense + 2.0 * g["dact2"] + 3.0 * g["dact1"] + 4.0 * g["dact2u"] \
+            + 19.0 * g["dact1u"] + 60.0 * g["updates"] + g["insertions"] * 30.0
     elif filt == "ukf_slam":
         # per tick over the n_act active dimensions: Cholesky n^3/3, four
         # triangular matvecs (4 n^2), sigma rows and sums (~130 n); per
@@ -1090,55 +1101,21 @@ def phase_op_sum(dev, n_lm: int, gates: dict, times: dict, kernel_ms: dict):
          note="the TPU scripts' loops at K4's counts; K4's own split: ukf_phase_clocks")
 
 
-# fused_ekf_rollout.cu's launch shape: kWorldsPerBlock worlds a block (fewer
-# where they do not fit kMaxSmem), world_floats floats of shared memory a
-# world, kTrajTicks staged ticks of the pose stream
-EKF_WORLDS_PER_BLOCK, EKF_TRAJ_TICKS, MAX_SMEM = 4, 32, 232448
-# the EKF kernels' instantiations <kInvariant, kEmitTraj, kMode>
+# the EKF kernels' instantiations: name -> (filter kind, profile mode,
+# emit_traj, template arguments <kInvariant, kEmitTraj, kMode>)
 EKF_INSTANCES = {
-    "fused_ekf_rollout": "false, false, 0",
-    "fused_iekf_rollout": "true, false, 0",
-    "fused_ekf_rollout[emit_traj]": "false, true, 0",
-    "fused_iekf_rollout[emit_traj]": "true, true, 0",
-    "fused_ekf_rollout[nolm]": "false, false, 1",
-    "fused_iekf_rollout[nolm]": "true, false, 1",
-    "fused_ekf_rollout[sim]": "false, false, 2",
-    "fused_iekf_rollout[sim]": "true, false, 2",
+    "fused_ekf_rollout": ("ekf", "full", False, "false, false, 0"),
+    "fused_iekf_rollout": ("iekf", "full", False, "true, false, 0"),
+    "fused_ekf_rollout[emit_traj]": ("ekf", "full", True, "false, true, 0"),
+    "fused_iekf_rollout[emit_traj]": ("iekf", "full", True, "true, true, 0"),
+    "fused_ekf_rollout[nolm]": ("ekf", "nolm", False, "false, false, 1"),
+    "fused_iekf_rollout[nolm]": ("iekf", "nolm", False, "true, false, 1"),
+    "fused_ekf_rollout[sim]": ("ekf", "sim", False, "false, false, 2"),
+    "fused_iekf_rollout[sim]": ("iekf", "sim", False, "true, false, 2"),
 }
-
-
-def ekf_launch_shape(n_lm: int, emit_traj: bool) -> tuple[int, int]:
-    """(worlds a block, dynamic shared bytes a block) of an EKF launch."""
-    def up(x, m):
-        return -(-x // m) * m
-    d = 3 + 2 * n_lm
-    per_world = 4 * (up(d * d + 6 * d + up(2 * n_lm + 8, 4) + 6 * n_lm, 4)
-                     + (6 * EKF_TRAJ_TICKS if emit_traj else 0))
-    wpb = EKF_WORLDS_PER_BLOCK
-    while wpb > 1 and wpb * per_world > MAX_SMEM:
-        wpb -= 1
-    return wpb, wpb * per_world
-
-
-def ekf_host_functions(lib) -> dict:
-    """Template arguments -> address in this process of the EKF kernels'
-    host functions, which fused_ekf_rollout.cu keeps in an anonymous
-    namespace: read off the library's symbol table (``nm``), moved by where
-    the exported ``les_fused_ekf_rollout`` landed."""
-    path = _build.library_path()  # the default build's
-    text = subprocess.run(["nm", "-C", "--defined-only", str(path)], check=True,
-                          capture_output=True, text=True).stdout
-    found, anchor = {}, None
-    head = "::fused_ekf_rollout_kernel<"  # nvcc names the namespace _GLOBAL__N__...
-    for line in text.splitlines():
-        addr, _, name = line.split(" ", 2)
-        if name == "les_fused_ekf_rollout":
-            anchor = int(addr, 16)
-        if head in name and ">(" in name:
-            args = name[name.index(head) + len(head):name.index(">(")]
-            found.setdefault(args, int(addr, 16))
-    base = ctypes.cast(lib.les_fused_ekf_rollout, ctypes.c_void_p).value - anchor
-    return {args: base + a for args, a in found.items()}
+# worlds an SM that K1 and K2 (EKF_INSTANCES' first two) and K4 SLAM must
+# keep without spilling at N = 20: the register file's limit at 128 a thread
+EKF_RESIDENT, UKF_SLAM_RESIDENT = 16, 16
 
 
 def ptxas_report(src: str) -> dict:
@@ -1175,48 +1152,53 @@ def phase_occupancy(n_lm: int, ptxas: dict) -> list:
     block, and resident blocks and worlds an SM
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor); beside them the stack
     and spill bytes ptxas reports (``ptxas``: ptxas_report of both rollout
-    sources). K4 SLAM must keep 16 worlds on an SM without spilling."""
-    lib = _build.load()
-    fns = ekf_host_functions(lib)
-    rows = []
-    for name, args in EKF_INSTANCES.items():
-        wpb, smem = ekf_launch_shape(n_lm, "emit_traj" in name)
-        out = (ctypes.c_int * 4)()
-        _build.check(lib.les_kernel_occupancy(fns[args], 32 * wpb, smem, out), name)
-        rows.append({"kernel": name, **dict(zip(fu.OCCUPANCY_KEYS[:4], out)),
-                     "worlds_per_block": wpb, "smem_bytes_per_block": smem,
-                     "worlds_per_sm": out[3] * wpb})
+    sources). K1 and K2 must keep EKF_RESIDENT worlds on an SM, K4 SLAM
+    UKF_SLAM_RESIDENT, without spilling."""
+    rows, args = [], {}
+    for name, (kind, mode, traj, targs) in EKF_INSTANCES.items():
+        rows.append({"kernel": name, **fr.occupancy(n_lm, kind, mode, traj)})
+        args[name] = targs
     for slam in (True, False):
-        rows.append({"kernel": f"fused_ukf_rollout[{'slam' if slam else 'loc'}]",
-                     **fu.occupancy(n_lm, slam)})
-    args = {**EKF_INSTANCES, "fused_ukf_rollout[slam]": "true",
-            "fused_ukf_rollout[loc]": "false"}
+        name = f"fused_ukf_rollout[{'slam' if slam else 'loc'}]"
+        rows.append({"kernel": name, **fu.occupancy(n_lm, slam)})
+        args[name] = "true" if slam else "false"
     for r in rows:
         kind = "ukf" if r["kernel"].startswith("fused_ukf") else "ekf"
         stem = f"fused_{kind}_rollout_kernel" + mangled_args(args[r["kernel"]])
         r.update(next(v for k_, v in ptxas.items() if stem in k_))
         emit("occupancy", n_lm=n_lm, **r)
-    slam = rows[-2]
-    if slam["worlds_per_sm"] < 16 or slam["spill_store_bytes"] or slam["spill_load_bytes"]:
-        raise AssertionError(f"K4 SLAM: fewer than 16 worlds an SM, or spills: {slam}")
+    need = {"fused_ekf_rollout": EKF_RESIDENT, "fused_iekf_rollout": EKF_RESIDENT,
+            "fused_ukf_rollout[slam]": UKF_SLAM_RESIDENT}
+    for r in rows:
+        if r["kernel"] in need and (r["worlds_per_sm"] < need[r["kernel"]]
+                                    or r["spill_store_bytes"] or r["spill_load_bytes"]):
+            raise AssertionError(f"{r['kernel']}: fewer than {need[r['kernel']]} "
+                                 f"worlds an SM, or spills: {r}")
     return rows
 
 
-def phase_ukf_clocks(lms, cmds, n_lm: int, kernel_ms: dict) -> dict:
-    """K4 SLAM and Loc at MAIN once each in the build that counts cycles by
-    phase of the tick: each phase's share of the cycles and that share of
-    the default build's measured time."""
+def phase_tick_clocks(lms, cmds, n_lm: int, kernel_ms: dict) -> dict:
+    """K4 SLAM and Loc, K1 and K2 at MAIN once each in the build that counts
+    cycles by phase of the tick (the ``ukf_phase_clocks`` and
+    ``ekf_phase_clocks`` lines): each phase's share of the cycles and that
+    share of the default build's measured time."""
+    runs = {
+        "ukf_slam": lambda cfg: fu.phase_clocks(cfg, lms, cmds, 0, slam=True),
+        "ukf_loc": lambda cfg: fu.phase_clocks(cfg, lms, cmds, 0, slam=False),
+        **{kind + "_slam": (lambda cfg, kind=kind: fr.phase_clocks(
+            cfg, lms, cmds, 0, filter_kind=kind)) for kind in fr.FILTER_KINDS},
+    }
     out = {}
-    for filt, slam in (("ukf_slam", True), ("ukf_loc", False)):
-        cfg = Config(num_iterations=MAIN["steps"]).replace(filter=filt)
-        cycles, res = fu.phase_clocks(cfg, lms, cmds, 0, slam=slam)
+    for filt, run in runs.items():
+        cycles, res = run(Config(num_iterations=MAIN["steps"]).replace(filter=filt))
         if not bool(torch.isfinite(res["err_sum"]).all()):
             raise AssertionError(f"{filt}: the phase-clock build's errors are not finite")
         total = sum(cycles.values())
         shares = {k_: v / total for k_, v in cycles.items()}
         out[filt] = shares
-        emit("ukf_phase_clocks", filter=filt, **MAIN, n_lm=n_lm, cycles=cycles,
-             shares=shares, kernel_ms=kernel_ms[filt],
+        emit(("ukf" if filt.startswith("ukf") else "ekf") + "_phase_clocks",
+             filter=filt, **MAIN, n_lm=n_lm, cycles=cycles, shares=shares,
+             kernel_ms=kernel_ms[filt],
              ms_by_share={k_: v * kernel_ms[filt] for k_, v in shares.items()})
     return out
 
@@ -1428,6 +1410,9 @@ def main():
             rej = out["update_rejects"]
             extra["worlds_with_rejects_share"] = float((rej > 0).float().mean())
             extra["update_rejects_total"] = float(rej.sum())
+            # world -> refusals, for the few worlds that refuse
+            extra["rejecting_worlds"] = {
+                int(i): float(rej[i]) for i in torch.nonzero(rej > 0).flatten()[:16]}
         host_s, ms, _ = time_rollouts(cfg, lms, cmds, "cuda", REPS)
         emit("main_path", filter=filt, kernel=kname, **MAIN, n_lm=n_lm,
              protocol="shared", run_monte_carlo_s=mc_s,
@@ -1487,7 +1472,7 @@ def main():
         })
     emit("gate_counts", **MAIN, **gates)
     kernel_ms = {KERNELS[r["name"]][0]: r["ms"] for r in record}
-    phase_ukf_clocks(lms, cmds, n_lm, kernel_ms)
+    phase_tick_clocks(lms, cmds, n_lm, kernel_ms)
 
     # ---- 6b. the kernel-attribution path: the profile modes of K1 and K2,
     # the standalone primitives, and the sum of a tick's passes

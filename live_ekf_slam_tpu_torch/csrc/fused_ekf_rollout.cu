@@ -27,14 +27,39 @@
 // shared memory.
 //
 // What the design does about it. One warp per world, four worlds per block.
-// Each world's P stays in shared memory for the whole rollout (row stride D,
-// odd, so a warp reading a column, lane i at row i, hits 32 distinct banks),
-// with x, the gain and H P scratch vectors, the tick's noise and measurements
-// beside it: about 8.9 KB a world at N = 20. A world with nothing to update
-// or insert for a landmark skips it with a warp-uniform branch (the TPU
-// kernel can only skip per block of 256 worlds). Lanes own covariance rows;
-// __syncwarp() separates the read and write phases where the order of the
-// JAX kernel matters. Registers hold the truth pose and the error stats.
+// Each world's P stays in shared memory for the whole rollout, with x, the
+// gain and H P scratch vectors, the tick's noise and measurements beside it:
+// 9.1 KB a world at N = 20. Registers hold the truth pose and the error
+// stats. Four choices shape the tick:
+// * The landmark walk is driven by ballots. Every gate of a tick depends only
+//   on the tick-start seen and on vis (seen changes at the end of the tick),
+//   so one __ballot_sync a word of 32 ids gives the updates of the tick and
+//   one its insertions; the warp visits only their set bits, in id order, an
+//   update before an insertion, and seen |= vis is one store a lane at the
+//   end of the tick. A world visits ~1 of its N ids a tick, where the TPU
+//   kernel masks all N per block of 256 worlds.
+// * Only the seen block of P is walked. Rows and columns of a landmark not
+//   yet seen hold exactly +0 in P and x, and every pass adds +0 or -0 to
+//   them, which leaves +0 (x + k * nu and P - k * h with a zero factor): so
+//   the predict, the update vectors, the downdate, the state update and the
+//   insertion stop at D_act = 3 + 2 (1 + the highest id seen or visible this
+//   tick), and skipping the rest changes no bit. predicated = 0 visits every
+//   id and all D rows, with the gains masked to zero, as the TPU kernel does.
+// * The rank-1 and rank-2 passes walk float4 chunks. P's row stride Dp is a
+//   multiple of 4 (D = 43: 44), so an entry of the D_act x D_act block is
+//   one of the four of a 16-byte chunk; the chunks, row by row, are dealt to
+//   the lanes in turn (chunk c to lane c mod 32), so the slowest lane walks
+//   ceil(D_act * ceil(D_act / 4) / 32) chunks where whole rows gave lanes
+//   0-10 two rows of 43. Each row's gain pair is computed once and stored as
+//   a float2 in place of the row's P H^T; a chunk takes one 8-byte load of
+//   it, one 16-byte load of each H P vector and one load and one store of
+//   the four entries: 1.25 shared-memory instructions an entry, where the
+//   scalar walk took four. Dp / 4 is odd, so a column read (lane i at row
+//   i) meets at most four lanes a bank.
+// * Every entry of those passes keeps its expression and operation order,
+//   and its products are pinned (les::mad_pinned): P - k0 h0 - k1 h1 of the
+//   downdate as two FMAs, P + vg g of the RI-EKF predict as one, where nvcc
+//   contracted them before.
 //
 // The pose stream (the JAX kernel's emit_traj=True output, _make_kernel lines
 // 604-610) is a third template parameter: per tick the estimated pose x[0:3]
@@ -43,7 +68,7 @@
 // as two contiguous runs of 3 * kTrajTicks floats, so the writes are
 // coalesced and land in the layout the caller reads (the TPU's (T, 8, B)
 // with two pad rows was its tile shape). With kEmitTraj = false nothing of
-// it is compiled in: the instantiation is the kernel it was before.
+// it is compiled in.
 //
 // The phase-attribution modes (the JAX kernel's profile_mode, _make_kernel
 // lines 188-194 and 268) are a fourth template parameter, not a run-time
@@ -54,7 +79,9 @@
 // and skips the landmark loop, so seen stays empty. Their times, taken from
 // the full kernel's, split a rollout into simulator, predict and landmark
 // loop. The JAX kernel's fourth name, "downdate", has no branch there and
-// runs the full tick; the wrapper maps it to kModeFull.
+// runs the full tick; the wrapper maps it to kModeFull. Built with
+// -DLES_PHASE_CLOCKS the kernel also counts its cycles by phase of the tick
+// (PhaseClock; a measurement build).
 //
 // Numerics. Operation order follows the JAX kernel wherever results depend
 // on it (see the comments below). nvcc contracts a*b+c into FMA by default,
@@ -82,34 +109,81 @@ struct EkfParams {
   int calibrated, stale, wrap_innov;
 };
 
+extern "C" int les_kernel_occupancy(const void* fn, int threads, int smem,
+                                    int* out);  // occupancy.cu
+
 namespace {
 
 constexpr int kWorldsPerBlock = 4;
+// the blocks an SM should hold at once: a register budget for the compiler
+constexpr int kMinBlocksPerSm = 4;
 constexpr size_t kMaxSmem = 232448;  // 227 KB: the most a Hopper block can use
 constexpr int kErrSmem = 100000;     // launcher's own code: see les_error_string
 constexpr int kTrajTicks = 32;       // ticks of the pose stream staged per store
+constexpr unsigned kFull = 0xffffffffu;
 // where a tick ends: after the whole of it, after the predict, after sensing
 constexpr int kModeFull = 0, kModeNoLm = 1, kModeSim = 2;
 
-// floats of shared memory per world: P, then x, x snapshot, pr, pb, hp0,
-// hp1 (D each), noise rows, landmark x and y, vis, rn, bn, seen (N each),
-// and with the pose stream its staging buffer (estimated, then true poses)
+// The tick's phases, as the -DLES_PHASE_CLOCKS build counts them. The gains
+// and the state update count to kPhSolve.
+enum Phase {
+  kPhSim, kPhPredict, kPhGate, kPhVectors, kPhSolve, kPhDowndate, kPhInsert,
+  kPhError, kPhases
+};
+
+#ifdef LES_PHASE_CLOCKS
+// Per phase, the clock64() cycles lane 0 of every warp spent in it, summed
+// over warps and ticks. A measurement build: the default build compiles none
+// of it.
+__device__ unsigned long long g_phase_cycles[kPhases];
+struct PhaseClock {
+  unsigned long long* clk;  // lane 0's counters, in the world's shared memory
+  long long t;
+  __device__ __forceinline__ void lap(int k, int lane) {
+    __syncwarp();
+    const long long now = clock64();
+    if (lane == 0) clk[k] += (unsigned long long)(now - t);
+    t = now;
+  }
+};
+constexpr int kClockFloats = 2 * kPhases;
+#else
+struct PhaseClock {
+  __device__ __forceinline__ void lap(int, int) {}
+};
+constexpr int kClockFloats = 0;
+#endif
+
+// P's row stride: a multiple of 4 (whole float4 chunks) whose quarter is odd
+// (a column read, lane i at row i, meets at most four lanes a bank)
+__host__ __device__ inline int row_stride(int d) {
+  const int dp = les::round_up(d, 4);
+  return (dp / 4) % 2 ? dp : dp + 4;
+}
+
+// floats of shared memory per world: P (D rows of stride Dp), then x, x
+// snapshot, hp0, hp1 (Dp each), P H^T as (pr, pb) pairs (2 Dp), noise rows,
+// landmark x and y, vis, rn, bn, seen (N each), and with the pose stream its
+// staging buffer (estimated, then true poses)
 __host__ __device__ inline int world_floats(int n, bool emit_traj) {
   const int d = 3 + 2 * n;
-  return les::round_up(d * d + 6 * d + les::round_up(2 * n + 8, 4) + 6 * n, 4) +
-         (emit_traj ? 6 * kTrajTicks : 0);
+  const int dp = row_stride(d);
+  return les::round_up(d * dp + 6 * dp + les::round_up(2 * n + 8, 4) + 6 * n,
+                       4) +
+         (emit_traj ? 6 * kTrajTicks : 0) + kClockFloats;
 }
 
 // Per-world working set in shared memory.
 struct World {
-  float* P;    // D x D, row stride D
-  float* x;    // D
-  float* xc;   // D: state snapshot after predict (stale-landmark compat);
+  float* P;    // D x D, row stride Dp
+  float* x;    // Dp
+  float* xc;   // Dp: state snapshot after predict (stale-landmark compat);
                // the RI-EKF's correction xi
-  float* pr;   // D: P h_r^T; the RI-EKF predict's yaw-noise column g
-  float* pb;   // D: P h_b^T
-  float* hp0;  // D: h_r P, and the first new row at insertion
-  float* hp1;  // D: h_b P, and the second new row at insertion
+  float* hp0;  // Dp: h_r P, and the first new row at insertion
+  float* hp1;  // Dp: h_b P, and the second new row at insertion
+  float* prb;  // 2 Dp: (P h_r^T, P h_b^T) of row i at 2i, 2i + 1, then the
+               // gain pair (k0, k1) of row i in their place; the RI-EKF
+               // predict's yaw-noise column g in the first Dp
   float* u;    // 2N+8 noise rows of the tick (padded to 4)
   float* lmx;  // N true landmark positions
   float* lmy;
@@ -120,12 +194,75 @@ struct World {
   float* traj; // 6 kTrajTicks: staged pose stream (kEmitTraj only)
 };
 
+__device__ __forceinline__ float4 chunk(const float* v, int q) {
+  return reinterpret_cast<const float4*>(v)[q];
+}
+
+// Rewrites the float4 chunks of P's leading dact x dact block, row by row
+// (the last chunk of a row reaches past dact into +0 entries or the row's
+// padding, which the passes leave as they are): chunk c goes to lane
+// c mod 32, which stores f(row, chunk index in the row, the chunk's value).
+// Two chunks a step, both loaded before either is stored, so that the
+// loads of the second wait with the first's.
+template <class F>
+__device__ __forceinline__ void walk_chunks(float* P, int Dp, int dact,
+                                            int lane, F&& f) {
+  const int Q = (dact + 3) >> 2;
+  const int total = dact * Q;
+  const int dr = 32 / Q, dq = 32 - dr * Q;  // a step of 32 chunks
+  const auto next = [&](int& r, int& q) {
+    r += dr;
+    q += dq;
+    if (q >= Q) {
+      q -= Q;
+      ++r;
+    }
+  };
+  int r = lane / Q, q = lane - r * Q;
+  int c = lane;
+  for (; c + 32 < total; c += 64) {
+    int r2 = r, q2 = q;
+    next(r2, q2);
+    float4* e1 = reinterpret_cast<float4*>(P + r * Dp) + q;
+    float4* e2 = reinterpret_cast<float4*>(P + r2 * Dp) + q2;
+    const float4 v1 = *e1, v2 = *e2;
+    const float4 n1 = f(r, q, v1), n2 = f(r2, q2, v2);
+    *e1 = n1;
+    *e2 = n2;
+    r = r2;
+    q = q2;
+    next(r, q);
+  }
+  if (c < total) {
+    float4* e = reinterpret_cast<float4*>(P + r * Dp) + q;
+    *e = f(r, q, *e);
+  }
+}
+
+// P -= k0 hp0^T + k1 hp1^T over the dact block, the gains from prb: each
+// entry as P - k0 hp0 - k1 hp1 in that order (fused_rollout.py:465-468)
+__device__ __forceinline__ void rank2_downdate(const World& w, int Dp,
+                                               int dact, int lane) {
+  walk_chunks(w.P, Dp, dact, lane, [&](int r, int q, float4 v) {
+    const float2 k = reinterpret_cast<const float2*>(w.prb)[r];
+    const float4 a = chunk(w.hp0, q), b = chunk(w.hp1, q);
+    v.x = les::mad_pinned(-k.y, b.x, les::mad_pinned(-k.x, a.x, v.x));
+    v.y = les::mad_pinned(-k.y, b.y, les::mad_pinned(-k.x, a.y, v.y));
+    v.z = les::mad_pinned(-k.y, b.z, les::mad_pinned(-k.x, a.z, v.z));
+    v.w = les::mad_pinned(-k.y, b.w, les::mad_pinned(-k.x, a.w, v.w));
+    return v;
+  });
+}
+
 // EKF update with landmark j (fused_rollout.py:384-468). m_u is 0 or 1: a
 // world with m_u = 0 gets K = 0, so x and P come out unchanged; the
 // predicated kernel skips the call for it instead.
-__device__ __forceinline__ void ekf_update(const EkfParams& p, const World& w, int D, int li,
-                           float m_u, float rnj, float bnj, int lane) {
-  float* P = w.P;
+__device__ __forceinline__ void ekf_update(const EkfParams& p, const World& w,
+                                           int Dp, int dact, int li, float m_u,
+                                           float rnj, float bnj, int lane,
+                                           PhaseClock& pc) {
+  const float* P = w.P;
+  float* prb = w.prb;
   const float xv = w.x[0], yv = w.x[1], thv = w.x[2];
   // compat: landmark from the snapshot taken after predict (:388-390)
   const float* xl = p.stale ? w.xc : w.x;
@@ -137,33 +274,35 @@ __device__ __forceinline__ void ekf_update(const EkfParams& p, const World& w, i
   const float a_b = ddy / d2, b_b = ddx / d2;
 
   // P H^T from P's columns: lane i reads row i (:404-411)
-  for (int i = lane; i < D; i += 32) {
-    const float* Pi = P + i * D;
+  for (int i = lane; i < dact; i += 32) {
+    const float* Pi = P + i * Dp;
     const float c0 = Pi[0], c1 = Pi[1], c2 = Pi[2];
     const float cl0 = Pi[li], cl1 = Pi[li + 1];
-    w.pr[i] = (cl0 - c0) * a_r + (cl1 - c1) * b_r;
-    w.pb[i] = (c0 - cl0) * a_b + (cl1 - c1) * b_b - c2;
+    prb[2 * i] = (cl0 - c0) * a_r + (cl1 - c1) * b_r;
+    prb[2 * i + 1] = (c0 - cl0) * a_b + (cl1 - c1) * b_b - c2;
   }
-  // H P from P's rows (:457-463): the one-sided spelling (P H^T)^T flips the
-  // sign of P's antisymmetric fp32 residue and diverges over long runs
-  for (int k = lane; k < D; k += 32) {
-    const float r0 = P[k], r1 = P[D + k], r2 = P[2 * D + k];
-    const float rl0 = P[li * D + k], rl1 = P[(li + 1) * D + k];
+  // H P from P's rows (:457-463), over the chunks the downdate walks: the
+  // one-sided spelling (P H^T)^T flips the sign of P's antisymmetric fp32
+  // residue and diverges over long runs
+  const int kend = (dact + 3) & ~3;
+  for (int k = lane; k < kend; k += 32) {
+    const float r0 = P[k], r1 = P[Dp + k], r2 = P[2 * Dp + k];
+    const float rl0 = P[li * Dp + k], rl1 = P[(li + 1) * Dp + k];
     w.hp0[k] = (rl0 - r0) * a_r + (rl1 - r1) * b_r;
     w.hp1[k] = (r0 - rl0) * a_b + (rl1 - r1) * b_b - r2;
   }
   __syncwarp();
+  pc.lap(kPhVectors, lane);
 
-  const float* pr = w.pr;
-  const float* pb = w.pb;
-  const float s00 = (-a_r * pr[0] - b_r * pr[1] + a_r * pr[li] +
-                     b_r * pr[li + 1]) + p.w00f;
-  const float s01 =
-      -a_r * pb[0] - b_r * pb[1] + a_r * pb[li] + b_r * pb[li + 1];
-  const float s10 = a_b * pr[0] - b_b * pr[1] - pr[2] - a_b * pr[li] +
-                    b_b * pr[li + 1];
-  const float s11 = (a_b * pb[0] - b_b * pb[1] - pb[2] - a_b * pb[li] +
-                     b_b * pb[li + 1]) + p.w11f;
+  const float pr0 = prb[0], pr1 = prb[2], pr2 = prb[4];
+  const float pb0 = prb[1], pb1 = prb[3], pb2 = prb[5];
+  const float prl0 = prb[2 * li], prl1 = prb[2 * li + 2];
+  const float pbl0 = prb[2 * li + 1], pbl1 = prb[2 * li + 3];
+  const float s00 = (-a_r * pr0 - b_r * pr1 + a_r * prl0 + b_r * prl1) + p.w00f;
+  const float s01 = -a_r * pb0 - b_r * pb1 + a_r * pbl0 + b_r * pbl1;
+  const float s10 = a_b * pr0 - b_b * pr1 - pr2 - a_b * prl0 + b_b * prl1;
+  const float s11 = (a_b * pb0 - b_b * pb1 - pb2 - a_b * pbl0 + b_b * pbl1) +
+                    p.w11f;
   float det = s00 * s11 - s01 * s10;
   det = fabsf(det) > 1e-20f ? det : 1.0f;
   const float i00 = s11 / det, i01 = -s01 / det;
@@ -173,36 +312,45 @@ __device__ __forceinline__ void ekf_update(const EkfParams& p, const World& w, i
   const float nu_r = rnj - dist - p.w_r;
   float nu_b = bnj - ang_lm - p.w_b;
   if (p.wrap_innov) nu_b = les::wrap(nu_b);  // compat leaves it unwrapped
+  __syncwarp();  // every lane has read prb before the gains replace it
 
-  // x += K nu (heading re-wrapped, :447-449); P -= K (H P), lane i owns row i
-  for (int i = lane; i < D; i += 32) {
-    const float k0 = (pr[i] * i00 + pb[i] * i10) * m_u;
-    const float k1 = (pr[i] * i01 + pb[i] * i11) * m_u;
+  // K = (P H^T) S^-1, row i by lane i, into prb; x += K nu (heading
+  // re-wrapped, :447-449)
+  for (int i = lane; i < dact; i += 32) {
+    const float pr = prb[2 * i], pb = prb[2 * i + 1];
+    const float k0 = (pr * i00 + pb * i10) * m_u;
+    const float k1 = (pr * i01 + pb * i11) * m_u;
+    prb[2 * i] = k0;
+    prb[2 * i + 1] = k1;
     const float xn = w.x[i] + k0 * nu_r + k1 * nu_b;
     w.x[i] = (i == 2) ? les::wrap(xn) : xn;
-    float* Pi = P + i * D;
-    for (int k = 0; k < D; ++k) Pi[k] = Pi[k] - k0 * w.hp0[k] - k1 * w.hp1[k];
   }
   __syncwarp();
+  pc.lap(kPhSolve, lane);
+  rank2_downdate(w, Dp, dact, lane);
+  __syncwarp();
+  pc.lap(kPhDowndate, lane);
 }
 
 // Masked landmark insertion (fused_rollout.py:531-593): the new rows and the
 // 2x2 block come from the OLD P, then rows, columns and block are written in
 // that order. `ins` is warp-uniform.
-__device__ __forceinline__ void ekf_insert(const EkfParams& p, const World& w, int D, int li,
-                           bool ins, float rnj, float bnj, int lane) {
+__device__ __forceinline__ void ekf_insert(const EkfParams& p, const World& w,
+                                           int Dp, int dact, int li, bool ins,
+                                           float rnj, float bnj, int lane,
+                                           PhaseClock& pc) {
   float* P = w.P;
   const float xv = w.x[0], yv = w.x[1], thv = w.x[2];
   const float tb = thv + bnj;
   const float ct = cosf(tb), st = sinf(tb);
   const float ga = -rnj * st;  // G_x(0,2) = G_z(0,1)
   const float gb = rnj * ct;   // G_x(1,2) = G_z(1,1)
-  for (int k = lane; k < D; k += 32) {
-    w.hp0[k] = P[k] + ga * P[2 * D + k];
-    w.hp1[k] = P[D + k] + gb * P[2 * D + k];
+  for (int k = lane; k < dact; k += 32) {
+    w.hp0[k] = P[k] + ga * P[2 * Dp + k];
+    w.hp1[k] = P[Dp + k] + gb * P[2 * Dp + k];
   }
   const float p00 = P[0], p01 = P[1], p02 = P[2];
-  const float p11 = P[D + 1], p12 = P[D + 2], p22 = P[2 * D + 2];
+  const float p11 = P[Dp + 1], p12 = P[Dp + 2], p22 = P[2 * Dp + 2];
   const float blk00 = p00 + 2.0f * ga * p02 + ga * ga * p22 +
                       ct * ct * p.w00f + ga * ga * p.w11f;
   const float blk01 = p01 + gb * p02 + ga * p12 + ga * gb * p22 +
@@ -210,28 +358,30 @@ __device__ __forceinline__ void ekf_insert(const EkfParams& p, const World& w, i
   const float blk11 = p11 + 2.0f * gb * p12 + gb * gb * p22 +
                       st * st * p.w00f + gb * gb * p.w11f;
   __syncwarp();
-  if (!ins) return;
-  if (lane == 0) {
-    w.x[li] = xv + rnj * ct;
-    w.x[li + 1] = yv + rnj * st;
+  if (ins) {
+    if (lane == 0) {
+      w.x[li] = xv + rnj * ct;
+      w.x[li + 1] = yv + rnj * st;
+    }
+    for (int k = lane; k < dact; k += 32) {
+      P[li * Dp + k] = w.hp0[k];
+      P[(li + 1) * Dp + k] = w.hp1[k];
+    }
+    __syncwarp();
+    for (int i = lane; i < dact; i += 32) {
+      P[i * Dp + li] = w.hp0[i];
+      P[i * Dp + li + 1] = w.hp1[i];
+    }
+    __syncwarp();
+    if (lane == 0) {
+      P[li * Dp + li] = blk00;
+      P[li * Dp + li + 1] = blk01;
+      P[(li + 1) * Dp + li] = blk01;
+      P[(li + 1) * Dp + li + 1] = blk11;
+    }
+    __syncwarp();
   }
-  for (int k = lane; k < D; k += 32) {
-    P[li * D + k] = w.hp0[k];
-    P[(li + 1) * D + k] = w.hp1[k];
-  }
-  __syncwarp();
-  for (int i = lane; i < D; i += 32) {
-    P[i * D + li] = w.hp0[i];
-    P[i * D + li + 1] = w.hp1[i];
-  }
-  __syncwarp();
-  if (lane == 0) {
-    P[li * D + li] = blk00;
-    P[li * D + li + 1] = blk01;
-    P[(li + 1) * D + li] = blk01;
-    P[(li + 1) * D + li + 1] = blk11;
-  }
-  __syncwarp();
+  pc.lap(kPhInsert, lane);
 }
 
 // Rtil = Rhat Jpc W Jpc^T Rhat^T through the unit (c1, s1) of heading plus
@@ -258,31 +408,33 @@ __device__ __forceinline__ void iekf_line_of_sight(float th, float bn,
 // RI-EKF predict (fused_rollout.py:207-240): P += var_th g g^T, with the
 // yaw-noise column g built from the tick-start x and seen, before the mean
 // moves. Entry 3+2jj of g is seen_jj x[4+2jj], entry 4+2jj is
-// -seen_jj x[3+2jj]. The caller adds the 2x2 distance-noise block.
-__device__ __forceinline__ void iekf_predict(const World& w, int D,
+// -seen_jj x[3+2jj]; past dact they are +0 or -0, and the chunks' tails
+// take +0. The caller adds the 2x2 distance-noise block.
+__device__ __forceinline__ void iekf_predict(const World& w, int Dp, int dact,
                                              float jac_d, float c, float s,
                                              float var_th, int lane) {
-  float* g = w.pr;
-  for (int i = lane; i < D; i += 32) {
-    float gi;
-    if (i == 0) {
-      gi = jac_d * s + w.x[1];
-    } else if (i == 1) {
-      gi = -jac_d * c - w.x[0];
-    } else if (i == 2) {
-      gi = 1.0f;
-    } else {
-      const float sj = w.seen[(i - 3) >> 1];
-      gi = ((i - 3) & 1) == 0 ? sj * w.x[i + 1] : -sj * w.x[i - 1];
-    }
-    g[i] = gi;
+  float* g = w.prb;
+  if (lane == 0) {
+    g[0] = jac_d * s + w.x[1];
+    g[1] = -jac_d * c - w.x[0];
+    g[2] = 1.0f;
   }
+  for (int jj = lane; 3 + 2 * jj < dact; jj += 32) {
+    const float sj = w.seen[jj];
+    g[3 + 2 * jj] = sj * w.x[4 + 2 * jj];
+    g[4 + 2 * jj] = -sj * w.x[3 + 2 * jj];
+  }
+  if (dact + lane < ((dact + 3) & ~3)) g[dact + lane] = 0.0f;
   __syncwarp();
-  for (int i = lane; i < D; i += 32) {
-    const float vg = var_th * g[i];
-    float* Pi = w.P + i * D;
-    for (int k = 0; k < D; ++k) Pi[k] = Pi[k] + vg * g[k];
-  }
+  walk_chunks(w.P, Dp, dact, lane, [&](int r, int q, float4 v) {
+    const float vg = var_th * g[r];
+    const float4 gk = chunk(g, q);
+    v.x = les::mad_pinned(vg, gk.x, v.x);
+    v.y = les::mad_pinned(vg, gk.y, v.y);
+    v.z = les::mad_pinned(vg, gk.z, v.z);
+    v.w = les::mad_pinned(vg, gk.w, v.w);
+    return v;
+  });
   __syncwarp();
 }
 
@@ -291,47 +443,51 @@ __device__ __forceinline__ void iekf_predict(const World& w, int D,
 // translation pair from the pre-update x. m_u = 0 gives xi = 0, an exact
 // identity.
 __device__ __forceinline__ void iekf_update(const EkfParams& p, const World& w,
-                                            int D, int N, int li, float m_u,
-                                            float rnj, float bnj, int lane) {
-  float* P = w.P;
+                                            int Dp, int dact, int li, float m_u,
+                                            float rnj, float bnj, int lane,
+                                            PhaseClock& pc) {
+  const float* P = w.P;
+  float* prb = w.prb;
   float* xi = w.xc;
   // every read of x comes before the first write (:297-300, :351)
   const float xv = w.x[0], yv = w.x[1], thv = w.x[2];
-  const float lmx = w.x[li], lmy = w.x[li + 1];
   float c1, s1, rt00, t01, rt11;
   iekf_line_of_sight(thv, bnj, c1, s1);
-  const float yw0 = rnj * c1, yw1 = rnj * s1;
+  const float nu0 = rnj * c1 - (w.x[li] - xv);
+  const float nu1 = rnj * s1 - (w.x[li + 1] - yv);
   iekf_rtil(p, rnj, c1, s1, rt00, t01, rt11);
 
   // P H^T from P's columns, H P from P's rows
-  for (int i = lane; i < D; i += 32) {
-    const float* Pi = P + i * D;
-    w.pr[i] = Pi[li] - Pi[0];
-    w.pb[i] = Pi[li + 1] - Pi[1];
+  for (int i = lane; i < dact; i += 32) {
+    const float* Pi = P + i * Dp;
+    prb[2 * i] = Pi[li] - Pi[0];
+    prb[2 * i + 1] = Pi[li + 1] - Pi[1];
   }
-  for (int k = lane; k < D; k += 32) {
-    w.hp0[k] = P[li * D + k] - P[k];
-    w.hp1[k] = P[(li + 1) * D + k] - P[D + k];
+  const int kend = (dact + 3) & ~3;
+  for (int k = lane; k < kend; k += 32) {
+    w.hp0[k] = P[li * Dp + k] - P[k];
+    w.hp1[k] = P[(li + 1) * Dp + k] - P[Dp + k];
   }
   __syncwarp();
+  pc.lap(kPhVectors, lane);
 
-  const float* pr = w.pr;
-  const float* pb = w.pb;
-  const float s00 = pr[li] - pr[0] + rt00;
+  const float s00 = prb[2 * li] - prb[0] + rt00;
   // rt01 = t01 * s1 joins each sum as one FMA: pinned, because nvcc chose
   // so with the pose stream compiled out and otherwise with it compiled in
-  const float s01 = les::mad_pinned(t01, s1, pb[li] - pb[0]);
-  const float s10 = les::mad_pinned(t01, s1, pr[li + 1] - pr[1]);
-  const float s11 = pb[li + 1] - pb[1] + rt11;
+  const float s01 = les::mad_pinned(t01, s1, prb[2 * li + 1] - prb[1]);
+  const float s10 = les::mad_pinned(t01, s1, prb[2 * li + 2] - prb[2]);
+  const float s11 = prb[2 * li + 3] - prb[3] + rt11;
   float det = s00 * s11 - s01 * s10;
   det = fabsf(det) > 1e-20f ? det : 1.0f;
   const float i00 = s11 / det, i01 = -s01 / det;
   const float i10 = -s10 / det, i11 = s00 / det;
-  const float nu0 = yw0 - (lmx - xv);
-  const float nu1 = yw1 - (lmy - yv);
-  for (int i = lane; i < D; i += 32) {
-    const float k0 = (pr[i] * i00 + pb[i] * i10) * m_u;
-    const float k1 = (pr[i] * i01 + pb[i] * i11) * m_u;
+  __syncwarp();  // every lane has read prb before the gains replace it
+  for (int i = lane; i < dact; i += 32) {
+    const float pr = prb[2 * i], pb = prb[2 * i + 1];
+    const float k0 = (pr * i00 + pb * i10) * m_u;
+    const float k1 = (pr * i01 + pb * i11) * m_u;
+    prb[2 * i] = k0;
+    prb[2 * i + 1] = k1;
     xi[i] = k0 * nu0 + k1 * nu1;
   }
   __syncwarp();
@@ -343,7 +499,7 @@ __device__ __forceinline__ void iekf_update(const EkfParams& p, const World& w,
   const float dsafe = small ? 1.0f : dth;
   const float va = small ? 1.0f - dth * dth / 6.0f : sd / dsafe;
   const float vb = small ? 0.5f * dth : (1.0f - cd) / dsafe;
-  for (int jj = lane; jj < N; jj += 32) {
+  for (int jj = lane; 3 + 2 * jj < dact; jj += 32) {
     const int a0 = 3 + 2 * jj;
     const float lx = w.x[a0], ly = w.x[a0 + 1];
     const float kx = xi[a0], ky = xi[a0 + 1];
@@ -355,63 +511,61 @@ __device__ __forceinline__ void iekf_update(const EkfParams& p, const World& w,
     w.x[1] = vb * xi[0] + va * xi[1] + sd * xv + cd * yv;
     w.x[2] = les::wrap(thv + dth);
   }
-
-  // P -= K (H P), lane i owns row i
-  for (int i = lane; i < D; i += 32) {
-    const float k0 = (pr[i] * i00 + pb[i] * i10) * m_u;
-    const float k1 = (pr[i] * i01 + pb[i] * i11) * m_u;
-    float* Pi = P + i * D;
-    for (int k = 0; k < D; ++k) Pi[k] = Pi[k] - k0 * w.hp0[k] - k1 * w.hp1[k];
-  }
+  pc.lap(kPhSolve, lane);
+  rank2_downdate(w, Dp, dact, lane);
   __syncwarp();
+  pc.lap(kPhDowndate, lane);
 }
 
 // RI-EKF insertion (fused_rollout.py:477-529): the new rows copy the OLD
 // vehicle-position rows 0 and 1, the corner adds Rtil; rows, columns, then
 // the block. `ins` is warp-uniform.
 __device__ __forceinline__ void iekf_insert(const EkfParams& p, const World& w,
-                                            int D, int li, bool ins, float rnj,
-                                            float bnj, int lane) {
+                                            int Dp, int dact, int li, bool ins,
+                                            float rnj, float bnj, int lane,
+                                            PhaseClock& pc) {
   float* P = w.P;
   const float xv = w.x[0], yv = w.x[1];
   float c1, s1, rt00, t01, rt11;
   iekf_line_of_sight(w.x[2], bnj, c1, s1);
   iekf_rtil(p, rnj, c1, s1, rt00, t01, rt11);
   const float rt01 = t01 * s1;
-  for (int k = lane; k < D; k += 32) {
+  for (int k = lane; k < dact; k += 32) {
     w.hp0[k] = P[k];
-    w.hp1[k] = P[D + k];
+    w.hp1[k] = P[Dp + k];
   }
   const float blk00 = P[0] + rt00;
   const float blk01 = P[1] + rt01;
-  const float blk11 = P[D + 1] + rt11;
+  const float blk11 = P[Dp + 1] + rt11;
   __syncwarp();
-  if (!ins) return;
-  if (lane == 0) {
-    w.x[li] = xv + rnj * c1;
-    w.x[li + 1] = yv + rnj * s1;
+  if (ins) {
+    if (lane == 0) {
+      w.x[li] = xv + rnj * c1;
+      w.x[li + 1] = yv + rnj * s1;
+    }
+    for (int k = lane; k < dact; k += 32) {
+      P[li * Dp + k] = w.hp0[k];
+      P[(li + 1) * Dp + k] = w.hp1[k];
+    }
+    __syncwarp();
+    for (int i = lane; i < dact; i += 32) {
+      P[i * Dp + li] = w.hp0[i];
+      P[i * Dp + li + 1] = w.hp1[i];
+    }
+    __syncwarp();
+    if (lane == 0) {
+      P[li * Dp + li] = blk00;
+      P[li * Dp + li + 1] = blk01;
+      P[(li + 1) * Dp + li] = blk01;
+      P[(li + 1) * Dp + li + 1] = blk11;
+    }
+    __syncwarp();
   }
-  for (int k = lane; k < D; k += 32) {
-    P[li * D + k] = w.hp0[k];
-    P[(li + 1) * D + k] = w.hp1[k];
-  }
-  __syncwarp();
-  for (int i = lane; i < D; i += 32) {
-    P[i * D + li] = w.hp0[i];
-    P[i * D + li + 1] = w.hp1[i];
-  }
-  __syncwarp();
-  if (lane == 0) {
-    P[li * D + li] = blk00;
-    P[li * D + li + 1] = blk01;
-    P[(li + 1) * D + li] = blk01;
-    P[(li + 1) * D + li + 1] = blk11;
-  }
-  __syncwarp();
+  pc.lap(kPhInsert, lane);
 }
 
 template <bool kInvariant, bool kEmitTraj, int kMode>
-__global__ void __launch_bounds__(32 * kWorldsPerBlock)
+__global__ void __launch_bounds__(32 * kWorldsPerBlock, kMinBlocksPerSm)
 fused_ekf_rollout_kernel(const EkfParams p, const float* __restrict__ lms,
                          const float* __restrict__ cmds,
                          const float* __restrict__ noise, uint32_t seed,
@@ -423,34 +577,44 @@ fused_ekf_rollout_kernel(const EkfParams p, const float* __restrict__ lms,
                          uint8_t* __restrict__ seen_out,
                          float* __restrict__ est_traj,
                          float* __restrict__ true_traj) {
-  extern __shared__ float smem[];
+  extern __shared__ float4 smem4[];  // 16-byte aligned: the passes' chunks
   const int lane = threadIdx.x & 31;
   const int wib = threadIdx.x >> 5;
   const int world = blockIdx.x * (blockDim.x >> 5) + wib;
   if (world >= B) return;  // ragged edge: whole warps leave; no block barrier
 
   const int D = 3 + 2 * N;
+  const int Dp = row_stride(D);
   const int R = 2 * N + 8;
   World w;
-  w.P = smem + (size_t)wib * world_floats(N, kEmitTraj);
-  w.x = w.P + D * D;
-  w.xc = w.x + D;
-  w.pr = w.xc + D;
-  w.pb = w.pr + D;
-  w.hp0 = w.pb + D;
-  w.hp1 = w.hp0 + D;
-  w.u = w.hp1 + D;
+  w.P = reinterpret_cast<float*>(smem4) +
+        (size_t)wib * world_floats(N, kEmitTraj);
+  w.x = w.P + D * Dp;
+  w.xc = w.x + Dp;
+  w.hp0 = w.xc + Dp;
+  w.hp1 = w.hp0 + Dp;
+  w.prb = w.hp1 + Dp;
+  w.u = w.prb + 2 * Dp;
   w.lmx = w.u + les::round_up(R, 4);
   w.lmy = w.lmx + N;
   w.vis = w.lmy + N;
   w.rn = w.vis + N;
   w.bn = w.rn + N;
   w.seen = w.bn + N;
-  w.traj = w.P + world_floats(N, false);
+  w.traj = w.P + world_floats(N, false) - kClockFloats;
+  PhaseClock pc;
+#ifdef LES_PHASE_CLOCKS
+  pc.clk = reinterpret_cast<unsigned long long*>(
+      w.P + world_floats(N, kEmitTraj) - kClockFloats);
+  if (lane == 0)
+    for (int k = 0; k < kPhases; ++k) pc.clk[k] = 0;
+  pc.t = clock64();
+#endif
 
-  // ---- init (fused_rollout.py:134-147); P0 diag from ekf.cpp:11-18
-  for (int i = lane; i < D * D; i += 32) w.P[i] = 0.0f;
-  for (int i = lane; i < D; i += 32) w.x[i] = 0.0f;
+  // ---- init (fused_rollout.py:134-147); P0 diag from ekf.cpp:11-18. P's
+  // padding columns stay +0: the chunk passes read and rewrite them
+  for (int i = lane; i < D * Dp; i += 32) w.P[i] = 0.0f;
+  for (int i = lane; i < Dp; i += 32) w.x[i] = 0.0f;
   for (int j = lane; j < N; j += 32) {
     w.seen[j] = 0.0f;
     w.lmx[j] = lms[((size_t)world * N + j) * 2 + 0];
@@ -462,8 +626,8 @@ fused_ekf_rollout_kernel(const EkfParams p, const float* __restrict__ lms,
     w.x[1] = p.y0;
     w.x[2] = p.yaw0;
     w.P[0] = (float)(0.01 * 0.01);
-    w.P[D + 1] = (float)(0.01 * 0.01);
-    w.P[2 * D + 2] = (float)(0.005 * 0.005);
+    w.P[Dp + 1] = (float)(0.01 * 0.01);
+    w.P[2 * Dp + 2] = (float)(0.005 * 0.005);
   }
   // truth pose and error stats: registers, the same value in every lane
   float tx = p.x0, ty = p.y0, tth = p.yaw0;
@@ -506,6 +670,7 @@ fused_ekf_rollout_kernel(const EkfParams p, const float* __restrict__ lms,
       w.rn[j] = r + p.w00s * w.u[2 + j];
       w.bn[j] = beta + p.w11s * w.u[2 + N + j];
     }
+    pc.lap(kPhSim, lane);
 
     // ---- "sim" (:188-194): the error against the unmoved estimate, and the
     // tick ends; the barrier keeps the next tick's noise off this tick's reads
@@ -516,8 +681,24 @@ fused_ekf_rollout_kernel(const EkfParams p, const float* __restrict__ lms,
       esum = esum + e;
       emax = les::max_nan(emax, e);
       __syncwarp();
+      pc.lap(kPhError, lane);
       continue;
     }
+
+    // ---- the block of P this tick touches: ids past the highest one seen
+    // or visible have +0 rows and columns (lane j wrote vis[j] and seen[j])
+    int dact = D;
+    if (predicated) {
+      int hi = -1;
+      for (int j0 = 0; j0 < N; j0 += 32) {
+        const int j = j0 + lane;
+        const unsigned m = __ballot_sync(
+            kFull, j < N && (w.seen[j] > 0.0f || w.vis[j] > 0.0f));
+        if (m) hi = j0 + 31 - __clz(m);
+      }
+      dact = 3 + 2 * (hi + 1);
+    }
+    pc.lap(kPhGate, lane);
 
     // ---- EKF predict (:195-259): rows 0 and 1 from row 2, THEN columns 0
     // and 1 from column 2, which holds the updated rows
@@ -535,18 +716,18 @@ fused_ekf_rollout_kernel(const EkfParams p, const float* __restrict__ lms,
       jac_d = fwd;  // F_x from the raw command (ekf.cpp:47-50)
     }
     if constexpr (kInvariant) {
-      iekf_predict(w, D, jac_d, c, s, var_th, lane);
+      iekf_predict(w, Dp, dact, jac_d, c, s, var_th, lane);
     } else {
       const float u0 = -jac_d * s;
       const float u1 = jac_d * c;
-      for (int k = lane; k < D; k += 32) {
-        const float r2 = w.P[2 * D + k];
+      for (int k = lane; k < dact; k += 32) {
+        const float r2 = w.P[2 * Dp + k];
         w.P[k] = w.P[k] + u0 * r2;
-        w.P[D + k] = w.P[D + k] + u1 * r2;
+        w.P[Dp + k] = w.P[Dp + k] + u1 * r2;
       }
       __syncwarp();
-      for (int i = lane; i < D; i += 32) {
-        float* Pi = w.P + i * D;
+      for (int i = lane; i < dact; i += 32) {
+        float* Pi = w.P + i * Dp;
         const float c2 = Pi[2];
         Pi[0] = Pi[0] + c2 * u0;
         Pi[1] = Pi[1] + c2 * u1;
@@ -556,43 +737,66 @@ fused_ekf_rollout_kernel(const EkfParams p, const float* __restrict__ lms,
     if (lane == 0) {
       w.P[0] = w.P[0] + c * c * var_d;
       w.P[1] = w.P[1] + s * c * var_d;
-      w.P[D] = w.P[D] + s * c * var_d;
-      w.P[D + 1] = w.P[D + 1] + s * s * var_d;
+      w.P[Dp] = w.P[Dp] + s * c * var_d;
+      w.P[Dp + 1] = w.P[Dp + 1] + s * s * var_d;
       // the RI-EKF's g[2] = 1 already carried var_th into P[2][2]
-      if (!kInvariant) w.P[2 * D + 2] = w.P[2 * D + 2] + var_th;
+      if (!kInvariant) w.P[2 * Dp + 2] = w.P[2 * Dp + 2] + var_th;
       w.x[0] = w.x[0] + eff_d * c;
       w.x[1] = w.x[1] + eff_d * s;
       w.x[2] = les::wrap(th + eff_th);
     }
     __syncwarp();
     if (!kInvariant && p.stale) {
-      for (int i = lane; i < D; i += 32) w.xc[i] = w.x[i];
+      for (int i = lane; i < dact; i += 32) w.xc[i] = w.x[i];
       __syncwarp();
     }
+    pc.lap(kPhPredict, lane);
 
-    // ---- per landmark in id order: update, insert, then seen |= vis
-    // (:278-593). The gates use the tick-start seen: seen[j] changes only
-    // at the end of its own iteration. "nolm" runs no iteration (:268).
-    for (int j = 0; j < (kMode == kModeFull ? N : 0); ++j) {
-      const int li = 3 + 2 * j;
-      const float sj = w.seen[j];
-      const float vj = w.vis[j];
-      const float m_u = vj * sj;
-      const float m_i = vj * (1.0f - sj);
-      const float rnj = w.rn[j], bnj = w.bn[j];
-      if constexpr (kInvariant) {
-        if (!predicated || m_u > 0.0f)
-          iekf_update(p, w, D, N, li, m_u, rnj, bnj, lane);
-        if (!predicated || m_i > 0.0f)
-          iekf_insert(p, w, D, li, m_i > 0.0f, rnj, bnj, lane);
-      } else {
-        if (!predicated || m_u > 0.0f) ekf_update(p, w, D, li, m_u, rnj, bnj, lane);
-        if (!predicated || m_i > 0.0f) ekf_insert(p, w, D, li, m_i > 0.0f, rnj, bnj, lane);
+    // ---- per landmark in id order: update, insert (:278-593). The gates
+    // use the tick-start seen, so a ballot a word of 32 ids gives them all;
+    // predicated = 0 visits every id. "nolm" runs no iteration (:268).
+    if constexpr (kMode == kModeFull) {
+      for (int j0 = 0; j0 < N; j0 += 32) {
+        const int jl = j0 + lane;
+        const float sl = jl < N ? w.seen[jl] : 0.0f;
+        const float vl = jl < N ? w.vis[jl] : 0.0f;
+        unsigned um = N - j0 >= 32 ? kFull : (1u << (N - j0)) - 1u;
+        unsigned im = um;
+        if (predicated) {
+          um = __ballot_sync(kFull, vl * sl > 0.0f);
+          im = __ballot_sync(kFull, vl * (1.0f - sl) > 0.0f);
+        }
+        for (unsigned todo = um | im; todo != 0u; todo &= todo - 1u) {
+          const int b = __ffs(todo) - 1;
+          const int j = j0 + b;
+          const int li = 3 + 2 * j;
+          const float sj = w.seen[j];
+          const float vj = w.vis[j];
+          const float m_u = vj * sj;
+          const float m_i = vj * (1.0f - sj);
+          const float rnj = w.rn[j], bnj = w.bn[j];
+          pc.lap(kPhGate, lane);
+          if ((um >> b) & 1u) {
+            if constexpr (kInvariant)
+              iekf_update(p, w, Dp, dact, li, m_u, rnj, bnj, lane, pc);
+            else
+              ekf_update(p, w, Dp, dact, li, m_u, rnj, bnj, lane, pc);
+          }
+          if ((im >> b) & 1u) {
+            if constexpr (kInvariant)
+              iekf_insert(p, w, Dp, dact, li, m_i > 0.0f, rnj, bnj, lane, pc);
+            else
+              ekf_insert(p, w, Dp, dact, li, m_i > 0.0f, rnj, bnj, lane, pc);
+          }
+        }
       }
+      // seen |= vis, once for the tick: the walk has read every seen[j]
       __syncwarp();
-      if (lane == 0) w.seen[j] = les::max_nan(sj, vj);
+      for (int j = lane; j < N; j += 32)
+        w.seen[j] = les::max_nan(w.seen[j], w.vis[j]);
     }
     __syncwarp();
+    pc.lap(kPhGate, lane);
 
     // ---- error metric (:599-603)
     const float ex = w.x[0] - tx;
@@ -620,7 +824,12 @@ fused_ekf_rollout_kernel(const EkfParams p, const float* __restrict__ lms,
       }
     }
     __syncwarp();
+    pc.lap(kPhError, lane);
   }
+#ifdef LES_PHASE_CLOCKS
+  if (lane == 0)
+    for (int k = 0; k < kPhases; ++k) atomicAdd(&g_phase_cycles[k], pc.clk[k]);
+#endif
 
   if (lane == 0) {
     err_sum[world] = esum;
@@ -630,10 +839,23 @@ fused_ekf_rollout_kernel(const EkfParams p, const float* __restrict__ lms,
     true_pose[(size_t)world * 3 + 2] = tth;
   }
   for (int i = lane; i < D; i += 32) x_out[(size_t)world * D + i] = w.x[i];
-  for (int i = lane; i < D * D; i += 32)
-    P_out[(size_t)world * D * D + i] = w.P[i];
+  for (int r = 0; r < D; ++r)
+    for (int k = lane; k < D; k += 32)
+      P_out[((size_t)world * D + r) * D + k] = w.P[r * Dp + k];
   for (int j = lane; j < N; j += 32)
     seen_out[(size_t)world * N + j] = w.seen[j] > 0.5f ? 1 : 0;
+}
+
+// worlds a block and dynamic shared bytes a block of the launch for N, or
+// kErrSmem where a world does not fit
+template <bool kEmitTraj>
+int launch_shape(int N, int& wpb, size_t& smem) {
+  const size_t per_world = (size_t)world_floats(N, kEmitTraj) * sizeof(float);
+  if (per_world > kMaxSmem) return kErrSmem;
+  wpb = kWorldsPerBlock;
+  while (wpb > 1 && wpb * per_world > kMaxSmem) --wpb;
+  smem = wpb * per_world;
+  return 0;
 }
 
 template <bool kInvariant, bool kEmitTraj, int kMode>
@@ -642,12 +864,10 @@ int launch_rollout(const EkfParams* p, const float* lms, const float* cmds,
                    int predicated, float* err_sum, float* err_max,
                    float* true_pose, float* x, float* P, uint8_t* seen,
                    float* est_traj, float* true_traj, void* stream) {
-  const size_t per_world =
-      (size_t)world_floats(N, kEmitTraj) * sizeof(float);
-  if (per_world > kMaxSmem) return kErrSmem;
-  int wpb = kWorldsPerBlock;
-  while (wpb > 1 && wpb * per_world > kMaxSmem) --wpb;
-  const size_t smem = wpb * per_world;
+  int wpb = 0;
+  size_t smem = 0;
+  const int rc = launch_shape<kEmitTraj>(N, wpb, smem);
+  if (rc != 0) return rc;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         fused_ekf_rollout_kernel<kInvariant, kEmitTraj, kMode>,
@@ -695,6 +915,35 @@ int dispatch_rollout(const EkfParams* p, const float* lms, const float* cmds,
   return (int)cudaErrorInvalidValue;
 }
 
+template <bool kInvariant, bool kEmitTraj, int kMode>
+int occupancy_of(int N, int* out) {
+  int wpb = 0;
+  size_t smem = 0;
+  const int rc = launch_shape<kEmitTraj>(N, wpb, smem);
+  if (rc != 0) return rc;
+  out[4] = wpb;
+  out[5] = (int)smem;
+  return les_kernel_occupancy(
+      (const void*)fused_ekf_rollout_kernel<kInvariant, kEmitTraj, kMode>,
+      32 * wpb, (int)smem, out);
+}
+
+template <bool kInvariant>
+int occupancy_mode(int emit_traj, int mode, int N, int* out) {
+  if (emit_traj)
+    return mode == kModeFull ? occupancy_of<kInvariant, true, kModeFull>(N, out)
+                             : (int)cudaErrorInvalidValue;
+  switch (mode) {
+    case kModeFull:
+      return occupancy_of<kInvariant, false, kModeFull>(N, out);
+    case kModeNoLm:
+      return occupancy_of<kInvariant, false, kModeNoLm>(N, out);
+    case kModeSim:
+      return occupancy_of<kInvariant, false, kModeSim>(N, out);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // mode: 0 the full tick, 1 no landmark loop, 2 the simulator only
@@ -716,6 +965,38 @@ extern "C" int les_fused_iekf_rollout(
   return dispatch_rollout<true>(p, lms, cmds, noise, seed, B, T, N, predicated,
                                 mode, err_sum, err_max, true_pose, x, P, seen,
                                 est_traj, true_traj, stream);
+}
+
+// The launch of N landmarks as the card takes it, for the instantiation
+// <invariant, emit_traj, mode>: out = registers a thread, local (spill)
+// bytes a thread, static shared bytes a block, blocks an SM, worlds a block,
+// dynamic shared bytes a block.
+extern "C" int les_ekf_occupancy(int invariant, int emit_traj, int mode, int N,
+                                 int* out) {
+  return invariant ? occupancy_mode<true>(emit_traj, mode, N, out)
+                   : occupancy_mode<false>(emit_traj, mode, N, out);
+}
+
+// Copies the phase counters of the -DLES_PHASE_CLOCKS build into out
+// (n = kPhases entries) and, with reset, zeroes them. Any other build has no
+// counters and returns cudaErrorNotSupported.
+extern "C" int les_ekf_phase_clocks(unsigned long long* out, int n,
+                                    int reset) {
+#ifdef LES_PHASE_CLOCKS
+  if (n != kPhases) return (int)cudaErrorInvalidValue;
+  cudaError_t e =
+      cudaMemcpyFromSymbol(out, g_phase_cycles, sizeof(g_phase_cycles));
+  if (e == cudaSuccess && reset) {
+    const unsigned long long zero[kPhases] = {};
+    e = cudaMemcpyToSymbol(g_phase_cycles, zero, sizeof(zero));
+  }
+  return (int)e;
+#else
+  (void)out;
+  (void)n;
+  (void)reset;
+  return (int)cudaErrorNotSupported;
+#endif
 }
 
 extern "C" const char* les_error_string(int code) {

@@ -29,8 +29,9 @@ NVCC_FLAGS = (
 # contraction off: a build whose kernels round as the plain versions do
 # (LES_NO_FMA: the same for the few products kernel_math.cuh pins by hand)
 NO_FMA = ("-fmad=false", "-DLES_NO_FMA")
-# a measurement build: the UKF kernel counts clock64() cycles by phase of its
-# tick (fused_ukf_rollout.cu, LES_PHASE); the default build compiles that out
+# a measurement build: the rollout kernels count clock64() cycles by phase of
+# their tick (fused_ukf_rollout.cu, fused_ekf_rollout.cu); the default build
+# compiles that out
 PHASE_CLOCKS = ("-DLES_PHASE_CLOCKS",)
 
 _P = ctypes.c_void_p
@@ -82,12 +83,16 @@ SIGNATURES = {
     "les_kernel_occupancy": (_I, [_P, _I, _I, _P]),
     # slam, N -> out[6]: the four above, worlds a block, shared bytes a block
     "les_ukf_occupancy": (_I, [_I, _I, _P]),
+    # invariant, emit_traj, mode, N -> out[6], as les_ukf_occupancy's
+    "les_ekf_occupancy": (_I, [_I, _I, _I, _I, _P]),
     # out (uint64 per phase), n, reset: the PHASE_CLOCKS build's counters
     "les_ukf_phase_clocks": (_I, [_P, _I, _I]),
+    "les_ekf_phase_clocks": (_I, [_P, _I, _I]),
 }
 
-_libs: dict[tuple[str, ...], ctypes.CDLL] = {}
+_libs: dict[tuple[Path, tuple[str, ...]], ctypes.CDLL] = {}
 _extra: tuple[str, ...] = ()  # flags of the build the wrappers launch
+_csrc: Path = CSRC            # sources of the build the wrappers launch
 
 
 def find_nvcc() -> str:
@@ -107,10 +112,10 @@ def find_nvcc() -> str:
     )
 
 
-def library_path(extra: tuple[str, ...] = ()) -> Path:
-    """Content-hashed path of the library for the current sources."""
+def library_path(extra: tuple[str, ...] = (), csrc: Path = CSRC) -> Path:
+    """Content-hashed path of the library for the sources in ``csrc``."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS + extra).encode())
-    for f in sorted(CSRC.glob("*.cu*")):
+    for f in sorted(csrc.glob("*.cu*")):
         h.update(f.name.encode())
         h.update(f.read_bytes())
     return BUILD_DIR / f"libles_kernels_{h.hexdigest()[:16]}.so"
@@ -122,18 +127,18 @@ def _fail(cmd, proc, out):
     )
 
 
-def build(extra: tuple[str, ...] = ()) -> Path:
-    """Compile the kernels, with ``extra`` nvcc flags, unless the library
-    for these sources and flags exists: one nvcc per source, all started
-    together, then one link."""
-    path = library_path(extra)
+def build(extra: tuple[str, ...] = (), csrc: Path = CSRC) -> Path:
+    """Compile the kernels of ``csrc``, with ``extra`` nvcc flags, unless the
+    library for these sources and flags exists: one nvcc per source, all
+    started together, then one link."""
+    path = library_path(extra, csrc)
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
     stem = f"{path.stem}.{os.getpid()}"
     jobs = []
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in sorted(csrc.glob("*.cu")):
         obj = BUILD_DIR / f"{stem}.{src.stem}.tmp.o"
         cmd = [nvcc, *(f for f in NVCC_FLAGS if f != "-shared"), *extra,
                "-c", "-o", str(obj), str(src)]
@@ -160,15 +165,20 @@ def build(extra: tuple[str, ...] = ()) -> Path:
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library, built on first call, with every signature set."""
-    if _extra not in _libs:
-        lib = ctypes.CDLL(str(build(_extra)))
+    """The kernel library, built on first call, with every signature set
+    (another source tree's library, under ``sources``, may lack some
+    entries)."""
+    key = (_csrc, _extra)
+    if key not in _libs:
+        lib = ctypes.CDLL(str(build(_extra, _csrc)))
         for name, (res, args) in SIGNATURES.items():
+            if _csrc != CSRC and not hasattr(lib, name):
+                continue
             fn = getattr(lib, name)
             fn.restype = res
             fn.argtypes = args
-        _libs[_extra] = lib
-    return _libs[_extra]
+        _libs[key] = lib
+    return _libs[key]
 
 
 @contextlib.contextmanager
@@ -181,6 +191,19 @@ def _flags(extra: tuple[str, ...]):
         _extra = saved
 
 
+@contextlib.contextmanager
+def sources(csrc: Path):
+    """Within, the wrappers launch the kernels built from ``csrc``, another
+    tree's sources with the same C interface (an A/B measurement,
+    ``tools/kernel_ab``)."""
+    global _csrc
+    saved, _csrc = _csrc, Path(csrc).resolve()
+    try:
+        yield
+    finally:
+        _csrc = saved
+
+
 def without_fma():
     """Within, the wrappers launch the build with FMA contraction off, whose
     kernels give the plain versions' bits (a check; the default build is
@@ -189,9 +212,42 @@ def without_fma():
 
 
 def phase_clocks():
-    """Within, the wrappers launch the build whose UKF kernel counts its
-    cycles by phase (``fused_ukf.phase_clocks`` reads them)."""
+    """Within, the wrappers launch the build whose rollout kernels count
+    their cycles by phase (``fused_ukf.phase_clocks`` and
+    ``fused_rollout.phase_clocks`` read them)."""
     return _flags(PHASE_CLOCKS)
+
+
+# what the occupancy entry points write: registers a thread, local bytes a
+# thread, static shared bytes a block, blocks an SM, worlds a block,
+# dynamic shared bytes a block
+OCCUPANCY_KEYS = ("registers", "local_bytes", "static_smem_bytes",
+                  "blocks_per_sm", "worlds_per_block", "smem_bytes_per_block")
+
+
+def occupancy(entry: str, *args: int) -> dict:
+    """A rollout kernel's launch as the card takes it, from its occupancy
+    entry point (``les_ekf_occupancy``, ``les_ukf_occupancy``) with
+    ``args``: ``OCCUPANCY_KEYS`` and the worlds resident on one SM at once."""
+    out = (ctypes.c_int * len(OCCUPANCY_KEYS))()
+    check(getattr(load(), entry)(*args, out), entry)
+    occ = dict(zip(OCCUPANCY_KEYS, out))
+    occ["worlds_per_sm"] = occ["blocks_per_sm"] * occ["worlds_per_block"]
+    return occ
+
+
+def phase_cycles(entry: str, phases: tuple[str, ...], launch) -> tuple[dict, object]:
+    """``launch()`` (which waits for its kernel) in the PHASE_CLOCKS build:
+    the cycles of each of ``phases`` that the counters read by ``entry``
+    (``les_ekf_phase_clocks``, ``les_ukf_phase_clocks``) gathered, zeroed
+    before, and what ``launch`` returned."""
+    with phase_clocks():
+        read = getattr(load(), entry)
+        cycles = (ctypes.c_uint64 * len(phases))()
+        check(read(cycles, len(phases), 1), entry)
+        res = launch()
+        check(read(cycles, len(phases), 1), entry)
+    return dict(zip(phases, (int(c) for c in cycles))), res
 
 
 def check(rc: int, what: str) -> None:

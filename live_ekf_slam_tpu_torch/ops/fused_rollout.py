@@ -57,6 +57,9 @@ FILTER_KINDS = ("ekf", "iekf")
 # profile_mode -> the kernel's kMode ("downdate" has no branch of its own in
 # the JAX kernel and runs the full tick)
 PROFILE_MODES = {"full": 0, "downdate": 0, "nolm": 1, "sim": 2}
+# the phases of a tick, in the order of the kernel's Phase enum
+PHASES = ("sim", "predict", "gate_walk", "update_vectors",
+          "solve_and_innovation", "downdate", "insertion", "error_and_stream")
 
 
 def _check_scope(cfg, filter_kind, profile_mode, emit_traj):
@@ -183,6 +186,30 @@ def _launch(cfg, landmarks, cmds, seed, noise, predicated, filter_kind,
     _build.check(rc, f"fused {filter_kind} rollout kernel")
     launches[launch_key(filter_kind, profile_mode, emit_traj)] += 1
     return res
+
+
+def phase_clocks(cfg, landmarks, cmds, seed, *, filter_kind="ekf",
+                 predicated=True) -> tuple[dict, dict]:
+    """One rollout on the card in the build that counts cycles by phase
+    (``_build.PHASE_CLOCKS``): returns the clock64() cycles of each phase of
+    ``PHASES``, lane 0 of every warp summed over warps and ticks, and the
+    rollout's result. A measurement: the clocks slow the kernel a little."""
+    _check_scope(cfg, filter_kind, "full", False)
+
+    def launch():
+        res = _launch(cfg, landmarks, cmds, seed, None, predicated,
+                      filter_kind, "full", False)
+        torch.cuda.synchronize(landmarks.device)
+        return res
+    return _build.phase_cycles("les_ekf_phase_clocks", PHASES, launch)
+
+
+def occupancy(n_lm: int, filter_kind: str = "ekf", profile_mode: str = "full",
+              emit_traj: bool = False) -> dict:
+    """That instantiation's launch for ``n_lm`` landmarks as the card takes
+    it (``_build.occupancy``)."""
+    return _build.occupancy("les_ekf_occupancy", int(filter_kind == "iekf"),
+                            int(emit_traj), PROFILE_MODES[profile_mode], n_lm)
 
 
 def launch_key(filter_kind: str, profile_mode: str = "full",

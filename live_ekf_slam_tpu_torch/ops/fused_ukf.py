@@ -43,8 +43,6 @@ launches = {"slam": 0, "loc": 0}
 PHASES = ("sim", "cholesky", "sigma_and_4x4", "cross_rows", "z_sweep",
           "second_sweep_and_S", "gain_and_matvecs", "joseph", "insertions",
           "error")
-OCCUPANCY_KEYS = ("registers", "local_bytes", "static_smem_bytes",
-                  "blocks_per_sm", "worlds_per_block", "smem_bytes_per_block")
 
 
 def state_dim(n_lm: int, slam: bool) -> int:
@@ -122,27 +120,17 @@ def phase_clocks(cfg, landmarks, cmds, seed, *, slam=True) -> tuple[dict, dict]:
     (``_build.PHASE_CLOCKS``): returns the clock64() cycles of each phase of
     ``PHASES``, lane 0 of every warp summed over warps and ticks, and the
     rollout's result. A measurement: the clocks slow the kernel a little."""
-    with _build.phase_clocks():
-        lib = _build.load()
-        cycles = (ctypes.c_uint64 * len(PHASES))()
-        _build.check(lib.les_ukf_phase_clocks(cycles, len(PHASES), 1),
-                     "les_ukf_phase_clocks")
+    def launch():
         res = _launch(cfg, landmarks, cmds, seed, None, slam, True)
         torch.cuda.synchronize(landmarks.device)
-        _build.check(lib.les_ukf_phase_clocks(cycles, len(PHASES), 1),
-                     "les_ukf_phase_clocks")
-    return dict(zip(PHASES, (int(c) for c in cycles))), res
+        return res
+    return _build.phase_cycles("les_ukf_phase_clocks", PHASES, launch)
 
 
 def occupancy(n_lm: int, slam: bool = True) -> dict:
-    """The kernel's launch for ``n_lm`` landmarks as the card takes it:
-    ``OCCUPANCY_KEYS`` and the worlds resident on one SM at once."""
-    out = (ctypes.c_int * len(OCCUPANCY_KEYS))()
-    _build.check(_build.load().les_ukf_occupancy(int(slam), n_lm, out),
-                 "les_ukf_occupancy")
-    occ = dict(zip(OCCUPANCY_KEYS, out))
-    occ["worlds_per_sm"] = occ["blocks_per_sm"] * occ["worlds_per_block"]
-    return occ
+    """The kernel's launch for ``n_lm`` landmarks as the card takes it
+    (``_build.occupancy``)."""
+    return _build.occupancy("les_ukf_occupancy", int(slam), n_lm)
 
 
 def lane_sum(t: torch.Tensor) -> torch.Tensor:

@@ -324,3 +324,60 @@ def test_ukf_phase_clock_build_counts_every_phase(cuda_device):
     with pytest.raises(RuntimeError, match="CUDA error"):  # the default build has none
         _build.check(_build.load().les_ukf_phase_clocks(
             (ctypes.c_uint64 * len(fu.PHASES))(), len(fu.PHASES), 0), "clocks")
+
+
+@pytest.mark.parametrize("n_lm, relabel", [(1, False), (20, False), (40, False),
+                                           (20, True)],
+                         ids=["N1", "N20", "N40", "N20-relabelled"])
+@pytest.mark.parametrize("filter_kind", ["ekf", "iekf"])
+def test_ekf_without_fma_equals_plain_at_the_walks_edges(filter_kind, n_lm,
+                                                         relabel, cuda_device):
+    # K1 / K2: one landmark; 20 in map order, where unseen ids sit between
+    # seen ones (the seen block's bound, D_act, then covers +0 rows); 40,
+    # two ballot words (D = 83). With contraction off, bit for bit the plain
+    # version's; predicated bit for bit unpredicated in the default build
+    b, t = 64, T
+    cfg = small_cfg(Config, CompatConfig, "default", t, n_lm).replace(
+        filter=filter_kind + "_slam")
+    lms, cmds = mc_inputs(cfg, b, 3, cuda_device, relabel=relabel)
+    noise = torch.as_tensor(np.random.default_rng(n_lm).uniform(
+        -1, 1, (t, 2 * n_lm + 8, b)).astype(np.float32), device=cuda_device)
+    kw = dict(noise=noise, filter_kind=filter_kind)
+    with _build.without_fma():
+        k = fr.fused_ekf_rollout(cfg, lms, cmds, 0, **kw)
+    p = fr.fused_ekf_rollout_reference(cfg, lms, cmds, 0, **kw)
+    for key in k:
+        assert torch.equal(k[key], p[key]), key
+    a = fr.fused_ekf_rollout(cfg, lms, cmds, 0, **kw)
+    u = fr.fused_ekf_rollout(cfg, lms, cmds, 0, predicated=False, **kw)
+    for key in a:
+        assert torch.equal(a[key], u[key]), key
+    assert int(k["seen"].sum(dim=1).max()) >= min(n_lm, 2)
+
+
+def test_ekf_kernels_keep_16_worlds_resident_per_sm(cuda_device):
+    # K1 and K2 at N = 20: 9.1 KB of shared memory a world would let 24
+    # share an SM, the registers (at most 128 a thread) let 16, without
+    # spilling (ptxas's spill bytes). A budget of 80 registers for 24 worlds
+    # spilled and ran slower
+    report = chip_smoke.ptxas_report("fused_ekf_rollout.cu")
+    for name in ("fused_ekf_rollout", "fused_iekf_rollout"):
+        kind, mode, traj, targs = chip_smoke.EKF_INSTANCES[name]
+        occ = fr.occupancy(N, kind, mode, traj)
+        assert occ["worlds_per_sm"] >= chip_smoke.EKF_RESIDENT, (name, occ)
+        assert occ["registers"] <= 128, (name, occ)
+        stem = "fused_ekf_rollout_kernel" + chip_smoke.mangled_args(targs)
+        r = next(v for k, v in report.items() if stem in k)
+        assert r["spill_store_bytes"] == 0 and r["spill_load_bytes"] == 0, (name, r)
+
+
+@pytest.mark.parametrize("filter_kind", ["ekf", "iekf"])
+def test_ekf_phase_clock_build_counts_every_phase(filter_kind, cuda_device):
+    cfg, lms, cmds, _ = _inputs("default", cuda_device, filt=filter_kind + "_slam")
+    cycles, res = fr.phase_clocks(cfg, lms, cmds, 5, filter_kind=filter_kind)
+    assert set(cycles) == set(fr.PHASES)
+    assert all(v > 0 for v in cycles.values()), cycles
+    assert bool(torch.isfinite(res["err_sum"]).all())
+    with pytest.raises(RuntimeError, match="CUDA error"):  # the default build has none
+        _build.check(_build.load().les_ekf_phase_clocks(
+            (ctypes.c_uint64 * len(fr.PHASES))(), len(fr.PHASES), 0), "clocks")
