@@ -8,7 +8,9 @@ UKF-Loc) against its plain torch version: on three configs with injected
 noise, predicated against unpredicated, in-kernel Philox against the
 replayed stream, and a build with FMA contraction off against the plain
 version bit for bit; the same for the EKF kernels' pose stream and for the
-block-Thomas factor and solve kernels on the blocks of real graphs. Those
+block-Thomas factor and solve kernels on the blocks of real graphs (the
+solve, a segment scan, also within tolerance of the sequential loop it
+replaced). Those
 checks feed nothing later and wait mostly for the host, so they run in five
 processes side by side (``python3 chip_smoke.py --side-checks NAME ...`` is
 one of them). Then it drives the main paths, alone on the card.
@@ -18,19 +20,22 @@ kernel, timed, the kernel compared with the plain version on the first 256
 worlds of that run. ``run_monte_carlo_pg_streams``, the pose-graph study, at
 1024 worlds with the EKF-SLAM secondary (twice: the results must repeat),
 and at 256 worlds with the naive and RI-EKF secondaries and in iterative
-mode, with the launch counts each run implies. Last the kernel-attribution
-path at the bench's size: the EKF and RI-EKF rollouts in their ``sim``,
-``nolm`` and ``full`` profile modes (the split of a rollout into simulator,
+mode, with the launch counts each run implies, and the block-Thomas
+kernels on that study's first chain system: each as a wrapper call (the
+record's ``ms``) and alone (launches back to back, ``kernel_ms``), and the
+solve's cycles by phase. Last the
+kernel-attribution path at the bench's size: the EKF and RI-EKF rollouts
+in their ``sim``, ``nolm`` and ``full`` profile modes (the split of a rollout into simulator,
 predict and landmark loop), the three microbenchmark tools, which time each
 primitive of a tick alone (every kernel and variant of ``ops/micro_ops``
 held against its plain version), and the sum of the passes a tick executes
 against the EKF and UKF-SLAM kernels' measured times. Beside these, right
 after the build, every rollout kernel's occupancy (registers, spills,
 shared memory, resident worlds an SM; K1, K2 and K4 SLAM must keep 16
-without spilling), and after the main paths the UKF, EKF and RI-EKF
-kernels' cycles by phase of the tick (``ukf_phase_clocks``,
-``ekf_phase_clocks``), from a third build compiled with -DLES_PHASE_CLOCKS. Every phase
-prints one JSON line; any failure raises and the exit code is nonzero. The last three
+without spilling) and the block-Thomas solve's (no spills), and after
+the main paths the UKF, EKF and RI-EKF kernels' cycles by phase of the
+tick (``ukf_phase_clocks``, ``ekf_phase_clocks``), from a third build
+compiled with -DLES_PHASE_CLOCKS. Every phase prints one JSON line; any failure raises and the exit code is nonzero. The last three
 lines are the kernels' record, the card's name and power limit as
 nvidia-smi reports them, and ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or without the rest of the repository beside it, it fails
@@ -51,7 +56,9 @@ import torch
 
 from live_ekf_slam_tpu_torch.bench import (
     card,
+    chain_blocks,
     pg_config,
+    pg_graphs,
     pg_summary,
     time_rollouts,
 )
@@ -70,9 +77,9 @@ from live_ekf_slam_tpu_torch.ops import fused_ukf as fu
 from live_ekf_slam_tpu_torch.ops import micro_ops as mo
 from live_ekf_slam_tpu_torch.ops.kernel_math import atan2, wrap
 from live_ekf_slam_tpu_torch.ops.precision import pin_fp32
-from live_ekf_slam_tpu_torch.sim.streams import sim_streams
 from live_ekf_slam_tpu_torch.tools import micro_downdate, micro_ukf, micro_ukf_probe
 from live_ekf_slam_tpu_torch.tools._common import DIM as MICRO_DIM
+from live_ekf_slam_tpu_torch.tools.kernel_ab import factor_kernel_ms, solve_kernel_ms
 
 # Kernel vs plain version (injected noise), as |kernel - plain| <= atol +
 # rtol * scale, where scale is the plain value for the per-world scalars and,
@@ -532,36 +539,11 @@ def pose_stream_main_check(kind: str, dev, n_lm: int):
          true_traj=errs["true_pose"], no_fma_bitwise_equal=same)
 
 
-def pg_graphs(cfg, batch: int, dev, seed: int = 0):
-    """The graphs of the pose-graph path's first world chunk, rebuilt from
-    the pieces ``run_monte_carlo_pg_streams`` composes, with the inputs they
-    came from: (graphs, lms, cmds, noise, kernel result or None)."""
-    lms, cmds = mc_inputs(cfg, batch, seed, dev)
-    n_lm = lms.shape[1]
-    noise = philox.philox_noise(seed, cfg.num_iterations, n_lm, batch, dev)
-    st = sim_streams(cfg, lms, n_lm, cmds, noise)
-    out = fr.fused_ekf_rollout(cfg, lms, cmds, seed, noise=noise, emit_traj=True)
-    graphs = pg.assemble_streams(cfg, out["est_traj"], st["r"], st["b"],
-                                 st["vis"], cmds)
-    return graphs, lms, cmds, noise, out
-
-
-def chain_blocks(cfg, s, meas_scale: float):
-    """The block-tridiagonal system solve_schur_pcg factors first on these
-    graphs (at the seeds, damping 1e-4), and its first right-hand side."""
-    slots = pg.LmSlots(s)
-    jac = pg._jacobians(cfg, s, s.poses_init, s.lms_init, meas_scale, slots)
-    coeffs, r_meas = pg._meas_coeffs(cfg, s, s.poses_init, s.lms_init,
-                                     meas_scale, slots)
-    d, u, _ = pg._pose_blocks(cfg, s, jac, coeffs, 1e-4)
-    rhs, _ = pg._grad(cfg, s, jac, coeffs, r_meas, slots)
-    return d, u, rhs
-
-
 def block_thomas_compare(d, u, rhs, what: str) -> dict:
-    """P1 against its plain loops on one system: the default build within
-    P1_RTOL of each output's scale, the -fmad=false build bit for bit.
-    Returns the errors and the plain loops' milliseconds."""
+    """P1 against its plain versions on one system: the default build within
+    P1_RTOL of each output's scale, and the solve's also of the sequential
+    loop it replaced; the -fmad=false build bit for bit. Returns the errors
+    and the plain versions' milliseconds."""
     before = dict(pg.launches)
     fac = pg._tridiag_factor(d, u)
     x = pg._tridiag_solve(fac, rhs)
@@ -575,13 +557,19 @@ def block_thomas_compare(d, u, rhs, what: str) -> dict:
     px = pg._tridiag_solve_reference(pfac, rhs)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
+    sx = pg._tridiag_solve_sequential(pfac, rhs)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
     with _build.without_fma():
         nfac = pg._tridiag_factor(d, u)
         nx = pg._tridiag_solve(nfac, rhs)
     same = bitwise({**nfac, "x": nx}, {**pfac, "x": px}, f"{what} -fmad=false")
     out = {"no_fma_bitwise_equal": same, "factor_plain_ms": 1e3 * (t1 - t0),
-           "solve_plain_ms": 1e3 * (t2 - t1)}
-    for name, a, b in [(k_, fac[k_], pfac[k_]) for k_ in fac] + [("x", x, px)]:
+           "solve_plain_ms": 1e3 * (t2 - t1),
+           "solve_sequential_plain_ms": 1e3 * (t3 - t2),
+           "segments": pg.SOLVE_SEGMENTS}
+    pairs = [(k_, fac[k_], pfac[k_]) for k_ in fac]
+    for name, a, b in pairs + [("x", x, px), ("x_vs_sequential", x, sx)]:
         err, top = float((a - b).abs().max()), float(b.abs().max())
         out[name] = {"max_abs_err": err, "scale": top, "rel_to_scale": err / top}
         if not err <= P1_RTOL * top:
@@ -590,9 +578,10 @@ def block_thomas_compare(d, u, rhs, what: str) -> dict:
 
 
 def block_thomas_checks(dev):
-    """P1 on the blocks of real graphs: a few worlds at T = 200 and
-    T = 1000, at the first and the last measurement scale of the schedule."""
-    for steps in (SMALL["steps"], PG_MAIN["steps"]):
+    """P1 on the blocks of real graphs: a few worlds at T = 37 (a ragged
+    last segment), 200 and 1000, at the first and the last measurement
+    scale of the schedule."""
+    for steps in (37, SMALL["steps"], PG_MAIN["steps"]):
         cfg = pg_config(steps, "ekf_slam", False)
         graphs = pg_graphs(cfg, P1_WORLDS, dev, seed=1)[0]
         for sc in (16.0, 1.0):
@@ -699,25 +688,40 @@ def pose_graph_paths(dev, n_lm: int) -> tuple[list, int]:
     d, u, rhs = chain_blocks(cfg, pg_graphs(cfg, PG_MAIN["batch"], dev)[0], 1.0)
     res = block_thomas_compare(d, u, rhs, "block-Thomas main shape")
     fac = pg._tridiag_factor(d, u)
+    # one wrapper call each (``ms``, as every kernel's), and the kernels
+    # alone: launches back to back, without the wrapper's host time
     ms_f = timed_ms(lambda: pg._tridiag_factor(d, u))
     ms_s = timed_ms(lambda: pg._tridiag_solve(fac, rhs))
-    emit("block_thomas_main_shape", **PG_MAIN, factor_ms=ms_f, solve_ms=ms_s, **res)
+    alone_f, alone_s = factor_kernel_ms(d, u), solve_kernel_ms(fac, rhs)
+    cycles, _ = pg.solve_phase_clocks(fac, rhs)
+    emit("block_thomas_main_shape", **PG_MAIN, factor_ms=ms_f, solve_ms=ms_s,
+         factor_kernel_ms=alone_f, solve_kernel_ms=alone_s, **res)
+    emit("block_thomas_phase_clocks", **PG_MAIN, segments=pg.SOLVE_SEGMENTS,
+         cycles=cycles, shares={k_: v / sum(cycles.values()) for k_, v in cycles.items()})
     b, t1 = d.shape[:2]
     steps = t1 - 1
     # factor: an adjugate inverse (~41 flop) and two 3x3 products (45 each)
     # and a subtraction (9) a step, the scaling (36); solve: three 3x3
-    # matvecs (15 each) and two subtractions a step, the two scalings. The
-    # longest dependent chain of a step: factor ~20 operations (cofactor,
-    # determinant, division, the two products' 3-term sums), solve ~11.
+    # matvecs (15 each) and two subtractions a step, the two scalings (the
+    # work of the function: the segment scan's composed maps are the
+    # kernel's own, beyond it). The factor's longest dependent chain of a
+    # step: ~20 operations (cofactor, determinant, division, the two
+    # products' 3-term sums), T of them in a row.
     work_p1 = {
         "block_thomas_factor": (
             b * steps * 176.0, 4.0 * (d.numel() * 2 + u.numel() * 3 + b * t1 * 3),
-            ms_f, res["factor_plain_ms"], ("sinv", "l", "u", "dsc"), 20),
+            ms_f, res["factor_plain_ms"], ("sinv", "l", "u", "dsc"),
+            {"latency_floor_ms": 1e3 * steps * 20 * DEP_OP_S, "kernel_ms": alone_f}),
         "block_thomas_solve": (
             b * t1 * 57.0, 4.0 * (d.numel() + u.numel() * 2 + b * t1 * 9),
-            ms_s, res["solve_plain_ms"], ("x",), 11),
+            ms_s, res["solve_plain_ms"], ("x",),
+            {"segments": res["segments"],
+             "steps_per_segment": -(-steps // res["segments"]),
+             "max_rel_to_scale_vs_sequential": res["x_vs_sequential"]["rel_to_scale"],
+             "sequential_plain_ms": res["solve_sequential_plain_ms"],
+             "kernel_ms": alone_s}),
     }
-    for name, (flops, nbytes, ms, p_ms, outs, dep_ops) in work_p1.items():
+    for name, (flops, nbytes, ms, p_ms, outs, extra) in work_p1.items():
         t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
         record.append({
             "name": name, "route": "cuda", "source": PG_KERNELS[name][2],
@@ -728,8 +732,7 @@ def pose_graph_paths(dev, n_lm: int) -> tuple[list, int]:
             "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": None, "flops": flops, "bytes": nbytes,
-            "latency_floor_ms": 1e3 * steps * dep_ops * DEP_OP_S,
-            "batch": b, "steps": steps,
+            "batch": b, "steps": steps, **extra,
         })
     return record, launches["philox_noise"]
 
@@ -1146,14 +1149,22 @@ def mangled_args(args: str) -> str:
     return "I" + "".join(parts.get(a, f"Li{a}E") for a in args.split(", ")) + "E"
 
 
+def solve_ptxas(ptxas: dict) -> dict:
+    """ptxas's report of the block-Thomas solve that the port launches at
+    the study's T (template <segments, round, y in shared memory>)."""
+    stem = f"block_thomas_solve_kernelILi{pg.SOLVE_SEGMENTS}ELi"
+    return next(v for k_, v in ptxas.items() if stem in k_ and "ELb1EE" in k_)
+
+
 def phase_occupancy(n_lm: int, ptxas: dict) -> list:
     """Every rollout kernel's launch at N = n_lm as the card takes it:
     registers and local bytes a thread, shared bytes a block, worlds a
     block, and resident blocks and worlds an SM
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor); beside them the stack
-    and spill bytes ptxas reports (``ptxas``: ptxas_report of both rollout
-    sources). K1 and K2 must keep EKF_RESIDENT worlds on an SM, K4 SLAM
-    UKF_SLAM_RESIDENT, without spilling."""
+    and spill bytes ptxas reports (``ptxas``: ptxas_report of the rollout
+    sources and block_thomas.cu). K1 and K2 must keep EKF_RESIDENT worlds on
+    an SM, K4 SLAM UKF_SLAM_RESIDENT, without spilling; beside them P1's
+    solve, which must not spill either."""
     rows, args = [], {}
     for name, (kind, mode, traj, targs) in EKF_INSTANCES.items():
         rows.append({"kernel": name, **fr.occupancy(n_lm, kind, mode, traj)})
@@ -1167,8 +1178,14 @@ def phase_occupancy(n_lm: int, ptxas: dict) -> list:
         stem = f"fused_{kind}_rollout_kernel" + mangled_args(args[r["kernel"]])
         r.update(next(v for k_, v in ptxas.items() if stem in k_))
         emit("occupancy", n_lm=n_lm, **r)
+    # P1's solve at the pose-graph study's T, y in shared memory
+    r = {"kernel": "block_thomas_solve", "steps": PG_MAIN["steps"],
+         "segments": pg.SOLVE_SEGMENTS, **pg.solve_occupancy(PG_MAIN["steps"]),
+         **solve_ptxas(ptxas)}
+    emit("occupancy", **r)
+    rows.append(r)
     need = {"fused_ekf_rollout": EKF_RESIDENT, "fused_iekf_rollout": EKF_RESIDENT,
-            "fused_ukf_rollout[slam]": UKF_SLAM_RESIDENT}
+            "fused_ukf_rollout[slam]": UKF_SLAM_RESIDENT, "block_thomas_solve": 1}
     for r in rows:
         if r["kernel"] in need and (r["worlds_per_sm"] < need[r["kernel"]]
                                     or r["spill_store_bytes"] or r["spill_load_bytes"]):
@@ -1364,7 +1381,8 @@ def main():
     with ThreadPoolExecutor(5) as pool:
         libs = list(pool.map(_build.build, [(), _build.NO_FMA, _build.PHASE_CLOCKS]))
         ptxas = {}
-        for rep in pool.map(ptxas_report, ["fused_ekf_rollout.cu", "fused_ukf_rollout.cu"]):
+        for rep in pool.map(ptxas_report, ["fused_ekf_rollout.cu", "fused_ukf_rollout.cu",
+                                           "block_thomas.cu"]):
             ptxas.update(rep)
     _build.load()
     emit("build", seconds=time.perf_counter() - t0,

@@ -46,8 +46,11 @@ from live_ekf_slam_tpu_torch.eval.runner import (
     mc_inputs,
     run_monte_carlo_pg_streams,
 )
-from live_ekf_slam_tpu_torch.ops import _build
+from live_ekf_slam_tpu_torch.models import posegraph as pg
+from live_ekf_slam_tpu_torch.ops import _build, philox
+from live_ekf_slam_tpu_torch.ops import fused_rollout as fr
 from live_ekf_slam_tpu_torch.ops.precision import pin_fp32
+from live_ekf_slam_tpu_torch.sim.streams import sim_streams
 
 WARMUP_TICKS = 10
 PG_WORLDS = 1024
@@ -125,6 +128,33 @@ def pg_summary(res: dict, info: dict, steps: int, secondary: str) -> dict:
         "mean_err_pose_graph_result": float(np.mean(res["err_pose_graph_result"])),
         "diverged": int(res["diverged_pose_graph"].sum()),
     }
+
+
+def pg_graphs(cfg, batch: int, dev, seed: int = 0):
+    """The graphs of the pose-graph path's first world chunk, rebuilt from
+    the pieces ``run_monte_carlo_pg_streams`` composes, with the inputs they
+    came from: (graphs, lms, cmds, noise, the EKF rollout's result)."""
+    lms, cmds = mc_inputs(cfg, batch, seed, dev)
+    n_lm = lms.shape[1]
+    noise = philox.philox_noise(seed, cfg.num_iterations, n_lm, batch, dev)
+    st = sim_streams(cfg, lms, n_lm, cmds, noise)
+    out = fr.fused_ekf_rollout(cfg, lms, cmds, seed, noise=noise, emit_traj=True)
+    graphs = pg.assemble_streams(cfg, out["est_traj"], st["r"], st["b"],
+                                 st["vis"], cmds)
+    return graphs, lms, cmds, noise, out
+
+
+def chain_blocks(cfg, s, meas_scale: float):
+    """The block-tridiagonal system solve_schur_pcg factors first on the
+    graphs ``s`` (at the seeds, damping 1e-4), and its first right-hand
+    side: (d, u, rhs)."""
+    slots = pg.LmSlots(s)
+    jac = pg._jacobians(cfg, s, s.poses_init, s.lms_init, meas_scale, slots)
+    coeffs, r_meas = pg._meas_coeffs(cfg, s, s.poses_init, s.lms_init,
+                                     meas_scale, slots)
+    d, u, _ = pg._pose_blocks(cfg, s, jac, coeffs, 1e-4)
+    rhs, _ = pg._grad(cfg, s, jac, coeffs, r_meas, slots)
+    return d, u, rhs
 
 
 def bench_pose_graph(args) -> dict:

@@ -17,9 +17,11 @@ Solvers here:
   chain's factorisation and solves are the sequential recursions the JAX
   package runs as ``lax.scan``; on a CUDA tensor ``_tridiag_factor`` and
   ``_tridiag_solve`` launch the hand-written kernels of
-  ``csrc/block_thomas.cu``, on a CPU tensor the plain loops
+  ``csrc/block_thomas.cu``, on a CPU tensor their plain versions
   ``_tridiag_factor_reference`` / ``_tridiag_solve_reference``. There is no
-  fallback from one to the other.
+  fallback from one to the other. The solve splits each chain into segments
+  joined by a scan (``_tridiag_solve_sequential`` is the plain loop it
+  replaced, kept as a yardstick).
 * ``solve_pcg_gn``: matrix-free Jacobi-PCG, used per tick by
   ``replay_iterative`` (solve_graph_every_iteration mode, warm starts only).
 
@@ -47,6 +49,9 @@ from live_ekf_slam_tpu_torch.utils.geometry import wrap_angle
 
 # launches of the block-Thomas kernels (not of the plain loops)
 launches = {"factor": 0, "solve": 0}
+# threads of the solve kernel a world (csrc/block_thomas.cu, kSegments), so
+# segments of the chain its plain version splits
+SOLVE_SEGMENTS = 128
 
 
 def assemble_streams(cfg, est_poses, r, b, vis, cmds) -> PoseGraphState:
@@ -577,14 +582,15 @@ def _pose_blocks(cfg, s: PoseGraphState, jac, coeffs, damping):
 
 
 def _mm3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(B, 3, 3) a b, summed in index order k = 0, 1, 2 (the kernel's)."""
-    return (a[:, :, 0:1] * b[:, 0:1, :] + a[:, :, 1:2] * b[:, 1:2, :]
-            + a[:, :, 2:3] * b[:, 2:3, :])
+    """(..., 3, 3) a b, summed in index order k = 0, 1, 2 (the kernels')."""
+    return (a[..., :, 0:1] * b[..., 0:1, :] + a[..., :, 1:2] * b[..., 1:2, :]
+            + a[..., :, 2:3] * b[..., 2:3, :])
 
 
 def _mv3(a: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """(B, 3, 3) a times (B, 3) v, summed in index order."""
-    return a[:, :, 0] * v[:, 0:1] + a[:, :, 1] * v[:, 1:2] + a[:, :, 2] * v[:, 2:3]
+    """(..., 3, 3) a times (..., 3) v, summed in index order."""
+    return (a[..., :, 0] * v[..., 0:1] + a[..., :, 1] * v[..., 1:2]
+            + a[..., :, 2] * v[..., 2:3])
 
 
 def _check_blocks(name, t, shape, dev):
@@ -629,8 +635,9 @@ def _tridiag_factor(d: torch.Tensor, u: torch.Tensor) -> dict:
 
 def _tridiag_solve(fac: dict, rhs: torch.Tensor) -> torch.Tensor:
     """Solve the factored systems for rhs (B, T+1, 3): forward, then back
-    substitution. On CUDA tensors one launch of ``csrc/block_thomas.cu``; on
-    the CPU the plain loop."""
+    substitution, each chain split into SOLVE_SEGMENTS segments joined by a
+    scan. On CUDA tensors one launch of ``csrc/block_thomas.cu``; on the CPU
+    its plain version, the same algorithm."""
     dev = rhs.device
     if dev.type == "cpu":
         return _tridiag_solve_reference(fac, rhs)
@@ -657,6 +664,29 @@ def _tridiag_solve(fac: dict, rhs: torch.Tensor) -> torch.Tensor:
     return x
 
 
+# the solve kernel's phases, as its -DLES_PHASE_CLOCKS build counts them
+SOLVE_PHASES = ("stage_fwd", "compose_fwd", "scan_fwd", "replay_fwd",
+                "stage_back", "compose_back", "scan_back", "replay_back",
+                "store")
+
+
+def solve_phase_clocks(fac: dict, rhs: torch.Tensor) -> tuple[dict, torch.Tensor]:
+    """One solve on the card in the build that counts cycles by phase
+    (``_build.PHASE_CLOCKS``): the clock64() cycles of each phase of
+    ``SOLVE_PHASES``, thread 0 of every world summed, and x."""
+    def launch():
+        x = _tridiag_solve(fac, rhs)
+        torch.cuda.synchronize(rhs.device)
+        return x
+    return _build.phase_cycles("les_block_thomas_phase_clocks", SOLVE_PHASES, launch)
+
+
+def solve_occupancy(steps: int) -> dict:
+    """The solve kernel's launch at ``steps`` as the card takes it
+    (``_build.occupancy``)."""
+    return _build.occupancy("les_block_thomas_occupancy", steps)
+
+
 def _tridiag_factor_reference(d: torch.Tensor, u: torch.Tensor) -> dict:
     """The plain version of the factor kernel: a loop over t on (B, 3, 3)
     tensors, in the kernel's order of operations."""
@@ -675,8 +705,9 @@ def _tridiag_factor_reference(d: torch.Tensor, u: torch.Tensor) -> dict:
     return {"sinv": sinv, "l": l_all, "u": u_s, "dsc": dsc}
 
 
-def _tridiag_solve_reference(fac: dict, rhs: torch.Tensor) -> torch.Tensor:
-    """The plain version of the solve kernel, in its order of operations."""
+def _tridiag_solve_sequential(fac: dict, rhs: torch.Tensor) -> torch.Tensor:
+    """The solve as one sequential loop over t a pass (the JAX package's
+    ``lax.scan``s): the yardstick of the segment scan's accuracy."""
     g_s = rhs * fac["dsc"]
     t_cap = fac["l"].shape[1]
     y = torch.empty_like(g_s)
@@ -689,6 +720,93 @@ def _tridiag_solve_reference(fac: dict, rhs: torch.Tensor) -> torch.Tensor:
         x[:, t] = _mv3(fac["sinv"][:, t],
                        y[:, t] - _mv3(fac["u"][:, t], x[:, t + 1]))
     return x * fac["dsc"]
+
+
+def _warp_scan(a: torch.Tensor, b: torch.Tensor, up: bool):
+    """Inclusive Kogge-Stone scan of the segments' affine maps v -> a v + b,
+    a (B, S, 3, 3) and b (B, S, 3), over each warp of 32 segments as the
+    solve kernel's shuffles compose them: at distance d = 1, 2, .., 16 lane
+    i becomes map_i o map_{i-d} (``up``) or map_i o map_{i+d}, where that
+    lane exists. Returns them as (B, W, 32, 3, 3) and (B, W, 32, 3), W warps."""
+    a = a.reshape(a.shape[0], -1, 32, 3, 3)
+    b = b.reshape(b.shape[0], -1, 32, 3)
+    lane = torch.arange(32, device=b.device)
+    d = 1
+    while d < 32:
+        shift, take = (d, lane >= d) if up else (-d, lane + d < 32)
+        ao, bo = torch.roll(a, shift, dims=2), torch.roll(b, shift, dims=2)
+        a, b = (torch.where(take[:, None, None], _mm3(a, ao), a),
+                torch.where(take[:, None], _mv3(a, bo) + b, b))
+        d *= 2
+    return a, b
+
+
+def _tridiag_solve_reference(fac: dict, rhs: torch.Tensor,
+                             segments: int = SOLVE_SEGMENTS) -> torch.Tensor:
+    """The plain version of the solve kernel, in its order of operations:
+    the T steps of each pass in ``segments`` segments of L = ceil(T /
+    segments) consecutive steps (a dimension here, a thread there; past the
+    end, empty). A pass composes each segment's map from the identity, step
+    by step in its direction; scans the maps over each warp of 32 segments;
+    carries the pass's first value through the warps' maps in order; gives
+    each segment its first value; replays its steps from it. Forward y_{k+1}
+    = g_{k+1} - l_k y_k from y_0 = g_0; back x_k = sinv_k (y_k - us_k
+    x_{k+1}) from x_T = sinv_T y_T, y_T being the last segment's replay."""
+    if segments <= 0 or segments % 32:
+        raise ValueError(f"segments must be a positive multiple of 32, got {segments}")
+    g = rhs * fac["dsc"]
+    bsz, t_cap, dev = g.shape[0], fac["l"].shape[1], g.device
+    n_w, seg = segments // 32, -(-t_cap // segments)
+    k = (torch.arange(segments, device=dev)[:, None] * seg
+         + torch.arange(seg, device=dev))                  # (S, L) step index
+    live = (k < t_cap)[:, :, None]                         # (S, L, 1)
+    kc = k.clamp(max=max(t_cap - 1, 0))
+    l_k, si_k, us_k = fac["l"][:, kc], fac["sinv"][:, kc], fac["u"][:, kc]
+    g_k1 = g[:, kc + 1]                                    # (B, S, L, 3)
+    eye = torch.eye(3, dtype=g.dtype, device=dev).expand(bsz, segments, 3, 3)
+    zero = g.new_zeros(bsz, segments, 3)
+
+    # ---- forward
+    a, b = eye, zero
+    for j in range(seg):
+        on = live[:, j]
+        a = torch.where(on[..., None], -_mm3(l_k[:, :, j], a), a)
+        b = torch.where(on, g_k1[:, :, j] - _mv3(l_k[:, :, j], b), b)
+    a, b = _warp_scan(a, b, True)
+    w = [g[:, 0]]                       # the value each warp starts from
+    for i in range(1, n_w):
+        w.append(_mv3(a[:, i - 1, 31], w[-1]) + b[:, i - 1, 31])
+    w = torch.stack(w, 1)[:, :, None]   # (B, W, 1, 3)
+    end = _mv3(a, w) + b
+    v = torch.cat([w, end[:, :, :-1]], 2).reshape(bsz, segments, 3)
+    ys = []
+    for j in range(seg):
+        ys.append(v)
+        v = torch.where(live[:, j], g_k1[:, :, j] - _mv3(l_k[:, :, j], v), v)
+    y_t = v[:, (t_cap - 1) // seg] if t_cap else g[:, 0]
+
+    # ---- back
+    x_t = _mv3(fac["sinv"][:, t_cap], y_t)
+    a, b = eye, zero
+    for j in reversed(range(seg)):
+        on = live[:, j]
+        b_new = _mv3(si_k[:, :, j], ys[j] - _mv3(us_k[:, :, j], b))
+        a = torch.where(on[..., None], -_mm3(si_k[:, :, j], _mm3(us_k[:, :, j], a)), a)
+        b = torch.where(on, b_new, b)
+    a, b = _warp_scan(a, b, False)
+    w = [x_t]                           # the value each warp ends on
+    for i in range(n_w - 2, -1, -1):
+        w.insert(0, _mv3(a[:, i + 1, 0], w[0]) + b[:, i + 1, 0])
+    w = torch.stack(w, 1)[:, :, None]
+    end = _mv3(a, w) + b
+    v = torch.cat([end[:, :, 1:], w], 2).reshape(bsz, segments, 3)
+    xs = [None] * seg
+    for j in reversed(range(seg)):
+        v = torch.where(live[:, j], _mv3(si_k[:, :, j], ys[j] - _mv3(us_k[:, :, j], v)), v)
+        xs[j] = v
+    x = (torch.stack(xs, 2).reshape(bsz, segments * seg, 3)[:, :t_cap] if seg
+         else g.new_empty(bsz, 0, 3))
+    return torch.cat([x, x_t[:, None]], 1) * fac["dsc"]
 
 
 def _lm_hessian_inv(cfg, s: PoseGraphState, jac, coeffs, damping, slots=None):

@@ -85,9 +85,12 @@ SIGNATURES = {
     "les_ukf_occupancy": (_I, [_I, _I, _P]),
     # invariant, emit_traj, mode, N -> out[6], as les_ukf_occupancy's
     "les_ekf_occupancy": (_I, [_I, _I, _I, _I, _P]),
+    # T -> out[6]: the block-Thomas solve's launch at T steps
+    "les_block_thomas_occupancy": (_I, [_I, _P]),
     # out (uint64 per phase), n, reset: the PHASE_CLOCKS build's counters
     "les_ukf_phase_clocks": (_I, [_P, _I, _I]),
     "les_ekf_phase_clocks": (_I, [_P, _I, _I]),
+    "les_block_thomas_phase_clocks": (_I, [_P, _I, _I]),
 }
 
 _libs: dict[tuple[Path, tuple[str, ...]], ctypes.CDLL] = {}
@@ -212,9 +215,9 @@ def without_fma():
 
 
 def phase_clocks():
-    """Within, the wrappers launch the build whose rollout kernels count
-    their cycles by phase (``fused_ukf.phase_clocks`` and
-    ``fused_rollout.phase_clocks`` read them)."""
+    """Within, the wrappers launch the build whose kernels count their
+    cycles by phase (``fused_ukf.phase_clocks``, ``fused_rollout.phase_clocks``
+    and ``posegraph.solve_phase_clocks`` read them)."""
     return _flags(PHASE_CLOCKS)
 
 

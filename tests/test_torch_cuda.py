@@ -17,7 +17,7 @@ import torch
 
 import chip_smoke
 from live_ekf_slam_tpu_torch.config import CompatConfig, Config
-from live_ekf_slam_tpu_torch.bench import pg_config
+from live_ekf_slam_tpu_torch.bench import chain_blocks, pg_config, pg_graphs
 from live_ekf_slam_tpu_torch.eval.runner import (
     fused_rollout,
     mc_inputs,
@@ -160,21 +160,56 @@ def test_pose_stream_kernel_matches_plain(filter_kind, kind, cuda_device):
         assert torch.equal(kn[key], p[key]), key
 
 
-@pytest.mark.parametrize("steps", [37, 200])  # 37: a ragged last chunk
+# 20: fewer steps than the solve has segments; 37: a ragged last segment
+@pytest.mark.parametrize("steps", [20, 37, 200, 1000])
 def test_block_thomas_kernels_match_plain(steps, cuda_device):
     # P1 on the blocks of real graphs: the default build within
-    # chip_smoke.P1_RTOL of each output's scale, the -fmad=false build bit
-    # for bit (block_thomas_compare raises otherwise)
+    # chip_smoke.P1_RTOL of each output's scale, its solve also of the
+    # sequential loop, the -fmad=false build bit for bit
+    # (block_thomas_compare raises otherwise)
     cfg = pg_config(steps, "ekf_slam", False)
-    graphs = chip_smoke.pg_graphs(cfg, 9, cuda_device, seed=1)[0]
+    graphs = pg_graphs(cfg, 9, cuda_device, seed=1)[0]
     for sc in (16.0, 1.0):
-        d, u, rhs = chip_smoke.chain_blocks(cfg, graphs, sc)
+        d, u, rhs = chain_blocks(cfg, graphs, sc)
         res = chip_smoke.block_thomas_compare(d, u, rhs, f"T={steps} scale={sc}")
         assert all(res["no_fma_bitwise_equal"].values())
+        assert res["x_vs_sequential"]["rel_to_scale"] <= chip_smoke.P1_RTOL
     with pytest.raises(ValueError, match="expected float32"):
         pg._tridiag_factor(d.double(), u)
     with pytest.raises(ValueError, match="expected float32"):
         pg._tridiag_solve(pg._tridiag_factor(d, u), rhs[:, :-1])
+
+
+# 5000 steps: y in more than 48 KB of shared memory; 20000: y kept in x
+@pytest.mark.parametrize("steps", [5000, 20000])
+def test_block_thomas_solve_on_long_chains(steps, cuda_device):
+    # random diagonally dominant SPD chains, both launch branches of the
+    # solve: bit for bit its plain version under -fmad=false, the default
+    # build within P1_RTOL of it and of the sequential loop
+    rng = np.random.default_rng(steps)
+    m = rng.normal(size=(2, steps + 1, 3, 3))
+    d = torch.as_tensor(m @ m.transpose(0, 1, 3, 2) + 6 * np.eye(3),
+                        dtype=torch.float32, device=cuda_device)
+    u = torch.as_tensor(rng.normal(size=(2, steps, 3, 3)), dtype=torch.float32,
+                        device=cuda_device)
+    rhs = torch.as_tensor(rng.normal(size=(2, steps + 1, 3)), dtype=torch.float32,
+                          device=cuda_device)
+    fac = pg._tridiag_factor_reference(d, u)
+    x = pg._tridiag_solve(fac, rhs)
+    px = pg._tridiag_solve_reference(fac, rhs)
+    with _build.without_fma():
+        assert torch.equal(pg._tridiag_solve(fac, rhs), px)
+    for want in (px, pg._tridiag_solve_sequential(fac, rhs)):
+        err = float((x - want).abs().max())
+        assert err <= chip_smoke.P1_RTOL * float(want.abs().max()), err
+
+
+def test_block_thomas_solve_does_not_spill(cuda_device):
+    # at the pose-graph study's T: y in shared memory, no local memory
+    occ = pg.solve_occupancy(1000)
+    rep = chip_smoke.solve_ptxas(chip_smoke.ptxas_report("block_thomas.cu"))
+    assert occ["local_bytes"] == 0 and occ["worlds_per_sm"] >= 1, occ
+    assert rep["spill_store_bytes"] == 0 and rep["spill_load_bytes"] == 0, rep
 
 
 def test_pg_streams_path_runs_on_the_card_and_repeats(cuda_device):
