@@ -7,10 +7,12 @@ nvcc and holds each rollout kernel (EKF-SLAM, RI-EKF-SLAM, UKF-SLAM,
 UKF-Loc) against its plain torch version: on three configs with injected
 noise, predicated against unpredicated, in-kernel Philox against the
 replayed stream, and a build with FMA contraction off against the plain
-version bit for bit; the same for the EKF kernels' pose stream and for the
+version bit for bit; the same for the EKF kernels' pose stream, for the
 block-Thomas factor and solve kernels on the blocks of real graphs (the
 solve, a segment scan, also within tolerance of the sequential loop it
-replaced). Those
+replaced) and for the Schur matvec of the bulk solve (P2, also within
+tolerance of the torch spelling it replaced, with both forms of the slot
+map, and two launches equal bit for bit). Those
 checks feed nothing later and wait mostly for the host, so they run in five
 processes side by side (``python3 chip_smoke.py --side-checks NAME ...`` is
 one of them). Then it drives the main paths, alone on the card.
@@ -21,9 +23,9 @@ worlds of that run. ``run_monte_carlo_pg_streams``, the pose-graph study, at
 1024 worlds with the EKF-SLAM secondary (twice: the results must repeat),
 and at 256 worlds with the naive and RI-EKF secondaries and in iterative
 mode, with the launch counts each run implies, and the block-Thomas
-kernels on that study's first chain system: each as a wrapper call (the
-record's ``ms``) and alone (launches back to back, ``kernel_ms``), and the
-solve's cycles by phase. Last the
+kernels and the Schur matvec on that study's first system: each as a
+wrapper call (the record's ``ms``) and alone (launches back to back,
+``kernel_ms``), and the factor's and the solve's cycles by phase. Last the
 kernel-attribution path at the bench's size: the EKF and RI-EKF rollouts
 in their ``sim``, ``nolm`` and ``full`` profile modes (the split of a rollout into simulator,
 predict and landmark loop), the three microbenchmark tools, which time each
@@ -32,7 +34,8 @@ held against its plain version), and the sum of the passes a tick executes
 against the EKF and UKF-SLAM kernels' measured times. Beside these, right
 after the build, every rollout kernel's occupancy (registers, spills,
 shared memory, resident worlds an SM; K1, K2 and K4 SLAM must keep 16
-without spilling) and the block-Thomas solve's (no spills), and after
+without spilling) and the block-Thomas solve's and the Schur matvec's (no
+spills), and after
 the main paths the UKF, EKF and RI-EKF kernels' cycles by phase of the
 tick (``ukf_phase_clocks``, ``ekf_phase_clocks``), from a third build
 compiled with -DLES_PHASE_CLOCKS. Every phase prints one JSON line; any failure raises and the exit code is nonzero. The last three
@@ -60,6 +63,7 @@ from live_ekf_slam_tpu_torch.bench import (
     pg_config,
     pg_graphs,
     pg_summary,
+    schur_system,
     time_rollouts,
 )
 from live_ekf_slam_tpu_torch.config import CompatConfig, Config
@@ -79,7 +83,12 @@ from live_ekf_slam_tpu_torch.ops.kernel_math import atan2, wrap
 from live_ekf_slam_tpu_torch.ops.precision import pin_fp32
 from live_ekf_slam_tpu_torch.tools import micro_downdate, micro_ukf, micro_ukf_probe
 from live_ekf_slam_tpu_torch.tools._common import DIM as MICRO_DIM
-from live_ekf_slam_tpu_torch.tools.kernel_ab import factor_kernel_ms, solve_kernel_ms
+from live_ekf_slam_tpu_torch.tools.kernel_ab import (
+    factor_kernel_ms,
+    schur_mv_bytes,
+    schur_mv_kernel_ms,
+    solve_kernel_ms,
+)
 
 # Kernel vs plain version (injected noise), as |kernel - plain| <= atol +
 # rtol * scale, where scale is the plain value for the per-world scalars and,
@@ -133,6 +142,15 @@ AGG_RTOL = 1e-2
 # observed nodes have condition numbers in the hundreds, which multiply the
 # FMA-rounding differences of a 1000-step recursion (measured: 1.6e-4).
 P1_RTOL = 2e-3
+# The Schur matvec (P2) against its plain versions, default build: |kernel -
+# plain| <= SCHUR_RTOL * max|plain| in every world. FMA contraction rounds
+# each product-sum once instead of twice; the landmark sums over a world's
+# T K measurements and the K-term row sums carry those differences, and sp
+# is the difference of the chain part and H_pl w, which nearly cancel in
+# some worlds (measured on the 1024-world study's first system: 2.1e-4 in
+# the worst world, 1.4e-5 of the whole array; 3e-6 at most on 8 worlds).
+# The torch spelling, which sums in yet another order, is held to the same.
+SCHUR_RTOL = 2e-3
 # Two runs of the pose-graph main path must agree to this (metres): nothing
 # on the path adds with atomics, so they are expected to be equal.
 PG_REPEAT_ATOL = 1e-4
@@ -222,6 +240,9 @@ PG_KERNELS = {
     "block_thomas_solve": (
         pg.launches, "solve", SRC + "block_thomas.cu",
         "live_ekf_slam_tpu/models/posegraph.py:1092"),
+    "schur_mv": (
+        pg.launches, "schur_mv", SRC + "schur_mv.cu",
+        "live_ekf_slam_tpu/models/posegraph.py:1267"),
 }
 
 
@@ -548,7 +569,8 @@ def block_thomas_compare(d, u, rhs, what: str) -> dict:
     fac = pg._tridiag_factor(d, u)
     x = pg._tridiag_solve(fac, rhs)
     torch.cuda.synchronize()
-    if pg.launches != {"factor": before["factor"] + 1, "solve": before["solve"] + 1}:
+    if pg.launches != {**before, "factor": before["factor"] + 1,
+                       "solve": before["solve"] + 1}:
         raise AssertionError("the block-Thomas wrappers did not launch their kernels")
     t0 = time.perf_counter()
     pfac = pg._tridiag_factor_reference(d, u)
@@ -591,6 +613,71 @@ def block_thomas_checks(dev):
                  meas_scale=sc, rtol_of_scale=P1_RTOL, **res)
 
 
+def world_rel(a: torch.Tensor, ref: torch.Tensor) -> float:
+    """The largest over worlds of max|a - ref| / max|ref| in the world."""
+    return float(((a - ref).abs().amax(dim=(1, 2))
+                  / ref.abs().amax(dim=(1, 2)).clamp_min(1e-30)).max())
+
+
+def schur_mv_compare(sy: dict, vp, what: str) -> dict:
+    """P2 against its plain versions on one system (``bench.schur_system``)
+    and direction vp: the default build within SCHUR_RTOL of the kernel's
+    order (``_schur_mv_reference``) and of the torch spelling in every
+    world, a second launch equal bit for bit, the -fmad=false build equal to
+    the reference bit for bit. Returns the errors and the plain versions'
+    milliseconds."""
+    args = (sy["d"], sy["u"], sy["hll_inv"], sy["coeffs"], sy["slots"], vp)
+    before = pg.launches["schur_mv"]
+    sp = pg._schur_mv(*args)
+    again = pg._schur_mv(*args)
+    torch.cuda.synchronize()
+    if pg.launches["schur_mv"] != before + 2:
+        raise AssertionError("the Schur matvec wrapper did not launch its kernel")
+    t0 = time.perf_counter()
+    ref = pg._schur_mv_reference(*args)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tor = pg._schur_mv_torch(*args)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    with _build.without_fma():
+        same = bitwise({"sp": pg._schur_mv(*args)}, {"sp": ref}, f"{what} -fmad=false")
+    if not torch.equal(sp, again):
+        raise AssertionError(f"{what}: two launches differ")
+    out = {"no_fma_bitwise_equal": same, "repeat_bitwise_equal": True,
+           "by_column": sy["slots"].by_column, "plain_ms": 1e3 * (t1 - t0),
+           "torch_ms": 1e3 * (t2 - t1)}
+    for name, want in (("vs_reference", ref), ("vs_torch", tor)):
+        out[name] = {"max_abs_err": float((sp - want).abs().max()),
+                     "scale": float(want.abs().max()),
+                     "max_world_rel_to_scale": world_rel(sp, want)}
+        if not out[name]["max_world_rel_to_scale"] <= SCHUR_RTOL:
+            raise AssertionError(f"{what}: sp {name} out of tolerance: {out[name]}")
+    out["reference_vs_torch_world_rel"] = world_rel(ref, tor)
+    return out
+
+
+def cg_direction(sy: dict) -> torch.Tensor:
+    """The first CG direction of the system: the preconditioned gradient."""
+    return pg._tridiag_solve(pg._tridiag_factor(sy["d"], sy["u"]), sy["rhs"])
+
+
+def schur_mv_checks(dev):
+    """P2 on real graphs: a few worlds at T = 37, 200 and 1000, at the first
+    and the last measurement scale, with the by-column slot map and the
+    general one."""
+    for steps in (37, SMALL["steps"], PG_MAIN["steps"]):
+        cfg = pg_config(steps, "ekf_slam", False)
+        graphs = pg_graphs(cfg, P1_WORLDS, dev, seed=1)[0]
+        for sc in (16.0, 1.0):
+            for slots in (pg.LmSlots(graphs), pg.LmSlots(graphs, detect=False)):
+                sy = schur_system(cfg, graphs, sc, slots)
+                res = schur_mv_compare(sy, cg_direction(sy),
+                                       f"Schur matvec T={steps} scale={sc}")
+                emit("schur_mv_vs_plain", worlds=P1_WORLDS, steps=steps,
+                     meas_scale=sc, rtol_of_scale=SCHUR_RTOL, **res)
+
+
 def pg_run(secondary: str, iterative: bool, batch: int, dev) -> tuple[dict, dict]:
     """One pose-graph study through ``run_monte_carlo_pg_streams``, in one
     world chunk, with the checks on its launch counts and results. Returns
@@ -604,14 +691,16 @@ def pg_run(secondary: str, iterative: bool, batch: int, dev) -> tuple[dict, dict
     wall = time.perf_counter() - t0
     launches = counts()
     # the schedule: 16 + 16 + 50 Gauss-Newton iterations from the seeds, in
-    # iterative mode 50 more from the replayed solution; each factors once
-    # and solves once per CG iteration and once before them
+    # iterative mode 50 more from the replayed solution; each factors once,
+    # solves once per CG iteration and once before them, and applies the
+    # Schur matvec once per CG iteration
     pgc = cfg.pose_graph
     n_gn = (max(8, pgc.bulk_gn_iters // 3) * 2 + pgc.bulk_gn_iters
             + (pgc.bulk_gn_iters if iterative else 0))
     want = dict.fromkeys(launches, 0)
     want.update(philox_noise=1, block_thomas_factor=n_gn,
-                block_thomas_solve=n_gn * (pgc.bulk_cg_iters + 1))
+                block_thomas_solve=n_gn * (pgc.bulk_cg_iters + 1),
+                schur_mv=n_gn * pgc.bulk_cg_iters)
     if secondary != "naive":
         kind = "iekf" if secondary == "iekf_slam" else "ekf"
         want[f"fused_{kind}_rollout[emit_traj]"] = 1
@@ -632,6 +721,34 @@ def pg_run(secondary: str, iterative: bool, batch: int, dev) -> tuple[dict, dict
         raise AssertionError(f"pose graph, {secondary}: the solve did not "
                              f"improve on the seeds: {summary}")
     return res, launches
+
+
+SPLIT_GN = 4  # Gauss-Newton steps of each timed solve of solve_split
+
+
+def solve_split(cfg, s, cuda: bool = True) -> dict:
+    """Where a bulk solve's time goes: ``solve_schur_pcg`` from the seeds of
+    graphs ``s`` for SPLIT_GN steps with no CG step (the Gauss-Newton
+    step's own work: Jacobians, blocks, the factor, the reduced rhs, the
+    back-substitution, the line search) and with the study's CG steps; the
+    difference a CG step (the matvec, the block-Thomas solve, the vector
+    ops). Host-clock milliseconds, the fastest of two runs."""
+    def run(n_cg: int) -> float:
+        best = float("inf")
+        for _ in range(2):
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pg.solve_schur_pcg(cfg, s, s.poses_init, s.lms_init, n_gn=SPLIT_GN, n_cg=n_cg)
+            if cuda:
+                torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        return 1e3 * best
+    n_cg = cfg.pose_graph.bulk_cg_iters
+    gn_ms, full_ms = run(0), run(n_cg)
+    return {"gn_steps": SPLIT_GN, "cg_steps_per_gn": n_cg,
+            "gn_step_ms": gn_ms / SPLIT_GN,
+            "cg_step_ms": (full_ms - gn_ms) / (SPLIT_GN * n_cg)}
 
 
 def pose_graph_paths(dev, n_lm: int) -> tuple[list, int]:
@@ -683,9 +800,11 @@ def pose_graph_paths(dev, n_lm: int) -> tuple[list, int]:
             "plain_steps": chk["steps"], "plain_timed": "beside the other side checks",
         })
 
-    # ---- P1 on the main path's own graphs
+    # ---- P1 and P2 on the main path's own graphs
     cfg = pg_config(PG_MAIN["steps"], "ekf_slam", False)
-    d, u, rhs = chain_blocks(cfg, pg_graphs(cfg, PG_MAIN["batch"], dev)[0], 1.0)
+    graphs = pg_graphs(cfg, PG_MAIN["batch"], dev)[0]
+    sy = schur_system(cfg, graphs, 1.0)
+    d, u, rhs = sy["d"], sy["u"], sy["rhs"]
     res = block_thomas_compare(d, u, rhs, "block-Thomas main shape")
     fac = pg._tridiag_factor(d, u)
     # one wrapper call each (``ms``, as every kernel's), and the kernels
@@ -694,40 +813,77 @@ def pose_graph_paths(dev, n_lm: int) -> tuple[list, int]:
     ms_s = timed_ms(lambda: pg._tridiag_solve(fac, rhs))
     alone_f, alone_s = factor_kernel_ms(d, u), solve_kernel_ms(fac, rhs)
     cycles, _ = pg.solve_phase_clocks(fac, rhs)
+    fcycles, _ = pg.factor_phase_clocks(d, u)
+    # the factor's longest dependent chain of a step: ~20 operations
+    # (cofactor, determinant, reciprocal, the two products' 3-term sums), T
+    # of them in a row
     emit("block_thomas_main_shape", **PG_MAIN, factor_ms=ms_f, solve_ms=ms_s,
-         factor_kernel_ms=alone_f, solve_kernel_ms=alone_s, **res)
+         factor_kernel_ms=alone_f, solve_kernel_ms=alone_s,
+         factor_latency_floor_ms=1e3 * (d.shape[1] - 1) * 20 * DEP_OP_S, **res)
     emit("block_thomas_phase_clocks", **PG_MAIN, segments=pg.SOLVE_SEGMENTS,
          cycles=cycles, shares={k_: v / sum(cycles.values()) for k_, v in cycles.items()})
+    emit("block_thomas_factor_phase_clocks", **PG_MAIN, cycles=fcycles,
+         cycles_per_step_per_world=sum(fcycles.values()) / d.shape[0] / (d.shape[1] - 1),
+         shares={k_: v / sum(fcycles.values()) for k_, v in fcycles.items()})
+    vp = pg._tridiag_solve(fac, rhs)
+    mv = (d, u, sy["hll_inv"], sy["coeffs"], sy["slots"], vp)
+    res_m = schur_mv_compare(sy, vp, "Schur matvec main shape")
+    ms_m = timed_ms(lambda: pg._schur_mv(*mv))
+    alone_m = schur_mv_kernel_ms(*mv)
+    emit("schur_mv_main_shape", **PG_MAIN, ms=ms_m, kernel_ms=alone_m,
+         torch_spelling_ms=timed_ms(lambda: pg._schur_mv_torch(*mv)),
+         occupancy=pg.schur_mv_occupancy(sy["slots"].shape[2], sy["slots"].n),
+         bytes_per_s=schur_mv_bytes(*mv) / (alone_m * 1e-3),
+         bound_with_coefficients_read_twice_ms=1e3 * (
+             schur_mv_bytes(*mv) + 4.0 * sum(c.numel() for c in sy["coeffs"])) / PEAK_BYTES,
+         l2_hit_rate="not measured", **res_m)
+    # the study's solve by part: 82 Gauss-Newton steps, 40 CG steps each
+    split = solve_split(cfg, graphs)
+    n_gn = launches["block_thomas_factor"]
+    n_cg = launches["schur_mv"]
+    emit("pose_graph_solve_split", **PG_MAIN, **split, schur_mv_ms=ms_m,
+         cg_vector_ops_and_solve_ms=split["cg_step_ms"] - ms_m,
+         study_gn_s=1e-3 * n_gn * split["gn_step_ms"],
+         study_schur_mv_s=1e-3 * n_cg * ms_m,
+         study_cg_rest_s=1e-3 * n_cg * (split["cg_step_ms"] - ms_m),
+         solve_s=next(d["solve_s"] for d in LINES if d["phase"] == "pose_graph_path"))
     b, t1 = d.shape[:2]
     steps = t1 - 1
+    k_cap = sy["slots"].shape[2]
     # factor: an adjugate inverse (~41 flop) and two 3x3 products (45 each)
     # and a subtraction (9) a step, the scaling (36); solve: three 3x3
     # matvecs (15 each) and two subtractions a step, the two scalings (the
     # work of the function: the segment scan's composed maps are the
-    # kernel's own, beyond it). The factor's longest dependent chain of a
-    # step: ~20 operations (cofactor, determinant, division, the two
-    # products' 3-term sums), T of them in a row.
+    # kernel's own, beyond it). The Schur matvec: 18
+    # flops a measurement each way (H_pl^T v and H_pl w) and the chain's
+    # three 3x3 matvecs and sums (54) a pose.
     work_p1 = {
         "block_thomas_factor": (
             b * steps * 176.0, 4.0 * (d.numel() * 2 + u.numel() * 3 + b * t1 * 3),
-            ms_f, res["factor_plain_ms"], ("sinv", "l", "u", "dsc"),
-            {"latency_floor_ms": 1e3 * steps * 20 * DEP_OP_S, "kernel_ms": alone_f}),
+            ms_f, res["factor_plain_ms"], ("sinv", "l", "u", "dsc"), res,
+            {"kernel_ms": alone_f}),
         "block_thomas_solve": (
             b * t1 * 57.0, 4.0 * (d.numel() + u.numel() * 2 + b * t1 * 9),
-            ms_s, res["solve_plain_ms"], ("x",),
+            ms_s, res["solve_plain_ms"], ("x",), res,
             {"segments": res["segments"],
              "steps_per_segment": -(-steps // res["segments"]),
              "max_rel_to_scale_vs_sequential": res["x_vs_sequential"]["rel_to_scale"],
              "sequential_plain_ms": res["solve_sequential_plain_ms"],
              "kernel_ms": alone_s}),
+        "schur_mv": (
+            b * (steps * k_cap * 36.0 + t1 * 54.0), schur_mv_bytes(*mv),
+            ms_m, res_m["plain_ms"], ("vs_reference",),
+            {"vs_reference": {"max_abs_err": res_m["vs_reference"]["max_abs_err"],
+                              "rel_to_scale": res_m["vs_reference"]["max_world_rel_to_scale"]}},
+            {"kernel_ms": alone_m, "torch_spelling_plain_ms": res_m["torch_ms"]}),
     }
-    for name, (flops, nbytes, ms, p_ms, outs, extra) in work_p1.items():
+    for name, (flops, nbytes, ms, p_ms, outs, errs, extra) in work_p1.items():
         t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
         record.append({
             "name": name, "route": "cuda", "source": PG_KERNELS[name][2],
             "replaces": PG_KERNELS[name][3], "launches": launches[name],
-            "max_abs_err": max(res[o]["max_abs_err"] for o in outs),
-            "max_rel_to_scale": max(res[o]["rel_to_scale"] for o in outs),
+            "max_abs_err": max(errs[o]["max_abs_err"] for o in outs),
+            "max_rel_to_scale": max(errs[o]["rel_to_scale"] for o in outs),
             "ms": ms, "plain_ms": p_ms,
             "bound_ms": 1e3 * max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -1162,9 +1318,9 @@ def phase_occupancy(n_lm: int, ptxas: dict) -> list:
     block, and resident blocks and worlds an SM
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor); beside them the stack
     and spill bytes ptxas reports (``ptxas``: ptxas_report of the rollout
-    sources and block_thomas.cu). K1 and K2 must keep EKF_RESIDENT worlds on
-    an SM, K4 SLAM UKF_SLAM_RESIDENT, without spilling; beside them P1's
-    solve, which must not spill either."""
+    sources, block_thomas.cu and schur_mv.cu). K1 and K2 must keep
+    EKF_RESIDENT worlds on an SM, K4 SLAM UKF_SLAM_RESIDENT, without
+    spilling; beside them P1's solve and P2, which must not spill either."""
     rows, args = [], {}
     for name, (kind, mode, traj, targs) in EKF_INSTANCES.items():
         rows.append({"kernel": name, **fr.occupancy(n_lm, kind, mode, traj)})
@@ -1178,14 +1334,21 @@ def phase_occupancy(n_lm: int, ptxas: dict) -> list:
         stem = f"fused_{kind}_rollout_kernel" + mangled_args(args[r["kernel"]])
         r.update(next(v for k_, v in ptxas.items() if stem in k_))
         emit("occupancy", n_lm=n_lm, **r)
-    # P1's solve at the pose-graph study's T, y in shared memory
-    r = {"kernel": "block_thomas_solve", "steps": PG_MAIN["steps"],
-         "segments": pg.SOLVE_SEGMENTS, **pg.solve_occupancy(PG_MAIN["steps"]),
-         **solve_ptxas(ptxas)}
-    emit("occupancy", **r)
-    rows.append(r)
+    # P1's solve at the pose-graph study's T, y in shared memory, and P2 at
+    # its K and N
+    cfg = pg_config(PG_MAIN["steps"], "ekf_slam", False)
+    for r in ({"kernel": "block_thomas_solve", "steps": PG_MAIN["steps"],
+               "segments": pg.SOLVE_SEGMENTS, **pg.solve_occupancy(PG_MAIN["steps"]),
+               **solve_ptxas(ptxas)},
+              {"kernel": "schur_mv", "k": cfg.num_meas_slots, "n_lm": n_lm,
+               "threads": pg.SCHUR_THREADS,
+               **pg.schur_mv_occupancy(cfg.num_meas_slots, n_lm),
+               **next(v for k_, v in ptxas.items() if "schur_mv_kernel" in k_)}):
+        emit("occupancy", **r)
+        rows.append(r)
     need = {"fused_ekf_rollout": EKF_RESIDENT, "fused_iekf_rollout": EKF_RESIDENT,
-            "fused_ukf_rollout[slam]": UKF_SLAM_RESIDENT, "block_thomas_solve": 1}
+            "fused_ukf_rollout[slam]": UKF_SLAM_RESIDENT, "block_thomas_solve": 1,
+            "schur_mv": 1}
     for r in rows:
         if r["kernel"] in need and (r["worlds_per_sm"] < need[r["kernel"]]
                                     or r["spill_store_bytes"] or r["spill_load_bytes"]):
@@ -1307,13 +1470,14 @@ SIDE_CHECKS = {
        (lambda dev, n_lm, kind=kind: pose_stream_main_check(kind, dev, n_lm))
        for kind in fr.FILTER_KINDS},
     "block_thomas": lambda dev, n_lm: block_thomas_checks(dev),
+    "schur_mv": lambda dev, n_lm: schur_mv_checks(dev),
 }
 SIDE_GROUPS = (
     ("fused_ukf_rollout[slam]",),
     ("fused_ukf_rollout[loc]",),
     ("fused_ekf_rollout", "pose_stream_main[ekf]"),
     ("fused_iekf_rollout", "pose_stream_main[iekf]"),
-    ("philox", "pose_stream", "block_thomas"),
+    ("philox", "pose_stream", "block_thomas", "schur_mv"),
 )
 SIDE_FLAG = "--side-checks"
 
@@ -1382,7 +1546,7 @@ def main():
         libs = list(pool.map(_build.build, [(), _build.NO_FMA, _build.PHASE_CLOCKS]))
         ptxas = {}
         for rep in pool.map(ptxas_report, ["fused_ekf_rollout.cu", "fused_ukf_rollout.cu",
-                                           "block_thomas.cu"]):
+                                           "block_thomas.cu", "schur_mv.cu"]):
             ptxas.update(rep)
     _build.load()
     emit("build", seconds=time.perf_counter() - t0,

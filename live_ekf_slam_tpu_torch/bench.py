@@ -144,17 +144,26 @@ def pg_graphs(cfg, batch: int, dev, seed: int = 0):
     return graphs, lms, cmds, noise, out
 
 
-def chain_blocks(cfg, s, meas_scale: float):
-    """The block-tridiagonal system solve_schur_pcg factors first on the
-    graphs ``s`` (at the seeds, damping 1e-4), and its first right-hand
-    side: (d, u, rhs)."""
-    slots = pg.LmSlots(s)
+def schur_system(cfg, s, meas_scale: float, slots=None) -> dict:
+    """The Schur-reduced system solve_schur_pcg sets up first on the graphs
+    ``s`` (at the seeds, damping 1e-4): the chain blocks d, u, the landmark
+    inverses hll_inv, the measurement coefficients, the slot map and the
+    pose gradient rhs, the arguments of posegraph._schur_mv and of P1."""
+    slots = slots or pg.LmSlots(s)
     jac = pg._jacobians(cfg, s, s.poses_init, s.lms_init, meas_scale, slots)
     coeffs, r_meas = pg._meas_coeffs(cfg, s, s.poses_init, s.lms_init,
                                      meas_scale, slots)
     d, u, _ = pg._pose_blocks(cfg, s, jac, coeffs, 1e-4)
+    hll_inv, _ = pg._lm_hessian_inv(cfg, s, jac, coeffs, 1e-4, slots)
     rhs, _ = pg._grad(cfg, s, jac, coeffs, r_meas, slots)
-    return d, u, rhs
+    return dict(d=d, u=u, hll_inv=hll_inv, coeffs=coeffs, slots=slots, rhs=rhs)
+
+
+def chain_blocks(cfg, s, meas_scale: float):
+    """The block-tridiagonal system solve_schur_pcg factors first on the
+    graphs ``s`` and its first right-hand side: (d, u, rhs)."""
+    sy = schur_system(cfg, s, meas_scale)
+    return sy["d"], sy["u"], sy["rhs"]
 
 
 def bench_pose_graph(args) -> dict:

@@ -21,7 +21,11 @@ Solvers here:
   ``_tridiag_factor_reference`` / ``_tridiag_solve_reference``. There is no
   fallback from one to the other. The solve splits each chain into segments
   joined by a scan (``_tridiag_solve_sequential`` is the plain loop it
-  replaced, kept as a yardstick).
+  replaced, kept as a yardstick). Each CG step's Schur matvec, ``_schur_mv``,
+  is one launch of ``csrc/schur_mv.cu`` on a CUDA tensor and its plain
+  version ``_schur_mv_reference`` on a CPU tensor (``_schur_mv_torch``, the
+  torch passes it replaced, is the yardstick). The once-a-step products
+  (the reduced rhs, the landmark back-substitution) stay torch passes.
 * ``solve_pcg_gn``: matrix-free Jacobi-PCG, used per tick by
   ``replay_iterative`` (solve_graph_every_iteration mode, warm starts only).
 
@@ -40,6 +44,8 @@ general ``scatter_add_`` when it does not hold.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from live_ekf_slam_tpu_torch.core.noise import S3, _div, clip_uniform_moments
@@ -47,11 +53,15 @@ from live_ekf_slam_tpu_torch.core.types import PoseGraphState
 from live_ekf_slam_tpu_torch.ops import _build
 from live_ekf_slam_tpu_torch.utils.geometry import wrap_angle
 
-# launches of the block-Thomas kernels (not of the plain loops)
-launches = {"factor": 0, "solve": 0}
+# launches of the block-Thomas kernels and of the Schur matvec (not of their
+# plain versions)
+launches = {"factor": 0, "solve": 0, "schur_mv": 0}
 # threads of the solve kernel a world (csrc/block_thomas.cu, kSegments), so
 # segments of the chain its plain version splits
 SOLVE_SEGMENTS = 128
+# threads of the Schur matvec kernel a world (csrc/schur_mv.cu, kThreads), so
+# the partial sums of H_pl^T v its plain version keeps apart
+SCHUR_THREADS = 256
 
 
 def assemble_streams(cfg, est_poses, r, b, vis, cmds) -> PoseGraphState:
@@ -176,6 +186,18 @@ class LmSlots:
                 torch.float32)  # (B, K, N)
         else:
             self.flat = idx.reshape(self.shape[0], -1)
+
+    @functools.cached_property
+    def index32(self) -> torch.Tensor:
+        """The map as the Schur matvec kernel reads it: (B, K) or (B, T K)."""
+        return (self.col if self.by_column else self.flat).to(
+            torch.int32).contiguous()
+
+    def per_measurement(self) -> torch.Tensor:
+        """Each measurement's slot, (B, T, K) int64."""
+        if self.by_column:
+            return self.col[:, None, :].expand(self.shape)
+        return self.flat.reshape(self.shape)
 
     def gather(self, v: torch.Tensor) -> torch.Tensor:
         """v (B, N) -> v at each measurement's slot, (B, T, K) or, by
@@ -664,7 +686,11 @@ def _tridiag_solve(fac: dict, rhs: torch.Tensor) -> torch.Tensor:
     return x
 
 
-# the solve kernel's phases, as its -DLES_PHASE_CLOCKS build counts them
+# the factor kernel's phases, as its -DLES_PHASE_CLOCKS build counts them:
+# node 0 and each chunk's dsc and scaled blocks; issuing the next chunk's
+# copies and waiting for this one's; the recursion; the results' stores
+FACTOR_PHASES = ("scale", "stage", "walk", "store")
+# the solve kernel's phases, the same
 SOLVE_PHASES = ("stage_fwd", "compose_fwd", "scan_fwd", "replay_fwd",
                 "stage_back", "compose_back", "scan_back", "replay_back",
                 "store")
@@ -679,6 +705,18 @@ def solve_phase_clocks(fac: dict, rhs: torch.Tensor) -> tuple[dict, torch.Tensor
         torch.cuda.synchronize(rhs.device)
         return x
     return _build.phase_cycles("les_block_thomas_phase_clocks", SOLVE_PHASES, launch)
+
+
+def factor_phase_clocks(d: torch.Tensor, u: torch.Tensor) -> tuple[dict, dict]:
+    """One factor on the card in the build that counts cycles by phase: the
+    clock64() cycles of each phase of ``FACTOR_PHASES``, lane 0 of every
+    world summed, and the factor."""
+    def launch():
+        fac = _tridiag_factor(d, u)
+        torch.cuda.synchronize(d.device)
+        return fac
+    return _build.phase_cycles("les_block_thomas_factor_phase_clocks",
+                               FACTOR_PHASES, launch)
 
 
 def solve_occupancy(steps: int) -> dict:
@@ -857,13 +895,125 @@ def _hpl_apply(s: PoseGraphState, coeffs, vl, slots=None):
     vlx, vly = slots.gather(vl[..., 0]), slots.gather(vl[..., 1])
     u_b = -(ab * vlx + bb * vly)
     u_r = -(ar * vlx + br * vly)
-    yp, _ = _zeros_like_graph(s)
+    yp = vl.new_zeros((vl.shape[0], ab.shape[1] + 1, 3))
     yp[:, 1:] += torch.stack(
         [(ab * u_b + ar * u_r).sum(dim=2),
          (bb * u_b + br * u_r).sum(dim=2),
          (cb * u_b).sum(dim=2)], dim=-1,
     )
     return yp
+
+
+def _schur_mv(d, u, hll_inv, coeffs, slots: LmSlots, vp):
+    """S vp = (chain + unary measurement blocks) vp - H_pl H_ll^-1 H_pl^T vp,
+    the reduced pose system's matvec: d (B, T+1, 3, 3), u (B, T, 3, 3),
+    hll_inv (B, N, 3), coeffs the five (B, T, K) arrays, vp (B, T+1, 3). On
+    CUDA tensors one launch of ``csrc/schur_mv.cu``; on the CPU its plain
+    version, the same order of sums."""
+    dev = vp.device
+    if dev.type == "cpu":
+        return _schur_mv_reference(d, u, hll_inv, coeffs, slots, vp)
+    if dev.type != "cuda":
+        raise ValueError(f"_schur_mv runs on cpu or cuda, not {dev}")
+    if vp.dim() != 3:
+        raise ValueError(f"vp must be (B, T+1, 3), got {tuple(vp.shape)}")
+    bsz, t1 = vp.shape[:2]
+    t_cap, k_cap, n_cap = t1 - 1, slots.shape[2], slots.n
+    if slots.shape != (bsz, t_cap, k_cap):
+        raise ValueError(f"the slot map is for {slots.shape}, vp for B={bsz}, T={t_cap}")
+    _check_blocks("vp", vp, (bsz, t1, 3), dev)
+    _check_blocks("d", d, (bsz, t1, 3, 3), dev)
+    _check_blocks("u", u, (bsz, t_cap, 3, 3), dev)
+    _check_blocks("hll_inv", hll_inv, (bsz, n_cap, 3), dev)
+    for name, c in zip("ab bb cb ar br".split(), coeffs):
+        _check_blocks(name, c, (bsz, t_cap, k_cap), dev)
+    index = slots.index32
+    if index.device != dev:
+        raise ValueError(f"the slot map lies on {index.device}, vp on {dev}")
+    d, u, hll_inv, vp = (a.contiguous() for a in (d, u, hll_inv, vp))
+    coeffs = [c.contiguous() for c in coeffs]
+    sp = torch.empty_like(vp)
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        rc = lib.les_schur_mv(
+            d.data_ptr(), u.data_ptr(), *(c.data_ptr() for c in coeffs),
+            hll_inv.data_ptr(), index.data_ptr(), int(slots.by_column),
+            vp.data_ptr(), bsz, t_cap, k_cap, n_cap, sp.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "Schur matvec kernel")
+    launches["schur_mv"] += 1
+    return sp
+
+
+def schur_mv_occupancy(k_cap: int, n_cap: int) -> dict:
+    """The Schur matvec kernel's launch at K measurement slots and N
+    landmarks as the card takes it (``_build.occupancy``)."""
+    return _build.occupancy("les_schur_mv_occupancy", k_cap, n_cap)
+
+
+def _schur_mv_reference(d, u, hll_inv, coeffs, slots: LmSlots, vp):
+    """The plain version of the Schur matvec kernel, in its order of sums.
+    H_pl^T vp: thread p of SCHUR_THREADS (a dimension here) takes
+    measurements p, p + SCHUR_THREADS, .. of the flattened (T, K) rows in
+    turn and adds each one's two terms to its own partial of the
+    measurement's landmark; a halving tree over the threads (level h adds
+    partial p + h to p, h = SCHUR_THREADS / 2 .. 1) gives the sums, w =
+    H_ll^-1 sums. Then each pose row t + 1 sums its K terms of H_pl w in
+    index order from 0, and sp = the chain part (d_t v_t + u_t v_{t+1} +
+    u_{t-1}^T v_{t-1}, in that order) less that sum."""
+    threads = SCHUR_THREADS
+    ab, bb, cb, ar, br = coeffs
+    bsz, t_cap, k_cap = ab.shape
+    n_cap, tk = slots.n, t_cap * k_cap
+    n_it = -(-tk // threads)
+
+    def by_thread(a, fill=0):  # (B, T, K) -> (B, n_it, threads), filled past the end
+        a = a.reshape(bsz, tk)
+        pad = a.new_full((bsz, n_it * threads - tk), fill)
+        return torch.cat([a, pad], 1).reshape(bsz, n_it, threads)
+
+    v1 = vp[:, 1:, None, :].expand(bsz, t_cap, k_cap, 3)
+    vx, vy, vt = (by_thread(v1[..., i]) for i in range(3))
+    a_, b_, c_, ar_, br_ = (by_thread(c) for c in coeffs)
+    idx = by_thread(slots.per_measurement(), -1)
+    ub = a_ * vx + b_ * vy + c_ * vt
+    ur = ar_ * vx + br_ * vy
+    wx = -(a_ * ub + ar_ * ur)
+    wy = -(b_ * ub + br_ * ur)
+    lm = torch.arange(n_cap, device=vp.device)
+    part = vp.new_zeros((bsz, threads, n_cap, 2))
+    for i in range(n_it):
+        hit = (idx[:, i, :, None] == lm)[..., None]               # (B, P, N, 1)
+        val = torch.stack([wx[:, i], wy[:, i]], -1)[:, :, None]  # (B, P, 1, 2)
+        part = part + torch.where(hit, val, 0.0)
+    h = threads
+    while h > 1:
+        h //= 2
+        part = part[:, :h] + part[:, h:2 * h]
+    w = _hll_inv_apply(hll_inv, part[:, 0])                      # (B, N, 2)
+
+    wlx, wly = slots.gather(w[..., 0]), slots.gather(w[..., 1])
+    ub = -(ab * wlx + bb * wly)
+    ur = -(ar * wlx + br * wly)
+    terms = torch.stack([ab * ub + ar * ur, bb * ub + br * ur, cb * ub], -1)
+    y = vp.new_zeros((bsz, t_cap, 3))
+    for k in range(k_cap):
+        y = y + terms[:, :, k]
+    hv = _mv3(d, vp)
+    hv[:, :-1] = hv[:, :-1] + _mv3(u, vp[:, 1:])
+    hv[:, 1:] = hv[:, 1:] + _mv3(u.transpose(-1, -2), vp[:, :-1])
+    return torch.cat([hv[:, :1], hv[:, 1:] - y], 1)
+
+
+def _schur_mv_torch(d, u, hll_inv, coeffs, slots: LmSlots, vp):
+    """S v = (chain + unary measurement blocks) v - H_pl H_ll^-1 H_pl^T v as
+    torch passes (the matvec solve_schur_pcg ran before the kernel of
+    ``csrc/schur_mv.cu``): the yardstick of that kernel's accuracy."""
+    hv = _mv(d, vp)
+    hv[:, :-1] += _mv(u, vp[:, 1:])
+    hv[:, 1:] += _mtv(u, vp[:, :-1])
+    w = _hll_inv_apply(hll_inv, _hpl_t_apply(None, coeffs, vp, slots))
+    return hv - _hpl_apply(None, coeffs, w, slots)
 
 
 def _retract(poses, lms, xp, xl, alpha: float):
@@ -909,15 +1059,6 @@ def solve_schur_pcg(
         gp = gp * p_mask
         gl = gl * l_active[:, :, None]
 
-        def schur_mv(vp):
-            # S v = (chain + unary measurement blocks) v - H_pl H_ll^-1 H_pl^T v;
-            # the first term is exactly the preconditioner's matrix
-            hv = _mv(d, vp)
-            hv[:, :-1] += _mv(u, vp[:, 1:])
-            hv[:, 1:] += _mtv(u, vp[:, :-1])
-            w = _hll_inv_apply(hll_inv, _hpl_t_apply(s, coeffs, vp, slots))
-            return hv - _hpl_apply(s, coeffs, w, slots)
-
         # reduced rhs: g_p - H_pl H_ll^-1 g_l
         rhs = gp - _hpl_apply(s, coeffs, _hll_inv_apply(hll_inv, gl), slots)
 
@@ -927,7 +1068,8 @@ def solve_schur_pcg(
         p = z
         rz = _dot(r, z)
         for _ in range(n_cg):
-            sp = schur_mv(p)
+            # S p: the chain part is exactly the preconditioner's matrix
+            sp = _schur_mv(d, u, hll_inv, coeffs, slots, p)
             alpha = (rz / torch.clamp_min(_dot(p, sp), 1e-30))[:, None, None]
             xp = xp + alpha * p
             r = r - alpha * sp

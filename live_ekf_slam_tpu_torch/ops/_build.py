@@ -64,6 +64,9 @@ SIGNATURES = {
     "les_block_thomas_factor": (_I, [_P, _P, _I, _I, _P, _P, _P, _P, _P]),
     # sinv, l, u scaled, dsc, rhs (B,T+1,3), B, T -> x (B,T+1,3); stream
     "les_block_thomas_solve": (_I, [_P, _P, _P, _P, _P, _I, _I, _P, _P]),
+    # d, u, ab, bb, cb, ar, br, hll_inv (B,N,3), slot (B,K) or (B,T*K) int32,
+    # by_column, vp (B,T+1,3), B, T, K, N -> sp (B,T+1,3); stream
+    "les_schur_mv": (_I, [_P] * 9 + [_I, _P, _I, _I, _I, _I, _P, _P]),
     # the standalone primitives (csrc/micro_ops.cu); every matrix (B, D, D)
     # p, k (B,R,D), h (B,R,D) -> p_out; B, D, R, passes; stream
     "les_micro_rank_update": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
@@ -87,10 +90,13 @@ SIGNATURES = {
     "les_ekf_occupancy": (_I, [_I, _I, _I, _I, _P]),
     # T -> out[6]: the block-Thomas solve's launch at T steps
     "les_block_thomas_occupancy": (_I, [_I, _P]),
+    # K, N -> out[6]: the Schur matvec's launch
+    "les_schur_mv_occupancy": (_I, [_I, _I, _P]),
     # out (uint64 per phase), n, reset: the PHASE_CLOCKS build's counters
     "les_ukf_phase_clocks": (_I, [_P, _I, _I]),
     "les_ekf_phase_clocks": (_I, [_P, _I, _I]),
     "les_block_thomas_phase_clocks": (_I, [_P, _I, _I]),
+    "les_block_thomas_factor_phase_clocks": (_I, [_P, _I, _I]),
 }
 
 _libs: dict[tuple[Path, tuple[str, ...]], ctypes.CDLL] = {}

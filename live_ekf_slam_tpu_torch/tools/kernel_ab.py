@@ -4,7 +4,8 @@
         [--filters ekf_slam,iekf_slam] [--worlds 4096] [--steps 1000] \\
         [--reps 5] [--clocks]
     python3 -m live_ekf_slam_tpu_torch.tools.kernel_ab --against DIR \\
-        --target block_thomas [--worlds 1024] [--study] [--clocks]
+        --target block_thomas | block_thomas_factor | schur_mv \\
+        [--worlds 1024] [--study] [--clocks]
 
 DIR is another tree's ``csrc`` directory with the same C interface, for a
 commit: ``git archive COMMIT live_ekf_slam_tpu_torch/csrc | tar -x -C OUT``
@@ -29,29 +30,51 @@ SM); the largest difference of this tree's x from the other tree's
 relative to its scale (not bitwise: the trees may sum in other orders) and
 from this tree's plain version; this tree's occupancy, and with
 ``--clocks`` its cycles by phase of the solve (thread 0 of every world).
-With ``--study`` also the whole pose-graph study (``ekf_slam`` secondary,
-bulk) on each tree in turns: wall and solve seconds, mean errors, diverged
-worlds. A variant of this tree's kernel is timed the same way: a copy of
-``csrc`` with the change, given as ``--against``.
+``--target block_thomas_factor``: P1's factor on that system the same way
+(a wrapper call, alone, one world an SM), each output's largest difference
+from the other tree's and from this tree's plain version relative to its
+scale, whether each tree's -fmad=false build gives the plain version's
+bits, and with ``--clocks`` each tree's cycles by phase of the factor
+(lane 0 of every world), where its source has the counters.
+``--target schur_mv``: the Schur matvec (P2) at that system, applied to
+the preconditioned gradient (a CG direction): this tree's kernel (a
+wrapper call, alone) in turns with the other tree's matvec, which is its
+kernel where its library has one, else the torch spelling the solver ran
+before it (``posegraph._schur_mv_torch``); the results' difference
+relative to scale, this tree's occupancy and the bytes it must move.
+``--study`` (with any of the three): also the whole pose-graph study
+(``ekf_slam`` secondary, bulk, ``--worlds`` x ``--steps``) of each tree in
+turns, each in a process of its own run from that tree's root, so that
+each runs its own Python as well as its own kernels (DIR must be the
+``live_ekf_slam_tpu_torch/csrc`` of a whole tree: ``git archive COMMIT |
+tar -x -C OUT``): wall and solve seconds, mean errors, diverged worlds.
+A variant of this tree's kernel is timed the same way: a copy of ``csrc``
+with the change, given as ``--against``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
-import time
+import subprocess
+import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from live_ekf_slam_tpu_torch.bench import card, chain_blocks, pg_config, pg_graphs, pg_summary
+from live_ekf_slam_tpu_torch.bench import (
+    card,
+    chain_blocks,
+    pg_config,
+    pg_graphs,
+    schur_system,
+)
 from live_ekf_slam_tpu_torch.config import Config
 from live_ekf_slam_tpu_torch.eval.runner import (
     fused_rollout,
     mc_inputs,
-    run_monte_carlo_pg_streams,
 )
 from live_ekf_slam_tpu_torch.models import posegraph as pg
 from live_ekf_slam_tpu_torch.ops import _build
@@ -60,6 +83,8 @@ from live_ekf_slam_tpu_torch.ops import fused_ukf as fu
 from live_ekf_slam_tpu_torch.ops.precision import pin_fp32
 
 FILTERS = ("ekf_slam", "iekf_slam", "ukf_slam", "ukf_loc")
+PG_TARGETS = ("block_thomas", "block_thomas_factor", "schur_mv")
+PEAK_BYTES = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 
 
 def median_ms(fn, reps: int) -> float:
@@ -138,8 +163,7 @@ def rel_diff(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def block_thomas_ab(args, other: Path, dev):
     """P1's solve on the pose-graph study's chain system, the other tree's
-    kernel against this tree's, in turns; then, with ``--study``, the study
-    itself on each tree in turns."""
+    kernel against this tree's, in turns."""
     trees = {"other": other, "this": _build.CSRC}
     builds = [((), other), ((), _build.CSRC)]
     if args.clocks:
@@ -174,28 +198,159 @@ def block_thomas_ab(args, other: Path, dev):
             xs["other"], pg._tridiag_solve_sequential(pfac, rhs)),
         "against": str(other), "card": card(),
     }), flush=True)
-    if not args.study:
-        return
-    turns, res = [], {}
+
+
+# one study on the tree whose root is the working directory, run by
+# ``study_ab`` in a process of its own: a warm-up at a short T (the build,
+# the CUDA context), then the timed study; one JSON line
+STUDY = """
+import json, sys, time
+import numpy as np, torch
+from live_ekf_slam_tpu_torch.bench import pg_config, pg_summary
+from live_ekf_slam_tpu_torch.eval.runner import run_monte_carlo_pg_streams
+from live_ekf_slam_tpu_torch.ops.precision import pin_fp32
+worlds, steps = int(sys.argv[1]), int(sys.argv[2])
+pin_fp32()
+dev = torch.device("cuda")
+run_monte_carlo_pg_streams(pg_config(20, "ekf_slam", False), 2, seed=0, device=dev)
+cfg = pg_config(steps, "ekf_slam", False)
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+out, info, _ = run_monte_carlo_pg_streams(cfg, worlds, seed=0, world_chunk=worlds, device=dev)
+torch.cuda.synchronize()
+wall = time.perf_counter() - t0
+print(json.dumps({"wall_s": wall, **pg_summary(out, info, steps, "ekf_slam"),
+                  "err_pose_graph_result": out["err_pose_graph_result"].tolist()}))
+"""
+
+
+def tree_root(csrc: Path) -> Path:
+    """The root of the tree whose ``live_ekf_slam_tpu_torch/csrc`` is csrc."""
+    root = csrc.resolve().parent.parent
+    if not (root / "live_ekf_slam_tpu_torch" / "eval" / "runner.py").is_file():
+        raise SystemExit(f"kernel_ab --study: {csrc} is not the csrc of a whole tree")
+    return root
+
+
+def study_ab(args, other: Path):
+    """The 1024-world pose-graph study (``ekf_slam``, bulk) of each tree in
+    turns, other, this, this, other, each its own Python and kernels."""
+    roots = {"other": tree_root(other), "this": tree_root(_build.CSRC)}
+    turns, errs = [], {}
     for tree in ("other", "this", "this", "other"):
-        with _build.sources(trees[tree]):
-            t0 = time.perf_counter()
-            out, info, _ = run_monte_carlo_pg_streams(cfg, args.worlds, seed=0,
-                                                      world_chunk=args.worlds, device=dev)
-            torch.cuda.synchronize()
-            summary = pg_summary(out, info, args.steps, "ekf_slam")
-            turns.append({"tree": tree, "wall_s": time.perf_counter() - t0, **summary})
-            res.setdefault(tree, out)
+        proc = subprocess.run([sys.executable, "-c", STUDY, str(args.worlds), str(args.steps)],
+                              cwd=roots[tree], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"the study on {roots[tree]} failed:\n{proc.stderr[-4000:]}")
+        r = json.loads(proc.stdout.strip().splitlines()[-1])
+        errs.setdefault(tree, np.asarray(r.pop("err_pose_graph_result")))
+        turns.append({"tree": tree, **r})
     print(json.dumps({
         "target": "pose_graph_study", "secondary": "ekf_slam", "mode": "bulk",
         "worlds": args.worlds, "steps": args.steps, "turns": turns,
-        "wall_s": {t: float(np.median([r["wall_s"] for r in turns if r["tree"] == t]))
-                   for t in ("other", "this")},
-        "solve_s": {t: float(np.median([r["solve_s"] for r in turns if r["tree"] == t]))
-                    for t in ("other", "this")},
+        **{key: {t: float(np.median([r[key] for r in turns if r["tree"] == t]))
+                 for t in ("other", "this")} for key in ("wall_s", "solve_s")},
         "err_pose_graph_result_max_abs_diff": float(np.abs(
-            res["this"]["err_pose_graph_result"].astype(np.float64)
-            - res["other"]["err_pose_graph_result"]).max()),
+            errs["this"].astype(np.float64) - errs["other"]).max()),
+        "against": str(other), "card": card(),
+    }), flush=True)
+
+
+def factor_ab(args, other: Path, dev):
+    """P1's factor on the study's first chain system, the other tree's
+    kernel against this tree's, in turns."""
+    trees = {"other": other, "this": _build.CSRC}
+    flags = [(), _build.NO_FMA] + ([_build.PHASE_CLOCKS] if args.clocks else [])
+    builds = [(f, c) for f in flags for c in (other, _build.CSRC)]
+    with ThreadPoolExecutor(len(builds)) as pool:  # every nvcc at once
+        list(pool.map(lambda v: _build.build(*v), builds))
+    cfg = pg_config(args.steps, "ekf_slam", False)
+    d, u, _ = chain_blocks(cfg, pg_graphs(cfg, args.worlds, dev)[0], 1.0)
+    pfac = pg._tridiag_factor_reference(d, u)
+    no_fma = {}
+    for name, tree in trees.items():
+        with _build.sources(tree), _build.without_fma():
+            nf = pg._tridiag_factor(d, u)
+        no_fma[name] = all(torch.equal(nf[k], pfac[k]) for k in pfac)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    d_sm, u_sm = d[:n_sm].contiguous(), u[:n_sm].contiguous()
+    turns, facs, dev_ms, dev_ms_sm, cyc = [], {}, {}, {}, {}
+    for name in ("other", "this", "this", "other"):
+        with _build.sources(trees[name]):
+            turns.append((name, median_ms(lambda: pg._tridiag_factor(d, u), args.reps)))
+            dev_ms.setdefault(name, []).append(factor_kernel_ms(d, u))
+            dev_ms_sm.setdefault(name, []).append(factor_kernel_ms(d_sm, u_sm))
+            facs.setdefault(name, pg._tridiag_factor(d, u))
+            if args.clocks and name not in cyc:
+                try:
+                    cyc[name] = pg.factor_phase_clocks(d, u)[0]
+                except AttributeError:  # no counters in that tree's source
+                    cyc[name] = None
+    torch.cuda.synchronize()
+    print(json.dumps({
+        "target": "block_thomas_factor", "worlds": args.worlds, "steps": args.steps,
+        "reps": args.reps, "turns": turns,
+        "median_ms": {n: float(np.median([t for k, t in turns if k == n])) for n in trees},
+        "kernel_ms": dev_ms, f"kernel_ms_{n_sm}_worlds": dev_ms_sm,
+        "cycles": cyc or None,
+        "rel_diff_to_other": {k: rel_diff(facs["this"][k], facs["other"][k]) for k in pfac},
+        "rel_diff_to_plain": {k: rel_diff(facs["this"][k], pfac[k]) for k in pfac},
+        "no_fma_bitwise_equal_to_plain": no_fma,
+        "against": str(other), "card": card(),
+    }), flush=True)
+
+
+def schur_mv_kernel_ms(d, u, hll_inv, coeffs, slots, vp) -> float:
+    """``launch_ms`` of the Schur matvec on its arguments (contiguous)."""
+    sp = torch.empty_like(vp)
+    b, t1 = vp.shape[:2]
+    return launch_ms("les_schur_mv", (
+        d.data_ptr(), u.data_ptr(), *(c.data_ptr() for c in coeffs),
+        hll_inv.data_ptr(), slots.index32.data_ptr(), int(slots.by_column),
+        vp.data_ptr(), b, t1 - 1, slots.shape[2], slots.n, sp.data_ptr(),
+        torch.cuda.current_stream().cuda_stream))
+
+
+def schur_mv_bytes(d, u, hll_inv, coeffs, slots, vp) -> float:
+    """The bytes the matvec must move: every input read once, sp written."""
+    return 4.0 * (sum(c.numel() for c in coeffs) + d.numel() + u.numel()
+                  + hll_inv.numel() + slots.index32.numel() + 2 * vp.numel())
+
+
+def schur_mv_ab(args, other: Path, dev):
+    """P2 on the study's first system, in turns with the other tree's
+    matvec (its kernel, or without one the torch spelling)."""
+    with ThreadPoolExecutor(2) as pool:  # every nvcc at once
+        list(pool.map(lambda c: _build.build((), c), [other, _build.CSRC]))
+    with _build.sources(other):
+        other_kernel = hasattr(_build.load(), "les_schur_mv")
+    cfg = pg_config(args.steps, "ekf_slam", False)
+    sy = schur_system(cfg, pg_graphs(cfg, args.worlds, dev)[0], 1.0)
+    vp = pg._tridiag_solve(pg._tridiag_factor(sy["d"], sy["u"]), sy["rhs"])
+    mv_args = (sy["d"], sy["u"], sy["hll_inv"], sy["coeffs"], sy["slots"], vp)
+    turns, outs, dev_ms = [], {}, {}
+    for name in ("other", "this", "this", "other"):
+        with _build.sources(other if name == "other" else _build.CSRC):
+            fn = (pg._schur_mv if name == "this" or other_kernel
+                  else pg._schur_mv_torch)
+            turns.append((name, median_ms(lambda: fn(*mv_args), args.reps)))
+            if name == "this" or other_kernel:
+                dev_ms.setdefault(name, []).append(schur_mv_kernel_ms(*mv_args))
+            outs.setdefault(name, fn(*mv_args))
+    torch.cuda.synchronize()
+    nbytes = schur_mv_bytes(*mv_args)
+    this_ms = float(np.median(dev_ms["this"]))
+    print(json.dumps({
+        "target": "schur_mv", "worlds": args.worlds, "steps": args.steps,
+        "reps": args.reps, "other_impl": "kernel" if other_kernel else "torch",
+        "turns": turns,
+        "median_ms": {n: float(np.median([t for k, t in turns if k == n]))
+                      for n in ("other", "this")},
+        "kernel_ms": dev_ms, "bytes": nbytes,
+        "bound_ms": 1e3 * nbytes / PEAK_BYTES,
+        "achieved_bytes_per_s": nbytes / (this_ms * 1e-3),
+        "sp_rel_diff_to_other": rel_diff(outs["this"], outs["other"]),
+        "occupancy": pg.schur_mv_occupancy(sy["slots"].shape[2], sy["slots"].n),
         "against": str(other), "card": card(),
     }), flush=True)
 
@@ -204,15 +359,15 @@ def main(argv=None):
     ap = argparse.ArgumentParser(prog="kernel_ab", description=__doc__.split("\n")[0])
     ap.add_argument("--against", required=True, type=Path,
                     help="the other tree's csrc directory")
-    ap.add_argument("--target", choices=("rollouts", "block_thomas"), default="rollouts")
+    ap.add_argument("--target", choices=("rollouts",) + PG_TARGETS, default="rollouts")
     ap.add_argument("--filters", default="ekf_slam,iekf_slam")
     ap.add_argument("--worlds", type=int, default=None,
-                    help="default 4096, block_thomas 1024")
+                    help="default 4096, the pose-graph targets 1024")
     ap.add_argument("--steps", type=int, default=1000)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--clocks", action="store_true")
     ap.add_argument("--study", action="store_true",
-                    help="block_thomas: also the pose-graph study on each tree")
+                    help="the pose-graph targets: also the study of each tree")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: torch.cuda.is_available() is false")
@@ -221,9 +376,12 @@ def main(argv=None):
         raise SystemExit(f"kernel_ab: {other} holds no fused_ekf_rollout.cu")
     pin_fp32()
     dev = torch.device("cuda")
-    if args.target == "block_thomas":
+    if args.target in PG_TARGETS:
         args.worlds = args.worlds or 1024
-        block_thomas_ab(args, other, dev)
+        {"block_thomas": block_thomas_ab, "block_thomas_factor": factor_ab,
+         "schur_mv": schur_mv_ab}[args.target](args, other, dev)
+        if args.study:
+            study_ab(args, other)
         return
     args.worlds = args.worlds or 4096
     filters = args.filters.split(",")

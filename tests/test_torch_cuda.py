@@ -17,7 +17,7 @@ import torch
 
 import chip_smoke
 from live_ekf_slam_tpu_torch.config import CompatConfig, Config
-from live_ekf_slam_tpu_torch.bench import chain_blocks, pg_config, pg_graphs
+from live_ekf_slam_tpu_torch.bench import chain_blocks, pg_config, pg_graphs, schur_system
 from live_ekf_slam_tpu_torch.eval.runner import (
     fused_rollout,
     mc_inputs,
@@ -180,6 +180,31 @@ def test_block_thomas_kernels_match_plain(steps, cuda_device):
         pg._tridiag_solve(pg._tridiag_factor(d, u), rhs[:, :-1])
 
 
+@pytest.mark.parametrize("e", [-24, -12, -1, 1, 12, 23])
+def test_block_thomas_factor_inverse_at_every_significand(e, cuda_device):
+    # the factor's inverse takes one reciprocal of the determinant and two
+    # FMAs a quotient, which gives the IEEE quotient only if that reciprocal
+    # is RN(1 / det): held here at every float significand of det at
+    # exponent e. The blocks [[1, 1, -2^e], [1 - 2^e, 1, 0], [r, 0, 1]], r
+    # = j 2^-23 (j < 2^23), have det 2^e (1 + r) exactly as the adjugate
+    # rounds it, and cofactors in [2^-60, 2^60] (the fast path) but for j =
+    # 0. With unit diagonals (dsc = 1) and no couplings every s_t is its
+    # block, so sinv is _inv3 of the blocks, and the -fmad=false build gives
+    # its bits
+    r = torch.arange(2 ** 23, device=cuda_device, dtype=torch.float64) * 2.0 ** -23
+    d = torch.eye(3, device=cuda_device).repeat(2 ** 23, 1, 1)
+    d[:, 0, 1], d[:, 0, 2], d[:, 1, 0] = 1.0, -2.0 ** e, 1.0 - 2.0 ** e
+    d[:, 2, 0] = r.float()
+    d = d.reshape(1024, 2 ** 13, 3, 3)
+    u = d.new_zeros((1024, 2 ** 13 - 1, 3, 3))
+    with _build.without_fma():
+        fac = pg._tridiag_factor(d, u)
+    assert bool((fac["dsc"] == 1.0).all())
+    want = pg._inv3(d)
+    same = torch.eq(fac["sinv"].view(torch.int32), want.view(torch.int32))
+    assert bool(same.all()), f"{int((~same).sum())} entries differ"
+
+
 # 5000 steps: y in more than 48 KB of shared memory; 20000: y kept in x
 @pytest.mark.parametrize("steps", [5000, 20000])
 def test_block_thomas_solve_on_long_chains(steps, cuda_device):
@@ -208,6 +233,45 @@ def test_block_thomas_solve_does_not_spill(cuda_device):
     # at the pose-graph study's T: y in shared memory, no local memory
     occ = pg.solve_occupancy(1000)
     rep = chip_smoke.solve_ptxas(chip_smoke.ptxas_report("block_thomas.cu"))
+    assert occ["local_bytes"] == 0 and occ["worlds_per_sm"] >= 1, occ
+    assert rep["spill_store_bytes"] == 0 and rep["spill_load_bytes"] == 0, rep
+
+
+# 20: fewer pose rows than the kernel has threads; 37: a ragged tile of
+# measurements; 1000: four tiles of rows
+@pytest.mark.parametrize("steps", [20, 37, 200, 1000])
+def test_schur_mv_kernel_matches_plain(steps, cuda_device):
+    # P2 on the blocks of real graphs, both forms of the slot map: the
+    # default build within chip_smoke.SCHUR_RTOL of both plain versions in
+    # every world, two launches equal, the -fmad=false build bit for bit
+    # (schur_mv_compare raises otherwise)
+    cfg = pg_config(steps, "ekf_slam", False)
+    graphs = pg_graphs(cfg, 9, cuda_device, seed=1)[0]
+    for sc in (16.0, 1.0):
+        for slots in (pg.LmSlots(graphs), pg.LmSlots(graphs, detect=False)):
+            sy = schur_system(cfg, graphs, sc, slots)
+            res = chip_smoke.schur_mv_compare(sy, chip_smoke.cg_direction(sy),
+                                              f"T={steps} scale={sc}")
+            assert all(res["no_fma_bitwise_equal"].values())
+            assert res["repeat_bitwise_equal"]
+    args = [sy["d"], sy["u"], sy["hll_inv"], sy["coeffs"], sy["slots"], sy["rhs"]]
+    with pytest.raises(ValueError, match="expected float32"):
+        pg._schur_mv(*args[:5], args[5].double())
+    with pytest.raises(ValueError, match="slot map"):
+        pg._schur_mv(*args[:5], args[5][:, :-1])
+    # more landmarks than a block's shared memory holds partials for: the
+    # launch is refused, and nothing falls back to torch
+    slots = pg.LmSlots(graphs)
+    slots.n = 4096
+    hll_wide = sy["hll_inv"].new_zeros((9, 4096, 3))
+    with pytest.raises(RuntimeError, match="Schur matvec kernel failed"):
+        pg._schur_mv(*args[:2], hll_wide, args[3], slots, args[5])
+
+
+def test_schur_mv_does_not_spill(cuda_device):
+    occ = pg.schur_mv_occupancy(20, 20)
+    rep = next(v for k, v in chip_smoke.ptxas_report("schur_mv.cu").items()
+               if "schur_mv_kernel" in k)
     assert occ["local_bytes"] == 0 and occ["worlds_per_sm"] >= 1, occ
     assert rep["spill_store_bytes"] == 0 and rep["spill_load_bytes"] == 0, rep
 
