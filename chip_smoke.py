@@ -47,6 +47,7 @@ before printing any result. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -70,7 +71,10 @@ from live_ekf_slam_tpu_torch.config import CompatConfig, Config
 from live_ekf_slam_tpu_torch.convert import kernel_params
 from live_ekf_slam_tpu_torch.eval.runner import (
     fused_rollout,
+    init_carry,
+    make_step,
     mc_inputs,
+    rollout,
     run_monte_carlo,
     run_monte_carlo_pg_streams,
 )
@@ -81,6 +85,9 @@ from live_ekf_slam_tpu_torch.ops import fused_ukf as fu
 from live_ekf_slam_tpu_torch.ops import micro_ops as mo
 from live_ekf_slam_tpu_torch.ops.kernel_math import atan2, wrap
 from live_ekf_slam_tpu_torch.ops.precision import pin_fp32
+from live_ekf_slam_tpu_torch.sim.streams import naive_deadreckon, sim_streams
+from live_ekf_slam_tpu_torch.sim.world import propagate_truth
+from live_ekf_slam_tpu_torch.utils.geometry import wrap_angle
 from live_ekf_slam_tpu_torch.tools import micro_downdate, micro_ukf, micro_ukf_probe
 from live_ekf_slam_tpu_torch.tools._common import DIM as MICRO_DIM
 from live_ekf_slam_tpu_torch.tools.kernel_ab import (
@@ -1455,6 +1462,371 @@ def philox_check(dev, n_lm: int):
         raise AssertionError("Philox noise moments are off")
 
 
+# ---- the per-tick path (eval/runner.make_step through run_monte_carlo's
+# impl="per_tick"): every online filter at the main path's size, on the
+# main path's inputs and Philox noise, so that each world is the world the
+# fused kernel saw. Its modes: name -> (filter, what differs from the
+# default config).
+PT_MODES = {
+    "naive": ("naive", {}),
+    "ekf_slam": ("ekf_slam", {}),
+    "ekf_slam[unknown_ids]": ("ekf_slam", {"unknown_ids": True}),
+    "iekf_slam": ("iekf_slam", {}),
+    "ukf_loc": ("ukf_loc", {}),
+    "ukf_loc[chol]": ("ukf_loc", {"sigma_sqrt": "chol"}),
+    "ukf_slam[chol]": ("ukf_slam", {"sigma_sqrt": "chol"}),
+    "ukf_slam[eigh]": ("ukf_slam", {}),
+}
+# UKF-SLAM's default square root is a batched 44 x 44 torch.linalg.eigh a
+# tick, which takes ~1 s at 4096 worlds on the card (the `eigh_timing` line:
+# cuSOLVER's batched Jacobi path serves n <= 32 only, and eigh syncs with
+# the host): its run at the main path's width is cut to this many ticks, and
+# it and its card-against-CPU check run alone in the main process, where
+# its host syncs wait on no other process's time slices on the card.
+PT_EIGH = "ukf_slam[eigh]"
+PT_EIGH_TICKS = 20
+# A per-tick tick is bound by the host (~4000 small launches; the device
+# busy ~17-18% of it): each mode's tick time is taken alone on a window of
+# its first ticks (a tick runs the same launches whatever the state), and
+# the other modes' full-size runs are side checks, in processes beside the
+# others, whose per-world results the main process holds against the fused
+# kernels once those have run (their seconds are not a mode's own).
+PT_WINDOW = {PT_EIGH: 4}
+PT_WINDOW_TICKS = 20
+PT_RUN_GROUPS = (
+    ("ekf_slam", "naive"), ("ekf_slam[unknown_ids]",), ("iekf_slam",),
+    ("ukf_slam[chol]",), ("ukf_loc[chol]", "ukf_loc"),
+)
+PT_RUNS = {}  # mode -> the line of its full-size run, from its side process
+# The card against the CPU: every mode on these worlds and ticks, the same
+# inputs on both devices; all but PT_EIGH in two side processes.
+PT_SMALL = dict(batch=64, steps=200)
+PT_CPU_GROUPS = (
+    ("naive", "ekf_slam", "ekf_slam[unknown_ids]", "ukf_loc", "ukf_loc[chol]"),
+    ("iekf_slam", "ukf_slam[chol]"),
+)
+# Per-tick against the fused kernel on the same worlds, per world: |per-tick
+# - fused| <= atol + rtol * fused, on the average error (metres), and the
+# relative gap of the mean errors. Both run the same filter in float32 but
+# not the same arithmetic: the per-tick filters are the JAX model's algebra
+# (P symmetrised once a tick, one-hot slot reads, torch.atan2), the kernels
+# their own (the two-sided downdate, FMA, K5's atan2); over 1000 ticks of
+# feedback those roundings part by up to ~1e-3 m (measured on an H100 at
+# the main shape: EKF 0.98 mm in the worst of 4096 worlds, median 12 um). A landmark on the
+# field-of-view edge may be seen by one and not the other (ROADMAP F9), and
+# a UKF-Loc world whose kernel run refused an update is chaotic (F6, and
+# NUDGE above): both kinds are counted and left out. UKF-SLAM is held by
+# its mean error over all worlds and its diverged count only: by T = 1000
+# about half its worlds are chaotic (F6), the two paths part by up to
+# metres in a few (5.8 m in one of 4096), and their mean errors by ~1%
+# (1.04%, measured on an H100); a fault moves the mean by far more.
+# mode -> (fused counterpart, per-world (atol, rtol) or None, mean rtol)
+PT_AGAINST = {
+    "naive": ("naive_deadreckon", (1e-4, 1e-3), 0.01),
+    "ekf_slam": ("ekf_slam", (1e-4, 1e-2), 0.01),
+    "iekf_slam": ("iekf_slam", (1e-4, 1e-2), 0.01),
+    "ukf_loc[chol]": ("ukf_loc", (1e-4, 1e-2), 0.01),
+    "ukf_slam[chol]": ("ukf_slam", None, 0.03),
+}
+# the largest share of the held worlds outside the per-world tolerance, and
+# of all worlds by which the diverged counts may differ
+PT_OUTSIDE_SHARE = 0.01
+# card against CPU, per world: |card - cpu| <= atol + rtol * cpu on the
+# average error, the alive masks equal, in every world that is not chaotic:
+# for the UKFs, a world whose CPU run moves by more than CHAOS_RATIO of the
+# tolerance when its noise is scaled by NUDGE (measured on an H100: 23 of 64
+# UKF-SLAM chol worlds chaotic, 6 of them parting by up to 0.62 m; every
+# other world of every mode within 2.4e-5 m)
+PT_CARD_TOL = (1e-6, 1e-3)
+
+
+def per_tick_config(base, mode: str):
+    """The config of a per-tick mode of PT_MODES."""
+    filt, kw = PT_MODES[mode]
+    cfg = base.replace(filter=filt)
+    if kw.get("unknown_ids"):
+        cons = cfg.constraints
+        cfg = cfg.replace(constraints=dataclasses.replace(
+            cons, measurements=dataclasses.replace(
+                cons.measurements, landmark_id_is_known=False)))
+    if "sigma_sqrt" in kw:
+        cfg = cfg.replace(ukf=dataclasses.replace(cfg.ukf,
+                                                  sigma_sqrt=kw["sigma_sqrt"]))
+    return cfg
+
+
+def pt_steps(mode: str) -> int:
+    return PT_EIGH_TICKS if mode == PT_EIGH else MAIN["steps"]
+
+
+def fov_edge_worlds(cfg, lms, cmds, noise) -> np.ndarray:
+    """(B,) bool: the worlds in which, at some tick, torch.atan2 and K5's
+    atan2 disagree on whether a landmark is visible, on the per-tick path's
+    own truth (ROADMAP F9)."""
+    vision = cfg.constraints.vision
+    pose = torch.tensor(cfg.init_pose, dtype=torch.float32,
+                        device=lms.device).expand(lms.shape[0], 3)
+    edge = torch.zeros(lms.shape[0], dtype=torch.bool, device=lms.device)
+    for t in range(cmds.shape[1]):
+        pose = propagate_truth(cfg, pose, cmds[:, t], noise[t, 0:2].T)
+        dx = lms[:, :, 0] - pose[:, 0:1]
+        dy = lms[:, :, 1] - pose[:, 1:2]
+        r_ok = torch.sqrt(dx * dx + dy * dy) <= vision.range_max
+        vis = []
+        for b in (wrap_angle(torch.atan2(dy, dx) - pose[:, 2:3]),
+                  wrap(atan2(dy, dx) - pose[:, 2:3])):
+            vis.append(r_ok & (b > vision.fov_min) & (b < vision.fov_max))
+        edge |= (vis[0] != vis[1]).any(dim=1)
+    return edge.cpu().numpy()
+
+
+def held_against_fused(mode, cfg, err, diverged, ref, lms, cmds, noise) -> dict:
+    """The per-tick average errors of ``mode`` against its fused counterpart
+    on the same worlds (PT_AGAINST); ``ref`` is (average errors, diverged
+    mask, update refusals or None) of the fused run. Raises when out of
+    tolerance."""
+    against, tol, mean_rtol = PT_AGAINST[mode]
+    ref_err, ref_div, ref_rej = ref
+    b = len(err)
+    held = ~diverged & ~ref_div
+    out = {"against": against, "tolerance": tol, "mean_rtol": mean_rtol}
+    if tol is not None:
+        chaotic = np.zeros(b, bool) if ref_rej is None else ref_rej > 0
+        edge = fov_edge_worlds(cfg, lms, cmds, noise)
+        held &= ~chaotic & ~edge
+        out.update(worlds_refusing_in_kernel=int(chaotic.sum()),
+                   fov_edge_worlds=int(edge.sum()))
+    d = np.abs(err - ref_err)
+    mean_ref = float(ref_err[held].mean())
+    out.update(
+        worlds_held=int(held.sum()), mean_err_fused_m=mean_ref,
+        mean_err_gap_rel=abs(float(err[held].mean()) - mean_ref) / mean_ref,
+        mean_err_gap_rel_all_worlds=(abs(float(err.mean()) - float(ref_err.mean()))
+                                     / float(ref_err.mean())),
+        diverged_fused=int(ref_div.sum()),
+        max_abs_diff_m=float(d[held].max()),
+        max_abs_diff_all_worlds_m=float(d.max()),
+        median_abs_diff_m=float(np.median(d[held])))
+    if tol is not None:
+        atol, rtol = tol
+        outside = ~(d <= atol + rtol * np.abs(ref_err))
+        out.update(worlds_outside=int((outside & held).sum()),
+                   worlds_outside_all=int(outside.sum()))
+        if out["worlds_outside"] > PT_OUTSIDE_SHARE * b:
+            raise AssertionError(f"{mode}: per-tick against {against}: {out}")
+    if not out["mean_err_gap_rel"] <= mean_rtol:
+        raise AssertionError(f"{mode}: mean error against {against}: {out}")
+    if abs(int(diverged.sum()) - out["diverged_fused"]) > PT_OUTSIDE_SHARE * b:
+        raise AssertionError(f"{mode}: diverged worlds against {against}: {out}")
+    return out
+
+
+def tick_launches(cfg, carry, cmd, u) -> dict:
+    """One tick of the per-tick step under torch.profiler: the CUDA kernels
+    it runs (and memory copies / sets), their summed device time, the
+    runtime's launch calls, and the tick's host time (profiled)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step = make_step(cfg)
+    step(carry, cmd, u)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(carry, cmd, u)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+    kernels = memops = launch_calls = 0
+    device_us = 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            if e.name.startswith(("Memcpy", "Memset")):
+                memops += 1
+            else:
+                kernels += 1
+            device_us += e.device_time_total
+        elif e.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                        "cudaLaunchKernelExC", "cuLaunchKernelEx"):
+            launch_calls += 1
+    return {"kernels": kernels, "memops": memops, "launch_calls": launch_calls,
+            "device_ms": device_us / 1e3, "host_ms_profiled": 1e3 * host_s,
+            "device_busy_share": device_us / 1e6 / host_s if host_s else None}
+
+
+def eigh_timing(dev, b: int):
+    """One torch.linalg.eigh of b random symmetric positive definite n x n
+    float32 matrices (seeded) for n = 4 (UKF-Loc), 32 (the largest n of
+    cuSOLVER's batched Jacobi path) and 44 (UKF-SLAM at N = 20), after a
+    warm-up call each."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    ms = {}
+    for n in (4, 32, 44):
+        a = torch.randn((b, n, n), generator=gen, device=dev)
+        a = a @ a.transpose(1, 2) + 0.1 * torch.eye(n, device=dev)
+        torch.linalg.eigh(a)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.linalg.eigh(a)
+        torch.cuda.synchronize()
+        ms[f"n={n}"] = 1e3 * (time.perf_counter() - t0)
+    emit("eigh_timing", worlds=b, ms=ms)
+
+
+def per_tick_alone(dev, n_lm: int, lms, cmds, noise) -> dict:
+    """Each mode's tick time alone on the card: the first PT_WINDOW ticks on
+    the main path's inputs, after two ticks of warm-up; and one tick of
+    ekf_slam and of ukf_slam[chol] under the profiler. mode -> dict."""
+    out = {}
+    for mode in PT_MODES:
+        cfg = per_tick_config(Config(num_iterations=MAIN["steps"]), mode)
+        w = PT_WINDOW.get(mode, PT_WINDOW_TICKS)
+        step = make_step(cfg)
+        carry, _ = rollout(cfg, init_carry(cfg, lms, n_lm), cmds[:, :2],
+                           noise[:2], step=step)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, _ = rollout(cfg, carry, cmds[:, 2:2 + w], noise[2:2 + w],
+                           step=step)
+        torch.cuda.synchronize()
+        tick_s = (time.perf_counter() - t0) / w
+        out[mode] = {"window_ticks": w, "ms_per_tick": 1e3 * tick_s,
+                     "steps_per_s_per_world": 1.0 / tick_s}
+        if mode in ("ekf_slam", "ukf_slam[chol]"):
+            out[mode]["one_tick"] = tick_launches(
+                cfg, carry, cmds[:, 2 + w], noise[2 + w].T)
+    return out
+
+
+def per_tick_run(mode: str, dev) -> dict:
+    """``mode`` through run_monte_carlo(impl="per_tick") at 4096 worlds, the
+    counts zeroed before and read after: its seconds, launches, final state
+    shape and per-world results."""
+    cfg = per_tick_config(Config(num_iterations=pt_steps(mode)), mode)
+    filt = cfg.filter
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, final, _ = run_monte_carlo(cfg, MAIN["batch"], seed=0,
+                                    impl="per_tick", device=dev,
+                                    protocol="shared")
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    state = final.primary.pose if filt == "naive" else final.primary.x
+    return {"per_tick_run": mode, "seconds": run_s, "launches": counts(),
+            "state_shape": list(state.shape),
+            "err": res["err_" + filt].tolist(),
+            "diverged": res["diverged_" + filt].tolist()}
+
+
+def per_tick_runs(dev, n_lm: int, modes: tuple):
+    """A side check: the full-size runs of ``modes``, one line each, which
+    ``side_checks`` keeps in PT_RUNS for ``per_tick_path``."""
+    for mode in modes:
+        print(json.dumps(per_tick_run(mode, dev)), flush=True)
+
+
+def per_tick_path(dev, n_lm: int, fused: dict, smi: str) -> int:
+    """Every mode of PT_MODES at the main path's size (PT_EIGH at
+    PT_EIGH_TICKS ticks): timed alone on a window (``per_tick_alone``), run
+    whole through run_monte_carlo(impl="per_tick") (PT_EIGH here, alone, the
+    others in the side processes), each run's launches only the Philox
+    kernel's; the modes with a fused counterpart held against it world by
+    world (``fused``: filter -> (average errors, diverged mask, refusals) of
+    the main path's run); PT_EIGH's card-against-CPU check. Returns the
+    Philox kernel's launches on the path."""
+    base = Config(num_iterations=MAIN["steps"])
+    b = MAIN["batch"]
+    eigh_timing(dev, b)
+    lms, cmds = mc_inputs(base, b, 0, dev, shared=True, relabel=True)
+    noise = philox.philox_noise(0, MAIN["steps"], n_lm, b, dev)
+    alone = per_tick_alone(dev, n_lm, lms, cmds, noise)
+    PT_RUNS[PT_EIGH] = per_tick_run(PT_EIGH, dev)
+    per_tick_card_vs_cpu(dev, n_lm, (PT_EIGH,))
+
+    philox_total = 0
+    for mode in PT_MODES:
+        r = PT_RUNS[mode]
+        filt = PT_MODES[mode][0]
+        want = {k: int(k == "philox_noise") for k in r["launches"]}
+        if r["launches"] != want:
+            raise AssertionError(f"per-tick {mode}: launched {r['launches']}, "
+                                 "not once philox_noise")
+        philox_total += r["launches"]["philox_noise"]
+        err = np.asarray(r["err"], np.float32)
+        diverged = np.asarray(r["diverged"], bool)
+        if not np.isfinite(err).all():
+            raise AssertionError(f"per-tick {mode}: non-finite average errors")
+        du = {"naive": 3, "ukf_loc": 4, "ukf_slam": 4 + 2 * n_lm}.get(filt, 3 + 2 * n_lm)
+        if r["state_shape"] != [b, du]:
+            raise AssertionError(f"per-tick {mode}: state shape {r['state_shape']}")
+        line = dict(mode=mode, filter=filt, worlds=b, steps=pt_steps(mode),
+                    run_monte_carlo_s=r["seconds"],
+                    run_beside_other_processes=mode != PT_EIGH, **alone[mode],
+                    mean_avg_pos_err_m=float(err.mean()),
+                    diverged=int(diverged.sum()), launches=r["launches"], card=smi)
+        if mode == PT_EIGH:
+            line["cut"] = (f"{PT_EIGH_TICKS} of {MAIN['steps']} ticks: the "
+                           "batched 44 x 44 eigh takes ~1 s a tick at 4096 "
+                           "worlds (eigh_timing)")
+        if mode in PT_AGAINST:
+            if mode == "naive":
+                st = sim_streams(base, lms, n_lm, cmds, noise)
+                est = naive_deadreckon(base, cmds)
+                ref_err = torch.linalg.vector_norm(
+                    est[:, :, :2] - st["poses_true"][:, :, :2], dim=-1).mean(dim=1)
+                ref = (ref_err.cpu().numpy(), np.zeros(b, dtype=bool), None)
+            else:
+                ref = fused[filt]
+            line["held_against_fused"] = held_against_fused(
+                mode, per_tick_config(base, mode), err, diverged, ref, lms,
+                cmds, noise)
+        emit("per_tick_path", **line)
+    return philox_total
+
+
+def per_tick_card_vs_cpu(dev, n_lm: int, modes: tuple):
+    """The ``modes`` of PT_MODES at PT_SMALL on the card and on the CPU,
+    from the same inputs (made on the CPU) and noise: the average errors and
+    alive masks against PT_CARD_TOL, the UKFs' chaotic worlds left out."""
+    cpu = torch.device("cpu")
+    base = Config(num_iterations=PT_SMALL["steps"])
+    b, t_total = PT_SMALL["batch"], PT_SMALL["steps"]
+    lms, cmds = mc_inputs(base, b, 0, cpu)
+    noise = philox.philox_noise_reference(0, t_total, n_lm, b, cpu)
+    atol, rtol = PT_CARD_TOL
+
+    def run(cfg, d, nz):
+        t0 = time.perf_counter()
+        final, _ = rollout(cfg, init_carry(cfg, lms.to(d), n_lm), cmds.to(d),
+                           nz.to(d))
+        ticks = torch.clamp_min(final.ticks_primary, 1).to(torch.float32)
+        return ((final.err_sum_primary / ticks).cpu().numpy(),
+                final.alive_primary.cpu().numpy(), time.perf_counter() - t0)
+
+    for mode in modes:
+        cfg = per_tick_config(base, mode)
+        (e_c, a_c, s_c), (e_h, a_h, s_h) = run(cfg, dev, noise), run(cfg, cpu, noise)
+        scale = atol + rtol * np.abs(e_h)
+        chaotic = np.zeros(b, bool)
+        if cfg.filter.startswith("ukf"):
+            e_n, _, _ = run(cfg, cpu, noise * NUDGE)
+            chaotic = np.abs(e_n - e_h) > CHAOS_RATIO * scale
+        d_err = np.abs(e_c - e_h)
+        outside = ~(d_err <= scale) | (a_c != a_h)
+        line = dict(mode=mode, worlds=b, steps=t_total, tolerance=PT_CARD_TOL,
+                    worlds_chaotic=int(chaotic.sum()),
+                    worlds_outside=int((outside & ~chaotic).sum()),
+                    worlds_outside_chaotic=int((outside & chaotic).sum()),
+                    max_abs_diff_m=float(d_err[~chaotic].max()),
+                    max_abs_diff_all_worlds_m=float(d_err.max()),
+                    mean_err_card_m=float(e_c.mean()),
+                    mean_err_cpu_m=float(e_h.mean()),
+                    alive_differs=int((a_c != a_h).sum()),
+                    card_s=s_c, cpu_s=s_h)
+        emit("per_tick_card_vs_cpu", **line)
+        if line["worlds_outside"]:
+            raise AssertionError(f"per-tick {mode}: card against CPU: {line}")
+
+
 # The checks whose results nothing later reads, by name, and the processes
 # they run in: the plain versions they wait for are bound by the host (one
 # Python thread issuing small launches), so processes side by side shorten
@@ -1471,12 +1843,23 @@ SIDE_CHECKS = {
        for kind in fr.FILTER_KINDS},
     "block_thomas": lambda dev, n_lm: block_thomas_checks(dev),
     "schur_mv": lambda dev, n_lm: schur_mv_checks(dev),
+    # beside the other side processes: two CPU threads
+    **{f"per_tick_card_vs_cpu[{i}]":
+       (lambda dev, n_lm, modes=modes: (torch.set_num_threads(2),
+                                        per_tick_card_vs_cpu(dev, n_lm, modes)))
+       for i, modes in enumerate(PT_CPU_GROUPS)},
+    **{f"per_tick_run[{i}]":
+       (lambda dev, n_lm, modes=modes: per_tick_runs(dev, n_lm, modes))
+       for i, modes in enumerate(PT_RUN_GROUPS)},
 }
 SIDE_GROUPS = (
+    *((f"per_tick_run[{i}]",) for i in range(len(PT_RUN_GROUPS))),
     ("fused_ukf_rollout[slam]",),
     ("fused_ukf_rollout[loc]",),
     ("fused_ekf_rollout", "pose_stream_main[ekf]"),
     ("fused_iekf_rollout", "pose_stream_main[iekf]"),
+    ("per_tick_card_vs_cpu[0]",),
+    ("per_tick_card_vs_cpu[1]",),
     ("philox", "pose_stream", "block_thomas", "schur_mv"),
 )
 SIDE_FLAG = "--side-checks"
@@ -1496,11 +1879,15 @@ def side_checks(dev, n_lm: int):
         for name in SIDE_GROUPS[-1]:
             SIDE_CHECKS[name](dev, n_lm)
         for group, p, out in zip(SIDE_GROUPS, procs, outs):
-            text = out.result()[0]
-            sys.stdout.write(text)
+            for line in out.result()[0].splitlines(keepends=True):
+                if line.startswith('{"per_tick_run"'):  # per-world arrays
+                    run = json.loads(line)
+                    PT_RUNS[run["per_tick_run"]] = run
+                    continue
+                sys.stdout.write(line)
+                if line.startswith("{"):
+                    LINES.append(json.loads(line))
             sys.stdout.flush()
-            LINES.extend(json.loads(line) for line in text.splitlines()
-                         if line.startswith("{"))
             if p.returncode != 0:
                 raise AssertionError(f"the side checks {group} ended with "
                                      f"code {p.returncode}")
@@ -1563,6 +1950,7 @@ def main():
     lms, cmds = mc_inputs(base, MAIN["batch"], 0, dev, shared=True, relabel=True)
     gates = gate_counts(base, lms, cmds, 0)
     record = []
+    fused = {}  # filter -> (average errors, diverged mask), for the per-tick path
     for kname, (filt, (ctr, key), src, replaces) in KERNELS.items():
         cfg = base.replace(filter=filt)
         zero_counts()
@@ -1579,6 +1967,9 @@ def main():
         err = res["err_" + filt]
         if not np.isfinite(err).all():
             raise AssertionError(f"{filt}: non-finite average errors")
+        fused[filt] = (err, res["diverged_" + filt],
+                       out["update_rejects"].cpu().numpy()
+                       if filt.startswith("ukf") else None)
         du = fu.state_dim(n_lm, filt == "ukf_slam") if filt.startswith("ukf") \
             else 3 + 2 * n_lm
         if tuple(out["x"].shape) != (MAIN["batch"], du):
@@ -1666,8 +2057,12 @@ def main():
     pg_record, philox_launches = pose_graph_paths(dev, n_lm)
     record += pg_record
 
+    # ---- 8. the per-tick path of every online filter
+    philox_launches += per_tick_path(dev, n_lm, fused, smi)
+
     # the standalone Philox kernel: the rollouts draw in-kernel, the
-    # pose-graph path launches it once per world chunk
+    # pose-graph path launches it once per world chunk, the per-tick path
+    # once per run
     args = (0, MAIN["steps"], n_lm, MAIN["batch"], dev)
     philox.philox_noise(*args)
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)

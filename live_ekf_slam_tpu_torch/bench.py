@@ -3,6 +3,7 @@
     python -m live_ekf_slam_tpu_torch.bench                # EKF-SLAM kernel
     python -m live_ekf_slam_tpu_torch.bench --filter ukf_slam
     python -m live_ekf_slam_tpu_torch.bench --impl plain --reps 1
+    python -m live_ekf_slam_tpu_torch.bench --impl per_tick --filter naive
     python -m live_ekf_slam_tpu_torch.bench --filter pose_graph \
         --secondary ekf_slam [--iterative] [--worlds 1024]
 
@@ -15,8 +16,12 @@ for a map per world. Inputs are
 made once; each timed rep is one rollout between two
 ``torch.cuda.synchronize()`` calls, and the value is the median rep.
 ``--impl plain`` times the plain torch version on the card instead of the
-kernel. It needs a CUDA device and never falls back to the CPU; it writes
-nothing to disk. Prints one JSON line: metric, value, unit.
+kernel. ``--impl per_tick`` (the JAX ``BENCH_IMPL=xla``) times the per-tick
+path instead, ``eval.runner.rollout`` over the same inputs and the Philox
+noise stream, for any of the five online filters (naive included), one rep
+by default. It needs a CUDA device and never falls back to the CPU; only
+``--impl per_tick --device cpu`` runs on the CPU, which asks for it. It
+writes nothing to disk. Prints one JSON line: metric, value, unit.
 
 ``--filter pose_graph`` times the pose-graph streams path instead
 (``run_monte_carlo_pg_streams``, the JAX ``scripts/bench_pg_streams.py``): by
@@ -40,11 +45,16 @@ import torch
 
 from live_ekf_slam_tpu_torch.config import Config
 from live_ekf_slam_tpu_torch.eval.runner import (
-    FILTERS,
+    ONLINE_FILTERS,
     PG_SECONDARIES,
     fused_rollout,
+    init_carry,
+    make_step,
     mc_inputs,
+    resolve_device,
+    rollout,
     run_monte_carlo_pg_streams,
+    sync_clock,
 )
 from live_ekf_slam_tpu_torch.models import posegraph as pg
 from live_ekf_slam_tpu_torch.ops import _build, philox
@@ -97,6 +107,55 @@ def time_rollouts(cfg, lms, cmds, impl: str, reps: int, seed0: int = 1):
         host_s.append(time.perf_counter() - t0)
         dev_ms.append(e0.elapsed_time(e1))
     return host_s, dev_ms, out
+
+
+def time_per_tick(cfg, lms, cmds, seed: int, reps: int):
+    """Time ``reps`` per-tick rollouts of ``cfg.filter`` over (lms, cmds)
+    with the Philox noise of ``seed`` (drawn once, outside the timing),
+    after a warm-up of a few ticks (CUDA context, cuBLAS, the Philox build).
+    Each rep ends in a device synchronise. Returns (host-clock seconds of
+    each rep, the last final carry)."""
+    dev = lms.device
+    t_total, n_lm = cmds.shape[1], lms.shape[1]
+    noise = philox.philox_noise(seed, t_total, n_lm, lms.shape[0], dev)
+    step = make_step(cfg)
+    rollout(cfg, init_carry(cfg, lms, n_lm), cmds[:, :WARMUP_TICKS],
+            noise[:WARMUP_TICKS], step=step)
+    host_s, final = [], None
+    for _ in range(reps):
+        t0 = sync_clock(dev)
+        final, _ = rollout(cfg, init_carry(cfg, lms, n_lm), cmds, noise,
+                           step=step)
+        host_s.append(sync_clock(dev) - t0)
+    return host_s, final
+
+
+def bench_per_tick(args) -> dict:
+    dev = resolve_device(args.device)
+    cfg = Config(num_iterations=args.steps).replace(filter=args.filter)
+    lms, cmds = mc_inputs(cfg, args.worlds, 0, dev,
+                          shared=args.protocol == "shared", relabel=True)
+    reps = args.reps or 1
+    times, final = time_per_tick(cfg, lms, cmds, 0, reps)
+    elapsed = float(np.median(times))
+    log(f"timed: {elapsed:.6f}s/rep (median of {reps}; per-rep "
+        f"{' '.join(f'{t:.6f}' for t in times)})")
+    ticks = torch.clamp_min(final.ticks_primary, 1).to(torch.float32)
+    err = (final.err_sum_primary / ticks).cpu().numpy()
+    if not np.isfinite(err).all():
+        raise RuntimeError("the per-tick rollout produced non-finite errors")
+    where = card() if dev.type == "cuda" else "the CPU, not a device metric"
+    return {
+        "metric": (
+            f"per-tick sim+{args.filter} steps/sec/world at {args.worlds} "
+            f"worlds (T={args.steps}, {args.protocol}; mean avg-pos-err "
+            f"{float(err.mean()):.4f} m, "
+            f"{int((~final.alive_primary).sum())} diverged; {where})"
+        ),
+        "value": args.steps / elapsed,
+        "unit": "steps/s/world",
+        "ms_per_tick": 1e3 * elapsed / args.steps,
+    }
 
 
 def pg_config(steps: int, secondary: str, iterative: bool) -> Config:
@@ -188,20 +247,34 @@ def bench_pose_graph(args) -> dict:
 
 def main(argv=None):
     p = argparse.ArgumentParser(prog="live_ekf_slam_tpu_torch.bench")
-    p.add_argument("--filter", choices=FILTERS + ("pose_graph",),
-                   default="ekf_slam")
+    p.add_argument("--filter", choices=ONLINE_FILTERS + ("pose_graph",),
+                   default="ekf_slam",
+                   help="naive runs with --impl per_tick only")
     p.add_argument("--secondary", choices=PG_SECONDARIES, default="naive",
                    help="pose_graph only: the filter that seeds the graph")
     p.add_argument("--iterative", action="store_true",
                    help="pose_graph only: replay the per-tick solves first")
-    p.add_argument("--impl", choices=["cuda", "plain"], default="cuda")
+    p.add_argument("--impl", choices=["cuda", "plain", "per_tick"],
+                   default="cuda")
+    p.add_argument("--device", default="cuda",
+                   help="per_tick only: cpu runs it on the CPU")
     p.add_argument("--protocol", choices=["shared", "perworld"],
                    default="shared")
     p.add_argument("--worlds", type=int, default=None,
                    help="default 4096, pose_graph 1024")
     p.add_argument("--steps", type=int, default=1000)
-    p.add_argument("--reps", type=int, default=5)
+    p.add_argument("--reps", type=int, default=None,
+                   help="default 5, per_tick 1")
     args = p.parse_args(argv)
+    if args.filter == "naive" and args.impl != "per_tick":
+        raise SystemExit("naive has no fused rollout: use --impl per_tick")
+    if args.device != "cuda" and args.impl != "per_tick":
+        raise SystemExit("only --impl per_tick runs on another device")
+    if args.impl == "per_tick" and args.filter != "pose_graph":
+        pin_fp32()
+        args.worlds = args.worlds or 4096
+        print(json.dumps(bench_per_tick(args)))
+        return
     if not torch.cuda.is_available():
         raise SystemExit("bench needs a CUDA device; none is available")
     pin_fp32()
@@ -221,6 +294,7 @@ def main(argv=None):
     torch.cuda.synchronize()
     log(f"worlds+trajectories ready {time.perf_counter() - t0:.2f}s")
 
+    args.reps = args.reps or 5
     times, _, out = time_rollouts(cfg, lms, cmds, args.impl, args.reps)
     elapsed = float(np.median(times))
     log(f"timed: {elapsed:.6f}s/rep (median of {args.reps}; per-rep "

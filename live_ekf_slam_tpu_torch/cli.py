@@ -2,12 +2,18 @@
 
     python -m live_ekf_slam_tpu_torch.cli monte_carlo --filter ukf_slam \\
         --batch 256 --steps 1000 --seed 0
+    python -m live_ekf_slam_tpu_torch.cli monte_carlo --filter naive \\
+        --impl per_tick --landmark-map demo
 
-Counterpart of ``live_ekf_slam_tpu/cli.py``'s monte_carlo preset for the
-four filters with a fused rollout (ekf_slam, iekf_slam, ukf_slam, ukf_loc):
-prints each result's mean and std as that CLI does. It runs on the card;
-``--device cpu`` runs the plain version on the CPU instead. The other presets
-(viewers, closed loop, bar graphs) are not ported yet.
+Counterpart of ``live_ekf_slam_tpu/cli.py``'s monte_carlo preset for the five
+online filters: prints each result's mean and std as that CLI does.
+``--impl fused`` (the default) runs the four filters with a fused rollout
+kernel; ``--impl per_tick`` steps every world once a tick through the
+simulator and the filter (the JAX CLI's default path), naive included.
+``--landmark-map`` picks a fixed map (demo, grid, igvc1) or random maps. It
+runs on the card; ``--device cpu`` runs the plain version on the CPU
+instead. The other presets (viewers, closed loop, bar graphs) are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -18,13 +24,14 @@ import sys
 import numpy as np
 
 from live_ekf_slam_tpu_torch.config import Config
-from live_ekf_slam_tpu_torch.eval.runner import FILTERS, run_monte_carlo
+from live_ekf_slam_tpu_torch.eval.runner import IMPLS, ONLINE_FILTERS, run_monte_carlo
 
 
 def run_monte_carlo_cli(cfg, args):
     print(f"device: {args.device}", file=sys.stderr, flush=True)
     res, _, _ = run_monte_carlo(
-        cfg, batch=args.batch, seed=args.seed, device=args.device
+        cfg, batch=args.batch, seed=args.seed, impl=args.impl,
+        device=args.device,
     )
     out = {k.replace("err_", ""): v for k, v in res.items()}
     for k, v in out.items():
@@ -35,7 +42,11 @@ def run_monte_carlo_cli(cfg, args):
 def main(argv=None):
     p = argparse.ArgumentParser(prog="live_ekf_slam_tpu_torch")
     p.add_argument("preset", choices=["monte_carlo"])
-    p.add_argument("--filter", default="ekf_slam", choices=FILTERS)
+    p.add_argument("--filter", default="ekf_slam", choices=ONLINE_FILTERS)
+    p.add_argument("--impl", default="fused", choices=IMPLS,
+                   help="fused rollout kernel (default) or the per-tick path")
+    p.add_argument("--landmark-map", dest="landmark_map",
+                   choices=["random", "rand", "demo", "grid", "igvc1"])
     p.add_argument("--steps", type=int)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--batch", type=int, default=64)
@@ -45,6 +56,8 @@ def main(argv=None):
     cfg = Config().replace(filter=args.filter)
     if args.steps:
         cfg = cfg.replace(num_iterations=args.steps)
+    if args.landmark_map:
+        cfg = cfg.replace(landmark_map=args.landmark_map)
     run_monte_carlo_cli(cfg, args)
     return 0
 

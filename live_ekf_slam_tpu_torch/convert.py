@@ -17,6 +17,11 @@ turns a JAX ``PoseGraphState`` (its fields as numpy arrays, one world or a
 The kernel-attribution slice adds ``micro_inputs_from_numpy`` and
 ``micro_output_to_numpy``, which carry the microbenchmark scripts' world-minor
 arrays into the port's world-major layout and back.
+
+The per-tick slice adds ``world_state_from_numpy`` and
+``filter_state_from_numpy``, which turn the JAX ``WorldState`` and the
+online filters' states (``NaiveState``, ``GaussianState``, ``UKFState``) into
+the port's, so that both packages can start from one state.
 """
 
 from __future__ import annotations
@@ -33,7 +38,13 @@ from live_ekf_slam_tpu_torch.core.noise import (
     calibrated_meas_vars,
     use_calibrated,
 )
-from live_ekf_slam_tpu_torch.core.types import PoseGraphState
+from live_ekf_slam_tpu_torch.core.types import (
+    GaussianState,
+    NaiveState,
+    PoseGraphState,
+    UKFState,
+    WorldState,
+)
 
 _FLOAT_FIELDS = (
     # filter noise variances (compat V/W swap and calibrated W applied)
@@ -201,6 +212,50 @@ def posegraph_state_from_numpy(state, device="cpu") -> PoseGraphState:
         fields[f.name] = torch.tensor(  # a copy: jax's arrays are read-only
             a, dtype=_PG_DTYPES.get(f.name, torch.float32), device=device)
     return PoseGraphState(**fields)
+
+
+_INT_NAMES = ("ids", "M", "timestep", "num_landmarks")
+
+
+def _batched(cls, state, vector: str, device):
+    """The fields of ``cls`` read off ``state`` as tensors on ``device``,
+    with a leading world axis added when the field ``vector`` is a single
+    world's vector; ids, counts and timesteps int32, the rest float32."""
+    single = np.asarray(getattr(state, vector)).ndim == 1
+    fields = {}
+    for f in dataclasses.fields(cls):
+        a = np.asarray(getattr(state, f.name))
+        if single:
+            a = a[None]
+        dtype = torch.int32 if f.name in _INT_NAMES else torch.float32
+        fields[f.name] = torch.tensor(a, dtype=dtype, device=device)  # a copy
+    return cls(**fields)
+
+
+def world_state_from_numpy(state, device="cpu") -> WorldState:
+    """A JAX ``WorldState`` (pose, landmarks, num_landmarks as arrays, one
+    world or a ``vmap`` batch) -> the port's batched one on ``device``."""
+    return _batched(WorldState, state, "pose", device)
+
+
+# filter name -> (the port's state class, its per-world vector field)
+_FILTER_STATES = {
+    "naive": (NaiveState, "pose"),
+    "ekf_slam": (GaussianState, "x"),
+    "iekf_slam": (GaussianState, "x"),
+    "ukf_slam": (UKFState, "x"),
+    "ukf_loc": (UKFState, "x"),
+}
+
+
+def filter_state_from_numpy(name: str, state, device="cpu"):
+    """The state of the online filter ``name`` as the JAX package holds it
+    (``NaiveState``, ``GaussianState`` or ``UKFState``, its fields as
+    arrays, one world or a ``vmap`` batch) -> the port's batched one."""
+    if name not in _FILTER_STATES:
+        raise ValueError(f"no per-tick state for filter {name!r}")
+    cls, vector = _FILTER_STATES[name]
+    return _batched(cls, state, vector, device)
 
 
 def streams_from_numpy(streams: dict, device="cpu") -> dict:

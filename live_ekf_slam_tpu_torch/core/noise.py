@@ -12,13 +12,15 @@ from __future__ import annotations
 
 import torch
 
+from live_ekf_slam_tpu_torch.ops.precision import constant
+
 S3 = 3.0 ** 0.5
 
 
 def _div(x: torch.Tensor, s: float) -> torch.Tensor:
     """x / s in true IEEE division. Dividing a CUDA tensor by a Python number
     multiplies by its reciprocal instead, which rounds differently."""
-    return x / torch.tensor(s, dtype=x.dtype, device=x.device)
+    return x / constant(float(s), x.dtype, x.device)
 
 
 def clip_uniform_moments(c, v: float, lo: float, hi: float):

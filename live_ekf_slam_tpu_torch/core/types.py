@@ -3,8 +3,9 @@
 
 The JAX package keeps per-world PyTrees and batches them with ``jax.vmap``;
 the port's containers hold tensors with the world batch as an explicit leading
-axis. Only ``PoseGraphState`` is here so far: the other states belong to the
-per-tick path (ROADMAP.md, M9).
+axis ``B``. The field names are the JAX package's. Every container is
+allocated at fixed capacity with an active extent (``M``, ``num_landmarks``)
+and per-slot masks, so a masked no-op update is an exact identity.
 """
 
 from __future__ import annotations
@@ -14,8 +15,83 @@ import dataclasses
 import torch
 
 
+class StateFields:
+    """``replace`` and ``map`` for the frozen dataclasses below."""
+
+    def replace(self, **kw):
+        return dataclasses.replace(self, **kw)
+
+    def map(self, fn):
+        """``fn`` applied to every field (a world slice, a device move)."""
+        return type(self)(**{
+            f.name: fn(getattr(self, f.name)) for f in dataclasses.fields(self)
+        })
+
+
 @dataclasses.dataclass(frozen=True)
-class PoseGraphState:
+class WorldState(StateFields):
+    """Ground-truth worlds (the reference's sim_node globals).
+
+    pose (B, 3) true vehicle (x, y, theta), theta deliberately unwrapped;
+    landmarks (B, N, 2) true landmark positions, slot index == landmark id;
+    num_landmarks (B,) int32, the number of active landmark slots.
+    """
+
+    pose: torch.Tensor
+    landmarks: torch.Tensor
+    num_landmarks: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class Measurements(StateFields):
+    """One tick's landmark detections in fixed slots, ordered by ascending
+    landmark id (the sequential-update order of the reference filters)."""
+
+    ids: torch.Tensor       # (B, K) int32, -1 for empty slots
+    r: torch.Tensor         # (B, K) float32 noisy range
+    b: torch.Tensor         # (B, K) float32 noisy bearing
+    valid: torch.Tensor     # (B, K) bool
+    overflow: torch.Tensor  # (B,) bool: more than K landmarks were visible
+
+
+@dataclasses.dataclass(frozen=True)
+class NaiveState(StateFields):
+    """Naive command-propagation filter state (filter.h:325-370)."""
+
+    pose: torch.Tensor      # (B, 3)
+    timestep: torch.Tensor  # (B,) int32
+
+
+@dataclasses.dataclass(frozen=True)
+class GaussianState(StateFields):
+    """EKF-SLAM / RI-EKF-SLAM padded state over (x, y, theta, lm...) of dim
+    D = 3 + 2N: mean x (B, D), covariance P (B, D, D), landmark id per slot in
+    discovery order ids (B, N) int32 (-1 when empty), active count M (B,)
+    int32 and timestep (B,) int32."""
+
+    x: torch.Tensor
+    P: torch.Tensor
+    ids: torch.Tensor
+    M: torch.Tensor
+    timestep: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class UKFState(StateFields):
+    """UKF padded state over (x, y, cos t, sin t, lm...) of dim Du = 4 + 2N
+    (UKF-SLAM) or 4 (UKF-Loc), the same fields as ``GaussianState`` and X
+    (B, Du, 2 Du + 1), the last tick's sigma points."""
+
+    x: torch.Tensor
+    P: torch.Tensor
+    ids: torch.Tensor
+    M: torch.Tensor
+    timestep: torch.Tensor
+    X: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class PoseGraphState(StateFields):
     """A batch of factor graphs (pose_graph.cpp) as fixed tensors.
 
     Poses are keyed by timestep (0..T); landmarks by slot in discovery order.
@@ -43,12 +119,3 @@ class PoseGraphState:
     poses_sol: torch.Tensor    # (B, T+1, 3)
     lms_sol: torch.Tensor      # (B, N, 2)
     solved: torch.Tensor       # (B,) bool
-
-    def replace(self, **kw) -> "PoseGraphState":
-        return dataclasses.replace(self, **kw)
-
-    def map(self, fn) -> "PoseGraphState":
-        """``fn`` applied to every field (a world slice, a device move)."""
-        return PoseGraphState(**{
-            f.name: fn(getattr(self, f.name)) for f in dataclasses.fields(self)
-        })

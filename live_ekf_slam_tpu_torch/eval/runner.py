@@ -1,27 +1,36 @@
-"""Monte-Carlo evaluation of the fused filter rollouts and of pose-graph
-SLAM on streams, in torch.
+"""Monte-Carlo evaluation: the per-tick path, the fused filter rollouts and
+pose-graph SLAM on streams, in torch.
 
-Counterpart of ``live_ekf_slam_tpu/eval/runner.py`` for two of its paths.
-``run_monte_carlo(impl="fused")`` serves the four filters with a fused rollout
-(``ekf_slam``, ``iekf_slam``, ``ukf_slam``, ``ukf_loc``) and
+Counterpart of ``live_ekf_slam_tpu/eval/runner.py`` for three of its paths.
+``run_monte_carlo(impl="per_tick")``, the counterpart of the JAX default
+``impl="xla"``, steps every world through ``make_step`` once a tick: the
+simulator (``sim/world``), one of the five online filters (naive, EKF-SLAM
+with known or unknown ids, RI-EKF-SLAM, UKF-SLAM, UKF-Loc) and the per-world
+error with its divergence guard, as batched tensor ops over a leading world
+axis, a Python loop over T. The noise is the Philox stream the fused kernels
+draw (``ops/philox``), so for one seed both paths see the same worlds.
+``run_monte_carlo(impl="fused")`` serves the four filters with a fused
+rollout (``ekf_slam``, ``iekf_slam``, ``ukf_slam``, ``ukf_loc``) and
 ``collect="sums"``: random maps, TSP command streams, one fused rollout of
 every world, and per-world average position error with a divergence latch.
 ``run_monte_carlo_pg_streams`` is the fast pose-graph Monte-Carlo: closed-form
 simulator streams, the secondary filter (naive in closed form, EKF or RI-EKF
 through the fused kernel's pose stream on the same noise), vectorised graph
 assembly, the iterative replay and the bulk Schur / block-Thomas solve. The
-per-tick path (``impl="xla"``), the naive filter on its own and the dense
-pose-graph solver are not ported yet (ROADMAP.md).
+per-tick pose graph and the dense pose-graph solver are not ported yet
+(ROADMAP.md, M9b).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
 import torch
 
-from live_ekf_slam_tpu_torch.models import posegraph
+from live_ekf_slam_tpu_torch.core.types import StateFields, WorldState
+from live_ekf_slam_tpu_torch.models import ekf, iekf, naive, posegraph, ukf
 from live_ekf_slam_tpu_torch.ops.fused_rollout import (
     fused_ekf_rollout,
     fused_ekf_rollout_reference,
@@ -35,6 +44,7 @@ from live_ekf_slam_tpu_torch.ops.precision import pin_fp32
 from live_ekf_slam_tpu_torch.sim import maps as sim_maps
 from live_ekf_slam_tpu_torch.sim.streams import naive_deadreckon, sim_streams
 from live_ekf_slam_tpu_torch.sim.trajectory import generate_trajectory
+from live_ekf_slam_tpu_torch.sim.world import init_world, sim_step
 
 # a pose estimate farther than this from truth marks the world diverged
 # (the map spans ~2*bound = 20 m; 50 m means the filter is unrecoverable)
@@ -46,6 +56,12 @@ SHARED_BLOCK = 256
 
 # the filters with a fused rollout (runner.py:393-394 of the JAX package)
 FILTERS = ("ekf_slam", "iekf_slam", "ukf_slam", "ukf_loc")
+
+# the filters of the per-tick path (runner.py:33 of the JAX package)
+ONLINE_FILTERS = ("ekf_slam", "iekf_slam", "ukf_loc", "ukf_slam", "naive")
+
+# the Monte-Carlo paths of run_monte_carlo
+IMPLS = ("fused", "per_tick")
 
 # secondary filters of the pose-graph streams path (runner.py:527)
 PG_SECONDARIES = ("naive", "ekf_slam", "iekf_slam")
@@ -61,9 +77,9 @@ REPLAY_CAP_STEP = 256
 BULK_SEG_GN = 10
 
 _NOT_FUSED = (
-    "filter={!r}: no fused rollout; naive and the per-tick pose_graph "
-    "accumulation are not ported yet (ROADMAP.md, M9; pose_graph runs "
-    "through run_monte_carlo_pg_streams)"
+    "filter={!r}: no fused rollout; the per-tick pose_graph accumulation is "
+    "not ported yet (ROADMAP.md, M9b; pose_graph runs through "
+    "run_monte_carlo_pg_streams)"
 )
 
 
@@ -102,16 +118,28 @@ def fused_rollout(cfg, lms, cmds, seed, *, noise=None, plain=False,
     raise NotImplementedError(_NOT_FUSED.format(cfg.filter))
 
 
+def map_config(cfg):
+    """``cfg`` with its slot capacities grown to a fixed map's landmark count
+    (demo, grid and igvc1 set their own, sim_node.py:165,176,192), as the
+    JAX runner's ``_gen_maps`` does; a random map leaves it as it is."""
+    if cfg.landmark_map in ("random", "rand"):
+        return cfg
+    _, n_active = sim_maps.make_landmarks(cfg)
+    if n_active != cfg.num_landmark_slots:
+        cfg = cfg.replace(num_landmark_slots=n_active, num_meas_slots=n_active)
+    return cfg
+
+
 def _gen_maps(cfg, rng: np.random.Generator, batch: int):
     """(cfg, (B, N, 2) float32 maps) for a Monte-Carlo run: random maps,
-    rejection-sampled off the occupancy map's obstacles."""
-    if cfg.landmark_map not in ("random", "rand"):
-        raise NotImplementedError(
-            f"landmark_map={cfg.landmark_map!r}: fixed maps are not ported "
-            "yet (ROADMAP.md, M9)"
-        )
-    occ, _ = sim_maps.load_occ_map(cfg)
-    return cfg, sim_maps.random_landmarks_batched(cfg, rng, batch, occ=occ)
+    rejection-sampled off the occupancy map's obstacles, or a fixed map in
+    every world, the capacities grown to its landmark count."""
+    if cfg.landmark_map in ("random", "rand"):
+        occ, _ = sim_maps.load_occ_map(cfg)
+        return cfg, sim_maps.random_landmarks_batched(cfg, rng, batch, occ=occ)
+    single, _ = sim_maps.make_landmarks(cfg, rng)
+    lms = np.broadcast_to(single[None], (batch,) + single.shape).copy()
+    return map_config(cfg), lms
 
 
 def mc_inputs(cfg, batch: int, seed: int, device, *, shared: bool = False,
@@ -143,43 +171,226 @@ def mc_inputs(cfg, batch: int, seed: int, device, *, shared: bool = False,
     return lms.contiguous(), cmds.contiguous()
 
 
+@dataclasses.dataclass(frozen=True)
+class RunCarry(StateFields):
+    """What the per-tick step carries from tick to tick, for a world batch.
+
+    The alive masks, tick counts and error sums are (B,) tensors. A world
+    whose estimate goes non-finite or farther than DIVERGENCE_RADIUS from the
+    truth is flagged once and for all, and its error stops accumulating.
+    ``secondary`` and the ``*_secondary`` fields belong to the pose graph's
+    secondary filter (ROADMAP.md, M9b); without it they stay as
+    ``init_carry`` made them.
+    """
+
+    world: WorldState
+    primary: object
+    secondary: object
+    err_sum_primary: torch.Tensor
+    err_sum_secondary: torch.Tensor
+    alive_primary: torch.Tensor
+    alive_secondary: torch.Tensor
+    ticks_primary: torch.Tensor
+    ticks_secondary: torch.Tensor
+
+
+_NO_PER_TICK_PG = (
+    "filter='pose_graph': the per-tick pose-graph accumulation is not ported "
+    "yet (ROADMAP.md, M9b); run_monte_carlo_pg_streams runs the pose-graph "
+    "study"
+)
+
+
+def _filter_init(cfg, name: str, batch: int, device, init_pose=None):
+    if name == "ekf_slam":
+        return ekf.init(cfg, batch, init_pose, device)
+    if name == "iekf_slam":
+        return iekf.init(cfg, batch, init_pose, device)
+    if name == "ukf_slam":
+        return ukf.init(cfg, batch, True, init_pose, device)
+    if name == "ukf_loc":
+        return ukf.init(cfg, batch, False, init_pose, device)
+    if name == "naive":
+        return naive.init(cfg, batch, init_pose, device)
+    if name == "pose_graph":
+        raise NotImplementedError(_NO_PER_TICK_PG)
+    raise ValueError(f"Invalid filter choice {name!r} (params.yaml:11)")
+
+
+def _filter_update(cfg, name: str, state, cmd, meas, true_map=None):
+    if name == "ekf_slam":
+        return ekf.update(cfg, state, cmd, meas)
+    if name == "iekf_slam":
+        return iekf.update(cfg, state, cmd, meas)
+    if name == "ukf_slam":
+        return ukf.update(cfg, state, cmd, meas, slam=True)
+    if name == "ukf_loc":
+        return ukf.update(cfg, state, cmd, meas, slam=False, true_map=true_map)
+    if name == "naive":
+        return naive.update(cfg, state, cmd, meas)
+    raise ValueError(name)
+
+
+def _filter_pose(name: str, state) -> torch.Tensor:
+    if name in ("ekf_slam", "iekf_slam"):
+        return ekf.pose(state)
+    if name in ("ukf_slam", "ukf_loc"):
+        return ukf.pose(state)
+    if name == "naive":
+        return state.pose
+    raise ValueError(name)
+
+
+def _filter_state_vector(cfg, name: str, state) -> torch.Tensor:
+    if name in ("ekf_slam", "iekf_slam"):
+        return ekf.state_vector(state)
+    if name == "ukf_slam":
+        return ukf.state_vector(cfg, state, slam=True)
+    if name == "ukf_loc":
+        return ukf.state_vector(cfg, state, slam=False)
+    if name == "naive":
+        return naive.state_vector(state)
+    raise ValueError(name)
+
+
+def _filter_landmarks(cfg, name: str, state):
+    """(lm_xy (B, N, 2), ids, M) of a SLAM filter, for the pose graph's
+    update_landmarks_after_adding coupling; None for the others."""
+    if name in ("ekf_slam", "iekf_slam"):
+        return state.x[:, 3:].reshape(state.x.shape[0], -1, 2), state.ids, state.M
+    if name == "ukf_slam":
+        return state.x[:, 4:].reshape(state.x.shape[0], -1, 2), state.ids, state.M
+    return None
+
+
+def make_step(cfg, collect: str = "sums"):
+    """The per-tick step of ``cfg.filter``: ``step(carry, cmd, u)`` with the
+    tick's commands cmd (B, 2) and uniforms u (B, 2N+8) returns (carry, out).
+
+    The simulator moves and senses, the filter updates, and the divergence
+    guard adds the instantaneous error to the world's sum while the world is
+    alive. ``collect`` "sums" returns out = None; "poses" returns (the true
+    pose, the estimated pose), each (B, 3).
+    """
+    if collect not in ("sums", "poses"):
+        raise ValueError(f"unknown collect {collect!r}")
+    primary = cfg.filter
+    if primary == "pose_graph":
+        raise NotImplementedError(_NO_PER_TICK_PG)
+    if primary not in ONLINE_FILTERS:
+        raise ValueError(f"Invalid filter choice {primary!r} (params.yaml:11)")
+
+    def step(carry: RunCarry, cmd: torch.Tensor, u: torch.Tensor):
+        world, meas = sim_step(cfg, carry.world, cmd, u)
+        prim = _filter_update(cfg, primary, carry.primary, cmd, meas,
+                              true_map=world.landmarks)
+        est_pose = _filter_pose(primary, prim)
+        d = est_pose[:, :2] - world.pose[:, :2]
+        e = torch.sqrt((d * d).sum(dim=1))
+        ok = carry.alive_primary & torch.isfinite(e) & (e < DIVERGENCE_RADIUS)
+        new = carry.replace(
+            world=world, primary=prim,
+            err_sum_primary=torch.where(ok, carry.err_sum_primary + e,
+                                        carry.err_sum_primary),
+            alive_primary=ok,
+            ticks_primary=torch.where(ok, carry.ticks_primary + 1,
+                                      carry.ticks_primary),
+        )
+        return new, ((world.pose, est_pose) if collect == "poses" else None)
+
+    return step
+
+
+def init_carry(cfg, landmarks: torch.Tensor, n_active=None,
+               init_pose=None) -> RunCarry:
+    """The carry of a world batch with (B, N, 2) maps before its first tick."""
+    world = init_world(cfg, landmarks, n_active, init_pose)
+    b, dev = landmarks.shape[0], landmarks.device
+    zeros = torch.zeros(b, dtype=torch.float32, device=dev)
+    alive = torch.ones(b, dtype=torch.bool, device=dev)
+    ticks = torch.zeros(b, dtype=torch.int32, device=dev)
+    return RunCarry(
+        world=world,
+        primary=_filter_init(cfg, cfg.filter, b, dev, init_pose),
+        secondary=None,
+        err_sum_primary=zeros, err_sum_secondary=zeros.clone(),
+        alive_primary=alive, alive_secondary=alive.clone(),
+        ticks_primary=ticks, ticks_secondary=ticks.clone(),
+    )
+
+
+def rollout(cfg, carry: RunCarry, cmds: torch.Tensor, noise: torch.Tensor,
+            collect: str = "sums", step=None):
+    """Step a world batch through T ticks: cmds (B, T, 2), noise (T, 2N+8, B)
+    in the fused kernels' injection layout. Returns (final carry, outs):
+    outs is None for "sums" and (true (B, T, 3), est (B, T, 3)) for "poses",
+    world-major as the JAX runner returns them. ``step`` is a step that
+    ``make_step(cfg, collect)`` already made."""
+    step = step or make_step(cfg, collect)
+    trues, ests = [], []
+    for t in range(cmds.shape[1]):
+        carry, out = step(carry, cmds[:, t], noise[t].transpose(0, 1))
+        if out is not None:
+            trues.append(out[0])
+            ests.append(out[1])
+    if collect != "poses":
+        return carry, None
+    return carry, (torch.stack(trues, dim=1), torch.stack(ests, dim=1))
+
+
 def run_monte_carlo(cfg, batch: int, seed: int = 0, impl: str = "fused",
                     device=None, protocol: str = "perworld",
                     collect: str = "sums", *, noise=None, traj_u=None):
-    """Full Monte-Carlo evaluation: B worlds, random maps, TSP trajectories.
+    """Full Monte-Carlo evaluation: B worlds, maps, TSP trajectories.
 
-    Returns (results, out, None) like the JAX version: ``results`` holds the
+    Returns (results, out, outs) like the JAX version: ``results`` holds the
     (B,) per-world average position errors ``err_<filter>`` and the
-    divergence mask ``diverged_<filter>``; ``out`` is the rollout's result
-    (the UKFs' ``update_rejects`` stays there and marks no divergence by
-    itself). ``protocol="perworld"`` gives every world its own map (the JAX
-    runner's protocol); ``"shared"`` is the bench's (see ``mc_inputs``).
-    ``noise`` and ``traj_u`` are test hooks that replace the rollout's and
-    the trajectory's random draws. ``device`` defaults to the card and
-    raises when there is none (see ``resolve_device``).
+    divergence mask ``diverged_<filter>``.
+
+    ``impl="per_tick"`` (the JAX package's ``impl="xla"``) steps the worlds
+    through ``make_step`` for the five online filters; the error is averaged
+    over the ticks a world was alive, ``out`` is the final ``RunCarry`` and
+    ``outs`` with ``collect="poses"`` the (true, est) pose streams (B, T, 3).
+    ``impl="fused"`` runs the four filters with a fused rollout kernel and
+    ``collect="sums"``: ``out`` is the rollout's result (the UKFs'
+    ``update_rejects`` stays there and marks no divergence by itself), outs
+    is None, and the divergence latch reads the running maximum of the
+    instantaneous error.
+
+    ``protocol="perworld"`` gives every world its own map (the JAX runner's
+    protocol); ``"shared"`` is the bench's (see ``mc_inputs``). A fixed
+    ``cfg.landmark_map`` puts that map in every world. ``noise``
+    (T, 2N+8, B) and ``traj_u`` (B, N, 2) are test hooks that replace the
+    simulator's and the trajectory's random draws. ``device`` defaults to
+    the card and raises when there is none (see ``resolve_device``).
     """
-    if impl != "fused":
-        raise NotImplementedError(
-            f"impl={impl!r}: the per-tick path is not ported yet "
-            "(ROADMAP.md, M9)"
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}: use 'fused' or 'per_tick'")
+    if cfg.filter == "pose_graph":
+        raise NotImplementedError(_NO_PER_TICK_PG)
+    if impl == "fused" and (cfg.filter not in FILTERS or collect != "sums"):
+        raise ValueError(
+            "impl='fused' supports filter in (ekf_slam, iekf_slam, ukf_slam, "
+            f"ukf_loc), collect='sums'; got filter={cfg.filter!r}, "
+            f"collect={collect!r} (impl='per_tick' runs every online filter)"
         )
-    if cfg.filter not in FILTERS:
-        raise NotImplementedError(_NOT_FUSED.format(cfg.filter))
-    if collect != "sums":
-        raise NotImplementedError(
-            f"collect={collect!r}: per-tick collection is not ported yet "
-            "(ROADMAP.md, M9)"
-        )
+    if impl == "per_tick" and cfg.filter not in ONLINE_FILTERS:
+        raise ValueError(f"Invalid filter choice {cfg.filter!r} (params.yaml:11)")
+    if collect not in ("sums", "poses"):
+        raise ValueError(f"unknown collect {collect!r}")
     if protocol not in ("perworld", "shared"):
         raise ValueError(f"unknown protocol {protocol!r}")
     pin_fp32()
     device = resolve_device(device)
+    cfg = map_config(cfg)
     shared = protocol == "shared"
     lms, cmds = mc_inputs(cfg, batch, seed, device, shared=shared,
                           relabel=shared, traj_u=traj_u)
+    if impl == "per_tick":
+        return _run_per_tick(cfg, lms, cmds, seed, collect, noise)
     out = fused_rollout(cfg, lms, cmds, seed, noise=noise)
     # latched on the running max of the instantaneous error, as the JAX
-    # kernels and the per-tick path do, not on the run mean
+    # kernels do, not on the run mean
     err_max = out["err_max"].cpu().numpy()
     diverged = ~np.isfinite(err_max) | (err_max > DIVERGENCE_RADIUS)
     err = out["err_sum"].cpu().numpy() / cfg.num_iterations
@@ -190,7 +401,26 @@ def run_monte_carlo(cfg, batch: int, seed: int = 0, impl: str = "fused",
     return results, out, None
 
 
-def _sync(device) -> float:
+def _run_per_tick(cfg, lms, cmds, seed, collect, noise):
+    """The per-tick branch of run_monte_carlo on made inputs."""
+    b, n_lm = lms.shape[:2]
+    t_total = cfg.num_iterations
+    if not cfg.precompute_trajectory:
+        # open-loop kickoff-only runs still tick the sim with zero commands
+        cmds = torch.zeros_like(cmds)
+    if noise is None:
+        noise = philox_noise(seed, t_total, n_lm, b, lms.device)
+    carry = init_carry(cfg, lms, n_lm)
+    final, outs = rollout(cfg, carry, cmds, noise.to(lms.device), collect)
+    ticks = torch.clamp_min(final.ticks_primary, 1).to(torch.float32)
+    results = {
+        "err_" + cfg.filter: (final.err_sum_primary / ticks).cpu().numpy(),
+        "diverged_" + cfg.filter: (~final.alive_primary).cpu().numpy(),
+    }
+    return results, final, outs
+
+
+def sync_clock(device) -> float:
     """The host clock, after the device has finished what was queued."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -334,7 +564,7 @@ def run_monte_carlo_pg_streams(cfg, batch: int, seed: int = 0,
     t_total = cfg.num_iterations
     seconds = dict.fromkeys(
         ("inputs", "streams", "secondary", "assemble", "replay", "solve"), 0.0)
-    t0 = _sync(device)
+    t0 = sync_clock(device)
     if (lms is None) != (cmds is None):
         raise ValueError("give both lms and cmds, or neither")
     if lms is None:
@@ -347,12 +577,12 @@ def run_monte_carlo_pg_streams(cfg, batch: int, seed: int = 0,
         raise ValueError(
             f"lms {tuple(lms.shape)} and cmds {tuple(cmds.shape)} do not fit "
             f"batch {batch}, T {t_total}")
-    seconds["inputs"] = _sync(device) - t0
+    seconds["inputs"] = sync_clock(device) - t0
 
     parts = {k: [] for k in ("err_sec", "max_sec", "err_pg", "err_pgi")}
     tidx = torch.arange(t_total, device=device)
     for i in range(0, batch, world_chunk):
-        t0 = _sync(device)
+        t0 = sync_clock(device)
         lms_c = lms[i:i + world_chunk].contiguous()
         cmds_c = cmds[i:i + world_chunk].contiguous()
         b_c = lms_c.shape[0]
@@ -361,7 +591,7 @@ def run_monte_carlo_pg_streams(cfg, batch: int, seed: int = 0,
         else:
             noise_c = noise[:, :, i:i + world_chunk].contiguous()
         st = sim_streams(cfg, lms_c, n_lm, cmds_c, noise_c)
-        t1 = _sync(device)
+        t1 = sync_clock(device)
         if secondary == "naive":
             est = naive_deadreckon(cfg, cmds_c)
         else:
@@ -369,7 +599,7 @@ def run_monte_carlo_pg_streams(cfg, batch: int, seed: int = 0,
                 cfg, lms_c, cmds_c, seed, noise=noise_c, emit_traj=True,
                 filter_kind="iekf" if secondary == "iekf_slam" else "ekf",
             )["est_traj"]
-        t2 = _sync(device)
+        t2 = sync_clock(device)
         graphs = posegraph.assemble_streams(
             cfg, est, st["r"], st["b"], st["vis"], cmds_c)
         # the secondary's metric and what its divergence latch reads
@@ -377,7 +607,7 @@ def run_monte_carlo_pg_streams(cfg, batch: int, seed: int = 0,
             est[:, :, :2] - st["poses_true"][:, :, :2], dim=-1)
         parts["err_sec"].append(d_sec.mean(dim=1).cpu().numpy())
         parts["max_sec"].append(d_sec.amax(dim=1).cpu().numpy())
-        t3 = _sync(device)
+        t3 = sync_clock(device)
         if cfg.pose_graph.solve_graph_every_iteration:
             # landmark counts at the end of each tick, for the replay:
             # m_at[t] = #{first sightings <= t}, on live ticks only
@@ -386,14 +616,14 @@ def run_monte_carlo_pg_streams(cfg, batch: int, seed: int = 0,
             m_at = (first_t[:, None, :] <= tidx[None, :, None]).sum(
                 dim=2, dtype=torch.int32)
             graphs = replay_chunk(cfg, graphs, m_at)
-        t4 = _sync(device)
+        t4 = sync_clock(device)
         # solved while the chunk's graph tensors are on the device; only the
         # per-world metric vectors come back
         err_pg_c, err_pgi_c = _pg_bulk_solve(
             cfg, graphs, st["poses_true"], b_c, solve_chunk)
         parts["err_pg"].append(err_pg_c)
         parts["err_pgi"].append(err_pgi_c)
-        t5 = _sync(device)
+        t5 = sync_clock(device)
         for key, dt in zip(("streams", "secondary", "assemble", "replay", "solve"),
                            (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4)):
             seconds[key] += dt

@@ -6,11 +6,15 @@ default feeds the matrix unit bf16 (a 0.3% error on a covariance insertion
 block was observed there). On Hopper the hazard is TF32: a float32 product or
 convolution may run with a 10-bit mantissa, about three decimal digits, which
 Kalman covariance algebra cannot take. ``pin_fp32()`` turns TF32 off for
-cuBLAS and cuDNN. The fused EKF rollout has no matrix product, but the slices
-to come (UKF, pose graph) do, so every entry point calls it.
+cuBLAS and cuDNN. The fused EKF rollout has no matrix product, but the
+per-tick filters (UKF above all) and the pose graph do, so every entry point
+calls it. ``sel_cols`` and ``first_match`` are the per-tick filters' slot
+reads, spelled as the JAX package spells them.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -20,3 +24,41 @@ def pin_fp32() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+
+
+@functools.lru_cache(maxsize=None)
+def constant(value, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``value`` (a number or a tuple of numbers) as a tensor on ``device``,
+    made once and kept. Made anew in every call, a constant on the card is a
+    copy from pageable host memory, which synchronises the stream: in a
+    per-tick loop that is a wait on the card per call. Callers must not
+    write to it."""
+    return torch.tensor(value, dtype=dtype, device=device)
+
+
+def sel_cols(dim: int, li: torch.Tensor, k: int = 2) -> torch.Tensor:
+    """(B, dim, k) one-hot selection of columns li .. li+k-1 for each world
+    (the JAX package's ``sel_cols`` with a leading world axis).
+
+    A read through it, ``(x[:, :, None] * e).sum(1)`` or a batched product,
+    is exact (a single non-zero term), and like the JAX version's one-hot
+    product it spreads a NaN anywhere in x to the read, where a gather would
+    not: a diverged world goes non-finite on the same tick in both. An
+    out-of-range li gives zero columns.
+    """
+    iota = torch.arange(dim, device=li.device)
+    return torch.stack(
+        [(iota[None, :] == (li[:, None] + j)).to(torch.float32) for j in range(k)],
+        dim=2,
+    )
+
+
+def first_match(match: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(found (B,), i (B,)) for a (B, N) bool match: whether any slot
+    matches, and the smallest matching index, 0 when none does (the JAX
+    package's ``jnp.argmax`` of a bool row, which picks the first True)."""
+    n = match.shape[1]
+    idx = torch.arange(n, device=match.device)
+    first = torch.where(match, idx, n).amin(dim=1)
+    found = first < n
+    return found, torch.where(found, first, 0)

@@ -1,15 +1,57 @@
-"""Random landmark maps on the blank occupancy grid, in numpy.
+"""Landmark maps, in numpy: the fixed maps and random maps on the blank
+occupancy grid.
 
-A copy of the random-map part of ``live_ekf_slam_tpu/sim/maps.py``:
+A copy of the landmark-map part of ``live_ekf_slam_tpu/sim/maps.py``:
 importing that module runs ``live_ekf_slam_tpu/sim/__init__.py``, which
-imports the simulator and so jax. Given the same ``np.random.Generator`` it
-gives bit-identical maps (the tests hold it to that). Image-backed occupancy
-maps are not ported yet; ``load_occ_map`` raises for them.
+imports the simulator and so jax. The fixed maps are the same float32
+constants, and given the same ``np.random.Generator`` the random maps are
+bit-identical (the tests hold both to that). ``DEMO_MAP`` and
+``IGVC1_BARRELS`` are data constants of the reference world definitions
+(sim_node.py:26-30 and sim_node.py:190). Image-backed occupancy maps are not
+ported yet; ``load_occ_map`` raises for them.
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+# RSS demo landmark map (20 landmarks), sim_node.py:26-30.
+DEMO_MAP = np.array(
+    [
+        (6.2945, 8.1158), (-7.4603, 8.2675), (2.6472, -8.0492), (-4.4300, 0.9376),
+        (9.1501, 9.2978), (-6.8477, 9.4119), (9.1433, -0.2925), (6.0056, -7.1623),
+        (-1.5648, 8.3147), (5.8441, 9.1898), (3.1148, -9.2858), (6.9826, 8.6799),
+        (3.5747, 5.1548), (4.8626, -2.1555), (3.1096, -6.5763), (4.1209, -9.3633),
+        (-4.4615, -9.0766), (-8.0574, 6.4692), (3.8966, -3.6580), (9.0044, -9.3111),
+    ],
+    dtype=np.float32,
+)
+
+# IGVC course barrel positions (37 landmarks), sim_node.py:190.
+IGVC1_BARRELS = np.array(
+    [
+        (8.16017316017316, -8.037518037518037), (7.727272727272725, -5.324675324675325),
+        (8.419913419913419, -2.813852813852815), (8.910394265232974, -2.6695526695526706),
+        (5.909090909090908, -1.2842712842712842), (6.457431457431456, -1.0822510822510836),
+        (7.813852813852813, 0.3318903318903317), (6.688311688311687, 2.4675324675324664),
+        (8.679653679653677, 5.064935064935064), (7.3232323232323235, 6.68109668109668),
+        (8.535353535353535, 8.239538239538238), (5.995670995670993, 9.393939393939394),
+        (0.7720057720057714, 5.728715728715727), (0.7142857142857135, 5.20923520923521),
+        (2.7633477633477614, 4.458874458874458), (2.445887445887445, 4.141414141414142),
+        (1.1183261183261166, 2.871572871572871), (0.916305916305916, 2.525252525252524),
+        (2.5901875901875897, 1.9480519480519476), (2.6767676767676765, -3.795093795093795),
+        (0.9740259740259738, -3.679653679653681), (-0.7287157287157289, -4.978354978354979),
+        (-3.1818181818181834, -4.7186147186147185), (-2.129032258064516, -2.121212121212121),
+        (-3.4992784992784998, -0.6493506493506498), (-1.5656565656565675, 1.5440115440115427),
+        (-1.2770562770562783, 2.4098124098124085), (-2.0274170274170285, 3.9971139971139955),
+        (-1.5079365079365097, 4.1991341991342), (-4.451659451659452, 4.805194805194805),
+        (-7.9148629148629155, 3.1024531024531026), (-7.597402597402598, 1.0533910533910529),
+        (-7.1067821067821075, 0.9668109668109661), (-7.53968253968254, -2.092352092352092),
+        (-7.251082251082252, -4.054834054834055), (-9.040404040404042, -5.440115440115441),
+        (-7.04906204906205, -7.373737373737375),
+    ],
+    dtype=np.float32,
+)
 
 
 def tf_ekf_to_map(cfg, pt):
@@ -99,3 +141,29 @@ def random_landmarks_batched(
         for wi in np.argwhere(bad_mask(pts).any(axis=1)).ravel():
             pts[wi] = random_landmarks(cfg, rng, occ)
     return pts
+
+
+def grid_landmarks(cfg) -> np.ndarray:
+    """Landmarks on a regular grid filling the bounds (sim_node.py:167-176)."""
+    shift = cfg.map.grid_step / 2.0
+    coords = np.arange(-cfg.map.bound + shift, cfg.map.bound, cfg.map.grid_step)
+    pts = [(r, c) for r in coords for c in coords]
+    return np.array(pts, dtype=np.float32)
+
+
+def make_landmarks(cfg, rng: np.random.Generator | None = None, occ=None):
+    """(landmarks (N, 2) float32, n_active) for ``cfg.landmark_map``, as
+    sim_node.generate_landmarks dispatches."""
+    kind = cfg.landmark_map
+    if kind == "demo":
+        lms = DEMO_MAP
+    elif kind == "grid":
+        lms = grid_landmarks(cfg)
+    elif kind in ("random", "rand"):
+        rng = rng or np.random.default_rng()
+        lms = random_landmarks(cfg, rng, occ)
+    elif kind == "igvc1":
+        lms = IGVC1_BARRELS
+    else:
+        raise ValueError(f"Invalid landmark_map {kind!r}")
+    return lms.astype(np.float32), lms.shape[0]

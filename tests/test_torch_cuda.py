@@ -21,6 +21,7 @@ from live_ekf_slam_tpu_torch.bench import chain_blocks, pg_config, pg_graphs, sc
 from live_ekf_slam_tpu_torch.eval.runner import (
     fused_rollout,
     mc_inputs,
+    run_monte_carlo,
     run_monte_carlo_pg_streams,
 )
 from live_ekf_slam_tpu_torch.models import posegraph as pg
@@ -28,6 +29,7 @@ from live_ekf_slam_tpu_torch.ops import _build, philox
 from live_ekf_slam_tpu_torch.ops import fused_rollout as fr
 from live_ekf_slam_tpu_torch.ops import fused_ukf as fu
 from live_ekf_slam_tpu_torch.ops import micro_ops as mo
+from live_ekf_slam_tpu_torch.sim.streams import naive_deadreckon, sim_streams
 from port_harness import cuda_device, small_cfg  # noqa: F401  (fixture)
 
 pytestmark = pytest.mark.cuda
@@ -480,3 +482,45 @@ def test_ekf_phase_clock_build_counts_every_phase(filter_kind, cuda_device):
     with pytest.raises(RuntimeError, match="CUDA error"):  # the default build has none
         _build.check(_build.load().les_ekf_phase_clocks(
             (ctypes.c_uint64 * len(fr.PHASES))(), len(fr.PHASES), 0), "clocks")
+
+
+# ---- the per-tick path (run_monte_carlo(impl="per_tick")) on the card
+
+
+@pytest.mark.parametrize("mode", list(chip_smoke.PT_MODES))
+def test_per_tick_on_the_card_matches_the_cpu(mode, cuda_device):
+    # the same inputs (made on the CPU) and noise on both devices, 64 worlds
+    # x 200 ticks, held as chip_smoke holds them (it raises on a failure)
+    chip_smoke.per_tick_card_vs_cpu(cuda_device, 20, (mode,))
+
+
+@pytest.mark.parametrize("mode", list(chip_smoke.PT_AGAINST))
+def test_per_tick_matches_the_fused_kernel_on_the_same_worlds(mode, cuda_device):
+    # run_monte_carlo's two paths at 64 worlds x 200 ticks on one seed see
+    # the same worlds; held as chip_smoke holds them at the main path's size
+    cfg = chip_smoke.per_tick_config(Config(num_iterations=200), mode)
+    filt = cfg.filter
+    res, _, _ = run_monte_carlo(cfg, 64, seed=0, impl="per_tick", device=cuda_device)
+    lms, cmds = mc_inputs(cfg, 64, 0, cuda_device)
+    noise = philox.philox_noise(0, 200, 20, 64, cuda_device)
+    if filt == "naive":
+        st = sim_streams(cfg, lms, 20, cmds, noise)
+        est = naive_deadreckon(cfg, cmds)
+        ref = (torch.linalg.vector_norm(est[:, :, :2] - st["poses_true"][:, :, :2],
+                                        dim=-1).mean(dim=1).cpu().numpy(),
+               np.zeros(64, dtype=bool), None)
+    else:
+        res_f, out_f, _ = run_monte_carlo(cfg, 64, seed=0, device=cuda_device)
+        ref = (res_f["err_" + filt], res_f["diverged_" + filt],
+               out_f["update_rejects"].cpu().numpy() if filt.startswith("ukf") else None)
+    chip_smoke.held_against_fused(mode, cfg, res["err_" + filt],
+                                  res["diverged_" + filt], ref, lms, cmds, noise)
+
+
+def test_per_tick_run_launches_only_the_philox_kernel(cuda_device):
+    cfg = Config(num_iterations=20).replace(filter="ekf_slam")
+    chip_smoke.zero_counts()
+    res, fin, _ = run_monte_carlo(cfg, 256, seed=0, impl="per_tick", device=cuda_device)
+    counts = chip_smoke.counts()
+    assert counts == {k: int(k == "philox_noise") for k in counts}
+    assert np.isfinite(res["err_ekf_slam"]).all() and fin.primary.x.is_cuda

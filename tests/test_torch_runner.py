@@ -2,6 +2,7 @@
 composition of the same steps for each of the four filters, the command
 line, the card-by-default rule and the no-jax rule."""
 
+import json
 import os
 import subprocess
 import sys
@@ -127,16 +128,29 @@ def test_shared_protocol_repeats_maps_relabelled_by_tour():
 
 def test_out_of_scope_runs_raise():
     cfg = Config(num_iterations=5)
-    for kw, item in [({"impl": "xla"}, "M9"), ({"collect": "poses"}, "M9")]:
-        with pytest.raises(NotImplementedError, match=item):
-            runner.run_monte_carlo(cfg, 2, **kw)
-    with pytest.raises(NotImplementedError, match="M9"):
-        runner.run_monte_carlo(cfg.replace(filter="naive"), 2)
+    # the per-tick pose graph is the next slice; the streams path runs it
+    for impl in ("fused", "per_tick"):
+        with pytest.raises(NotImplementedError, match="M9b"):
+            runner.run_monte_carlo(cfg.replace(filter="pose_graph"), 2,
+                                   impl=impl, device="cpu")
     with pytest.raises(NotImplementedError, match="run_monte_carlo_pg_streams"):
         runner.run_monte_carlo(cfg.replace(filter="pose_graph"), 2)
-    with pytest.raises(NotImplementedError, match="M9"):
-        runner.run_monte_carlo(cfg.replace(landmark_map="demo"), 2,
-                               device="cpu")
+    # an unknown impl names both
+    with pytest.raises(ValueError, match="'fused' or 'per_tick'"):
+        runner.run_monte_carlo(cfg, 2, impl="xla", device="cpu")
+    # naive and collect="poses" have no fused rollout (runner.py:393-399)
+    with pytest.raises(ValueError, match="impl='fused' supports"):
+        runner.run_monte_carlo(cfg.replace(filter="naive"), 2, device="cpu")
+    with pytest.raises(ValueError, match="impl='fused' supports"):
+        runner.run_monte_carlo(cfg, 2, collect="poses", device="cpu")
+    with pytest.raises(ValueError, match="impl='fused' supports"):
+        cli.main(["monte_carlo", "--filter", "naive", "--batch", "2",
+                  "--steps", "5", "--device", "cpu"])
+    # a fixed map no longer raises, on either path
+    for impl in ("fused", "per_tick"):
+        res, _, _ = runner.run_monte_carlo(cfg.replace(landmark_map="demo"), 2,
+                                           impl=impl, device="cpu")
+        assert res["err_ekf_slam"].shape == (2,)
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
@@ -145,7 +159,12 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         runner.run_monte_carlo(cfg, 2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        runner.run_monte_carlo(cfg, 2, impl="per_tick")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["monte_carlo", "--batch", "2", "--steps", "5"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["monte_carlo", "--filter", "naive", "--impl", "per_tick",
+                  "--batch", "2", "--steps", "5"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         runner.run_monte_carlo_pg_streams(cfg.replace(filter="pose_graph"), 2)
     assert runner.resolve_device("cpu") == torch.device("cpu")
@@ -159,12 +178,34 @@ def test_cli_monte_carlo_prints_mean_and_std(capsys):
     assert lines[1].startswith("diverged_ekf_slam: mean ")
 
 
+@pytest.mark.parametrize("extra", [[], ["--landmark-map", "demo"]])
+def test_cli_runs_naive_on_the_per_tick_path(extra, capsys):
+    assert cli.main(["monte_carlo", "--filter", "naive", "--impl", "per_tick",
+                     "--batch", "4", "--steps", "30", "--device", "cpu",
+                     *extra]) == 0
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert lines[0].startswith("naive: mean ") and " std " in lines[0]
+    assert lines[1] == "diverged_naive: mean 0.0000 std 0.0000"
+
+
+def test_bench_times_the_per_tick_path_on_the_cpu_when_asked(capsys):
+    bench.main(["--impl", "per_tick", "--filter", "naive", "--device", "cpu",
+                "--worlds", "4", "--steps", "12"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["unit"] == "steps/s/world" and line["value"] > 0
+    assert "the CPU, not a device metric" in line["metric"]
+    with pytest.raises(SystemExit, match="per_tick"):
+        bench.main(["--filter", "naive", "--worlds", "4", "--steps", "2"])
+
+
 def test_bench_refuses_to_run_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="CUDA"):
         bench.main(["--worlds", "4", "--steps", "2"])
     with pytest.raises(SystemExit, match="CUDA"):
         bench.main(["--filter", "pose_graph", "--worlds", "4", "--steps", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.main(["--impl", "per_tick", "--worlds", "4", "--steps", "2"])
 
 
 def test_bench_pose_graph_config_and_summary():
@@ -192,7 +233,8 @@ def test_bench_pose_graph_config_and_summary():
 def test_port_runs_its_slice_without_jax():
     # every module of the port and chip_smoke (imported, not run), the three
     # microbenchmark tools on the CPU at a tiny size, then the
-    # CPU slice of all four filters and the pose-graph streams path in both
+    # CPU slice of all four fused filters, the per-tick path of naive and
+    # EKF-SLAM, and the pose-graph streams path in both
     # solve modes; no module of jax, jaxlib, flax or the
     # JAX package may be loaded (split on "." so that the port's own name,
     # live_ekf_slam_tpu_torch, does not match)
@@ -218,6 +260,11 @@ def test_port_runs_its_slice_without_jax():
         "    assert res['err_' + f].shape == (4,)\n"
         "    assert out['x'].shape == (4, 4 if f == 'ukf_loc' else\n"
         "                              44 if f == 'ukf_slam' else 43)\n"
+        "for f in ('naive', 'ekf_slam'):\n"
+        "    cfg = Config(num_iterations=10).replace(filter=f)\n"
+        "    res, fin, outs = run_monte_carlo(cfg, 4, device='cpu', impl='per_tick',\n"
+        "                                     collect='poses')\n"
+        "    assert res['err_' + f].shape == (4,) and outs[1].shape == (4, 10, 3)\n"
         "import dataclasses\n"
         "from live_ekf_slam_tpu_torch.eval.runner import run_monte_carlo_pg_streams\n"
         "for sec, it in (('ekf_slam', False), ('naive', True)):\n"
