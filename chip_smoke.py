@@ -12,9 +12,19 @@ block-Thomas factor and solve kernels on the blocks of real graphs (the
 solve, a segment scan, also within tolerance of the sequential loop it
 replaced) and for the Schur matvec of the bulk solve (P2, also within
 tolerance of the torch spelling it replaced, with both forms of the slot
-map, and two launches equal bit for bit). Those
-checks feed nothing later and wait mostly for the host, so they run in five
-processes side by side (``python3 chip_smoke.py --side-checks NAME ...`` is
+map, and two launches equal bit for bit; both also on chordal_init's
+fixed-heading systems). The per-tick pose graph
+(``run_monte_carlo(impl="per_tick", collect="poses")`` with
+``filter="pose_graph"``) runs the study's default pose-graph config at 1024
+worlds x 1000 ticks and the EKF-SLAM secondary in bulk mode at 256 worlds,
+each with its launches counted, timed by phase and one tick under the
+profiler, its graphs held to ``assemble_streams`` on its own streams, and
+its results world by world to ``run_monte_carlo_pg_streams`` on the same
+seed (the iterative solved graph to the streams replay on its own streams,
+and by its mean to the streams path); ``posegraph.solve`` with
+``init="chordal"`` and with ``solver="dense"`` runs on the card at 64 x 200
+against the CPU and against the Schur solve. Those checks feed nothing
+later and wait mostly for the host, so they run in processes side by side (``python3 chip_smoke.py --side-checks NAME ...`` is
 one of them). Then it drives the main paths, alone on the card.
 ``run_monte_carlo`` at 4096 worlds, T = 1000, N = 20
 under the bench's shared protocol, once per filter, each through its own
@@ -86,7 +96,7 @@ from live_ekf_slam_tpu_torch.ops import micro_ops as mo
 from live_ekf_slam_tpu_torch.ops.kernel_math import atan2, wrap
 from live_ekf_slam_tpu_torch.ops.precision import pin_fp32
 from live_ekf_slam_tpu_torch.sim.streams import naive_deadreckon, sim_streams
-from live_ekf_slam_tpu_torch.sim.world import propagate_truth
+from live_ekf_slam_tpu_torch.sim.world import init_world, propagate_truth, sense
 from live_ekf_slam_tpu_torch.utils.geometry import wrap_angle
 from live_ekf_slam_tpu_torch.tools import micro_downdate, micro_ukf, micro_ukf_probe
 from live_ekf_slam_tpu_torch.tools._common import DIM as MICRO_DIM
@@ -609,15 +619,15 @@ def block_thomas_compare(d, u, rhs, what: str) -> dict:
 def block_thomas_checks(dev):
     """P1 on the blocks of real graphs: a few worlds at T = 37 (a ragged
     last segment), 200 and 1000, at the first and the last measurement
-    scale of the schedule."""
+    scale of the schedule, and on chordal_init's fixed-heading system."""
     for steps in (37, SMALL["steps"], PG_MAIN["steps"]):
         cfg = pg_config(steps, "ekf_slam", False)
         graphs = pg_graphs(cfg, P1_WORLDS, dev, seed=1)[0]
-        for sc in (16.0, 1.0):
-            res = block_thomas_compare(*chain_blocks(cfg, graphs, sc),
-                                       f"block-Thomas T={steps} scale={sc}")
+        for sc, chordal in ((16.0, False), (1.0, False), (1.0, True)):
+            res = block_thomas_compare(*chain_blocks(cfg, graphs, sc, chordal),
+                                       f"block-Thomas T={steps} scale={sc} chordal={chordal}")
             emit("block_thomas_vs_plain", worlds=P1_WORLDS, steps=steps,
-                 meas_scale=sc, rtol_of_scale=P1_RTOL, **res)
+                 meas_scale=sc, chordal=chordal, rtol_of_scale=P1_RTOL, **res)
 
 
 def world_rel(a: torch.Tensor, ref: torch.Tensor) -> float:
@@ -672,17 +682,31 @@ def cg_direction(sy: dict) -> torch.Tensor:
 def schur_mv_checks(dev):
     """P2 on real graphs: a few worlds at T = 37, 200 and 1000, at the first
     and the last measurement scale, with the by-column slot map and the
-    general one."""
+    general one, and on chordal_init's fixed-heading system."""
     for steps in (37, SMALL["steps"], PG_MAIN["steps"]):
         cfg = pg_config(steps, "ekf_slam", False)
         graphs = pg_graphs(cfg, P1_WORLDS, dev, seed=1)[0]
-        for sc in (16.0, 1.0):
+        for sc, chordal in ((16.0, False), (1.0, False), (1.0, True)):
             for slots in (pg.LmSlots(graphs), pg.LmSlots(graphs, detect=False)):
-                sy = schur_system(cfg, graphs, sc, slots)
+                sy = schur_system(cfg, graphs, sc, slots, chordal)
                 res = schur_mv_compare(sy, cg_direction(sy),
-                                       f"Schur matvec T={steps} scale={sc}")
+                                       f"Schur matvec T={steps} scale={sc} chordal={chordal}")
                 emit("schur_mv_vs_plain", worlds=P1_WORLDS, steps=steps,
-                     meas_scale=sc, rtol_of_scale=SCHUR_RTOL, **res)
+                     meas_scale=sc, chordal=chordal, rtol_of_scale=SCHUR_RTOL, **res)
+
+
+def pg_bulk_launches(cfg) -> dict:
+    """The P1 and P2 launches of one bulk solve of a world chunk: the
+    graduated schedule, 16 + 16 + 50 Gauss-Newton steps from the seeds, in
+    iterative mode 50 more from the replayed or per-tick solution; each
+    factors once, solves once per CG step and once before them, and applies
+    the Schur matvec once per CG step."""
+    pgc = cfg.pose_graph
+    n_gn = (max(8, pgc.bulk_gn_iters // 3) * 2 + pgc.bulk_gn_iters
+            + (pgc.bulk_gn_iters if pgc.solve_graph_every_iteration else 0))
+    return dict(block_thomas_factor=n_gn,
+                block_thomas_solve=n_gn * (pgc.bulk_cg_iters + 1),
+                schur_mv=n_gn * pgc.bulk_cg_iters)
 
 
 def pg_run(secondary: str, iterative: bool, batch: int, dev) -> tuple[dict, dict]:
@@ -697,17 +721,8 @@ def pg_run(secondary: str, iterative: bool, batch: int, dev) -> tuple[dict, dict
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = counts()
-    # the schedule: 16 + 16 + 50 Gauss-Newton iterations from the seeds, in
-    # iterative mode 50 more from the replayed solution; each factors once,
-    # solves once per CG iteration and once before them, and applies the
-    # Schur matvec once per CG iteration
-    pgc = cfg.pose_graph
-    n_gn = (max(8, pgc.bulk_gn_iters // 3) * 2 + pgc.bulk_gn_iters
-            + (pgc.bulk_gn_iters if iterative else 0))
     want = dict.fromkeys(launches, 0)
-    want.update(philox_noise=1, block_thomas_factor=n_gn,
-                block_thomas_solve=n_gn * (pgc.bulk_cg_iters + 1),
-                schur_mv=n_gn * pgc.bulk_cg_iters)
+    want.update(philox_noise=1, **pg_bulk_launches(cfg))
     if secondary != "naive":
         kind = "iekf" if secondary == "iekf_slam" else "ekf"
         want[f"fused_{kind}_rollout[emit_traj]"] = 1
@@ -884,8 +899,22 @@ def pose_graph_paths(dev, n_lm: int) -> tuple[list, int]:
                               "rel_to_scale": res_m["vs_reference"]["max_world_rel_to_scale"]}},
             {"kernel_ms": alone_m, "torch_spelling_plain_ms": res_m["torch_ms"]}),
     }
+    # the per-tick pose graph's launches (its side process's counted run) and
+    # the chordal systems' checks (the side checks' lines)
+    ptpg = {d["run"]: d["launches"] for d in LINES if d["phase"] == "per_tick_pose_graph"}
+    chordal = {"block_thomas_factor": ("block_thomas_vs_plain", ("sinv", "l", "u", "dsc")),
+               "block_thomas_solve": ("block_thomas_vs_plain", ("x",)),
+               "schur_mv": ("schur_mv_vs_plain", ("vs_reference",))}
     for name, (flops, nbytes, ms, p_ms, outs, errs, extra) in work_p1.items():
         t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
+        phase, keys = chordal[name]
+        extra = dict(extra, launches_by_path={
+            "pose_graph_streams": launches[name],
+            **{f"per_tick_pose_graph[{run}]": ls.get(name, 0) for run, ls in ptpg.items()}},
+            chordal_max_rel_to_scale=max(
+                d[k]["rel_to_scale" if phase == "block_thomas_vs_plain"
+                     else "max_world_rel_to_scale"]
+                for d in LINES if d["phase"] == phase and d.get("chordal") for k in keys))
         record.append({
             "name": name, "route": "cuda", "source": PG_KERNELS[name][2],
             "replaces": PG_KERNELS[name][3], "launches": launches[name],
@@ -1621,18 +1650,20 @@ def held_against_fused(mode, cfg, err, diverged, ref, lms, cmds, noise) -> dict:
     return out
 
 
-def tick_launches(cfg, carry, cmd, u) -> dict:
-    """One tick of the per-tick step under torch.profiler: the CUDA kernels
-    it runs (and memory copies / sets), their summed device time, the
-    runtime's launch calls, and the tick's host time (profiled)."""
+def tick_launches(cfg, carry, cmd, u, t=None) -> dict:
+    """One tick (tick t) of the per-tick step under torch.profiler: the
+    CUDA kernels it runs (and memory copies / sets), their summed device
+    time, the runtime's launch calls, and the tick's host time (profiled).
+    A pose graph's tick writes its rows into the carry's graph: the same
+    rows twice."""
     from torch.profiler import ProfilerActivity, profile
 
     step = make_step(cfg)
-    step(carry, cmd, u)
+    step(carry, cmd, u, t)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(carry, cmd, u)
+        step(carry, cmd, u, t)
         torch.cuda.synchronize()
         host_s = time.perf_counter() - t0
     kernels = memops = launch_calls = 0
@@ -1783,6 +1814,45 @@ def per_tick_path(dev, n_lm: int, fused: dict, smi: str) -> int:
     return philox_total
 
 
+# UKF-SLAM's per-tick path against the fused kernel's plain version on the
+# CPU, on the worlds of per_tick_card_vs_cpu: world by world to
+# PT_AGAINST's (atol, rtol) of the other modes on the worlds that neither
+# path's NUDGE moves (reported: the JAX package's model and kernel part in
+# such worlds too, where a landmark passes centimetres from the vehicle,
+# tests/test_torch_ukf_per_tick_vs_fused.py), and by the mean error over all
+# worlds to PT_AGAINST's bound, F6's
+PT_FUSED_PLAIN = {"ukf_slam[chol]": (1e-4, 1e-2)}
+
+
+def per_tick_against_fused_plain(mode, cfg, lms, cmds, noise, err, alive,
+                                 chaotic) -> dict:
+    """The per-tick average errors ``err`` of a UKF-SLAM mode on the CPU
+    against the fused plain version's on the same worlds (and its NUDGE'd
+    twin's, for its own chaotic worlds). Raises when the mean error parts
+    by more than the mode's PT_AGAINST bound."""
+    t_total = cmds.shape[1]
+
+    def fused(nz):
+        out = fu.fused_ukf_rollout_reference(cfg, lms, cmds, 0, slam=True, noise=nz)
+        return (out["err_sum"] / t_total).numpy()
+
+    e_f, e_fn = fused(noise), fused(noise * NUDGE)
+    atol, rtol = PT_FUSED_PLAIN[mode]
+    chaotic_f = np.abs(e_fn - e_f) > CHAOS_RATIO * (PT_CARD_TOL[0] + PT_CARD_TOL[1] * np.abs(e_f))
+    calm = ~chaotic & ~chaotic_f & alive
+    d = np.abs(err - e_f)
+    outside = ~(d <= atol + rtol * np.abs(e_f))
+    out = {"tolerance": [atol, rtol], "worlds_chaotic_fused": int(chaotic_f.sum()),
+           "worlds_calm": int(calm.sum()), "calm_worlds_outside": int((outside & calm).sum()),
+           "calm_max_abs_diff_m": float(d[calm].max()) if calm.any() else None,
+           "calm_median_abs_diff_m": float(np.median(d[calm])) if calm.any() else None,
+           "mean_err_gap_rel_all_worlds": float(abs(err.mean() - e_f.mean()) / e_f.mean()),
+           "mean_rtol": PT_AGAINST[mode][2]}
+    if not out["mean_err_gap_rel_all_worlds"] <= out["mean_rtol"]:
+        raise AssertionError(f"UKF-SLAM per-tick against the fused plain version: {out}")
+    return out
+
+
 def per_tick_card_vs_cpu(dev, n_lm: int, modes: tuple):
     """The ``modes`` of PT_MODES at PT_SMALL on the card and on the CPU,
     from the same inputs (made on the CPU) and noise: the average errors and
@@ -1812,6 +1882,9 @@ def per_tick_card_vs_cpu(dev, n_lm: int, modes: tuple):
             chaotic = np.abs(e_n - e_h) > CHAOS_RATIO * scale
         d_err = np.abs(e_c - e_h)
         outside = ~(d_err <= scale) | (a_c != a_h)
+        if mode in PT_FUSED_PLAIN:
+            against = per_tick_against_fused_plain(mode, cfg, lms, cmds, noise, e_h,
+                                                   a_h, chaotic)
         line = dict(mode=mode, worlds=b, steps=t_total, tolerance=PT_CARD_TOL,
                     worlds_chaotic=int(chaotic.sum()),
                     worlds_outside=int((outside & ~chaotic).sum()),
@@ -1822,9 +1895,310 @@ def per_tick_card_vs_cpu(dev, n_lm: int, modes: tuple):
                     mean_err_cpu_m=float(e_h.mean()),
                     alive_differs=int((a_c != a_h).sum()),
                     card_s=s_c, cpu_s=s_h)
+        if mode in PT_FUSED_PLAIN:
+            line["against_fused_plain"] = against
         emit("per_tick_card_vs_cpu", **line)
         if line["worlds_outside"]:
             raise AssertionError(f"per-tick {mode}: card against CPU: {line}")
+
+
+# ---- the per-tick pose graph (run_monte_carlo(impl="per_tick") with
+# filter="pose_graph"): the study's default pose-graph config (naive
+# secondary, a PCG solve every tick, the Schur bulk solve) at PG_MAIN on the
+# study's inputs and Philox noise, so that its worlds are those of
+# run_monte_carlo_pg_streams on the same seed; and the EKF-SLAM secondary in
+# bulk mode at PG_SIDE worlds. (secondary, iterative, worlds)
+PTPG_RUNS = {"naive": ("naive", True, PG_MAIN["batch"]),
+             "ekf_slam": ("ekf_slam", False, PG_SIDE)}
+# Per-tick against streams, per world, |per-tick - streams| <= atol + rtol
+# |streams|: JAX's own scan-against-streams tolerances
+# (tests/test_posegraph.py test_streams_path_matches_scan_path_naive, _ekf,
+# at T = 80). The naive secondary's graph is the same graph built two ways,
+# a sequential sum over the ticks and a cumsum, whose rounding grows with
+# T: at T = 1000 one world of 1024 parts by 1.1e-4 m (measured on an H100),
+# so the seeds carry the per-tick path's own naive tolerance against the
+# closed form (PT_AGAINST["naive"], 1e-4 m + 0.1%). The EKF-SLAM streams'
+# secondary is the fused kernel (its polynomial atan2, FMA), the per-tick
+# one the JAX model's algebra: 5e-3 m on all three. Worlds on the
+# field-of-view edge (F9) are left out. In iterative mode the solved graph
+# is held world by world against the streams path's replay and bulk solve
+# on the per-tick path's own streams (``same_streams_result``: its truth and
+# secondary stepped tick by tick, the replay in one window), and against
+# run_monte_carlo_pg_streams by its mean over all worlds: 999 warm-started,
+# truncated PCG solves carry the two simulators' float orders (1e-5-1e-4 m
+# on the truth and seeds by T = 1000, a sequential sum against a cumsum)
+# into the result (measured on an H100 at 1024 x 1000: 57 worlds beyond
+# 2e-3 m, 2.2 cm the most, the means 0.16% apart; a NUDGE of the noise,
+# ~1e-6 m on the inputs, is a smaller perturbation and does not explain
+# them all).
+PTPG_AGAINST = {"naive": dict(secondary=(1e-4, 1e-3), initial=(1e-4, 1e-3),
+                              result=(2e-3, 0.0)),
+                "ekf_slam": dict(secondary=(5e-3, 0.0), initial=(5e-3, 0.0),
+                                 result=(5e-3, 0.0))}
+# ... and the mean error of the solved graph over all worlds to this
+# relative gap
+PTPG_MEAN_RTOL = 0.01
+# The per-tick graph against assemble_streams on the per-tick path's own
+# secondary poses and measurements, world by world: the landmark slots, the
+# factors' slots and validity equal, the values within this (the same
+# float32 operations in another order of the slot loop)
+PTPG_GRAPH_ATOL = 1e-6
+PTPG_WINDOW = 20        # ticks timed in the process, after 3 of warm-up
+PTPG = {}               # the side processes' per-world lines, by kind and run
+# chordal_init and the dense LM on the card against the CPU and against the
+# Schur solve, at these worlds and ticks (the CPU on the first cpu_worlds):
+# tests/test_posegraph.py test_schur_solver_matches_dense's tolerance, a
+# graph error within 2% (+ 1e-3) of the reference's and the active nodes'
+# positions within 2 cm
+PG_SOLVERS = dict(batch=64, steps=200, cpu_worlds=8)
+PG_SOLVE_RTOL, PG_SOLVE_ATOL, PG_POSE_ATOL = 0.02, 1e-3, 2e-2
+
+
+PTPG_KEYS = ("err_{}", "err_pose_graph_initial", "err_pose_graph_result",
+             "diverged_pose_graph")
+
+
+def per_world(res: dict, secondary: str) -> dict:
+    return {k.format(secondary): res[k.format(secondary)].tolist() for k in PTPG_KEYS}
+
+
+def per_tick_measurements(cfg, lms, true_poses, noise):
+    """(r, b, vis), each (B, T, N): the measurements the per-tick simulator
+    takes on its true poses (B, T, 3) and draws, every tick at once."""
+    b, t_total, n = true_poses.shape[0], true_poses.shape[1], lms.shape[1]
+    world = init_world(cfg, lms.repeat_interleave(t_total, dim=0))
+    u = noise.permute(2, 0, 1)[..., 2:2 + 2 * n].reshape(b * t_total, 2, n)
+    meas = sense(cfg, world, true_poses.reshape(b * t_total, 3), u)
+    return tuple(a.reshape(b, t_total, n) for a in (meas.r, meas.b, meas.valid))
+
+
+def graph_against_streams(cfg, s, outs, lms, cmds, noise) -> dict:
+    """The per-tick path's graphs ``s`` against ``assemble_streams`` on the
+    same run's streams: its secondary poses and the measurements its
+    simulator took (``sim.world.sense`` on its true poses and the same
+    draws, every tick at once), field by field (PTPG_GRAPH_ATOL)."""
+    true_poses, est = outs
+    b = true_poses.shape[0]
+    g = pg.assemble_streams(cfg, est, *per_tick_measurements(cfg, lms, true_poses, noise),
+                            cmds)
+    out = {}
+    for f in ("ids", "M", "timestep", "odom_valid", "meas_valid", "meas_lm"):
+        a, b_ = getattr(s, f), getattr(g, f)
+        out[f] = {"worlds_differ": int((a != b_).reshape(b, -1).any(dim=1).sum())}
+    for f in ("poses_init", "lms_init", "odom", "meas_rb"):
+        d = (getattr(s, f) - getattr(g, f)).abs().reshape(b, -1).amax(dim=1)
+        out[f] = {"max_abs_diff": float(d.max()),
+                  "worlds_outside": int((d > PTPG_GRAPH_ATOL).sum())}
+    if any(v.get("worlds_differ", 0) or v.get("worlds_outside", 0) for v in out.values()):
+        raise AssertionError(f"per-tick graph against assemble_streams: {out}")
+    return out
+
+
+def per_tick_pose_graph(name: str, dev):
+    """One study of PTPG_RUNS on the per-tick path: a window of ticks timed
+    in this process and one tick under the profiler; then the counted run
+    through run_monte_carlo(impl="per_tick", collect="poses"): its phases'
+    seconds, the launches it implies and no other; its graphs against
+    assemble_streams (``graph_against_streams``); its per-world results and
+    F9 edge worlds, one line for ``per_tick_pose_graph_check``."""
+    secondary, iterative, batch = PTPG_RUNS[name]
+    cfg = pg_config(PG_MAIN["steps"], secondary, iterative)
+    t_total, n_lm = PG_MAIN["steps"], cfg.map.num_landmarks
+    lms, cmds = mc_inputs(cfg, batch, 0, dev)
+    noise = philox.philox_noise(0, t_total, n_lm, batch, dev)
+    step = make_step(cfg, "poses")
+    carry, _ = rollout(cfg, init_carry(cfg, lms, n_lm), cmds[:, :3], noise[:3],
+                       "poses", step=step)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    w = 3 + PTPG_WINDOW
+    carry, _ = rollout(cfg, carry, cmds[:, 3:w], noise[3:w], "poses", step=step, t0=3)
+    torch.cuda.synchronize()
+    window_ms = 1e3 * (time.perf_counter() - t0) / PTPG_WINDOW
+    one = tick_launches(cfg, carry, cmds[:, w], noise[w].T, w)
+
+    zero_counts()
+    sec = {}
+    t0 = time.perf_counter()
+    res, final, outs = run_monte_carlo(cfg, batch, seed=0, impl="per_tick",
+                                       device=dev, collect="poses", seconds=sec)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    want = dict.fromkeys(launches, 0)
+    want.update(philox_noise=1, **pg_bulk_launches(cfg))
+    if launches != want:
+        raise AssertionError(f"per-tick pose graph {name}: launched {launches}, "
+                             f"expected {want}")
+    for key, v in res.items():
+        if not key.startswith("diverged") and not np.isfinite(v).all():
+            raise AssertionError(f"per-tick pose graph {name}: non-finite {key}")
+    edge = fov_edge_worlds(cfg, lms, cmds, noise)
+    graph = graph_against_streams(cfg, final.primary, outs, lms, cmds, noise)
+    print(json.dumps({"per_tick_pose_graph_run": name, "wall_s": wall, "seconds": sec,
+                      "window_ms_per_tick": window_ms, "one_tick": one,
+                      "launches": {k_: v for k_, v in launches.items() if v},
+                      "graph_against_streams": graph, "fov_edge": edge.tolist(),
+                      **per_world(res, secondary)}), flush=True)
+
+
+def pg_streams_of(name: str, dev):
+    """The streams path on the config and seed of ``per_tick_pose_graph``'s
+    run ``name``, and in iterative mode ``same_streams_result``: their
+    per-world results, one line."""
+    secondary, iterative, batch = PTPG_RUNS[name]
+    cfg = pg_config(PG_MAIN["steps"], secondary, iterative)
+    t0 = time.perf_counter()
+    res, info, _ = run_monte_carlo_pg_streams(cfg, batch, seed=0,
+                                              world_chunk=batch, device=dev)
+    torch.cuda.synchronize()
+    out = {"per_tick_pose_graph_streams": name, "wall_s": time.perf_counter() - t0,
+           "seconds": info["seconds"], **per_world(res, secondary)}
+    if iterative:
+        t0 = time.perf_counter()
+        lms, cmds = mc_inputs(cfg, batch, 0, dev)
+        noise = philox.philox_noise(0, PG_MAIN["steps"], cfg.map.num_landmarks, batch, dev)
+        out["same_streams_result"] = same_streams_result(cfg, lms, cmds, noise).tolist()
+        out["same_streams_s"] = time.perf_counter() - t0
+    print(json.dumps(out), flush=True)
+
+
+def same_streams_result(cfg, lms, cmds, noise) -> np.ndarray:
+    """err_pose_graph_result of the streams path's replay (in one window:
+    the per-tick path's sums' shapes) and bulk solve on the graphs of the
+    per-tick path's own streams: the truth and the naive secondary stepped
+    tick by tick by ``rollout``, the measurements its simulator takes
+    (``sim.world.sense``), assembled by ``assemble_streams``."""
+    import live_ekf_slam_tpu_torch.eval.runner as runner_mod
+
+    t_total = cmds.shape[1]
+    naive_cfg = cfg.replace(filter="naive")
+    _, (true_poses, est) = rollout(naive_cfg, init_carry(naive_cfg, lms, lms.shape[1]),
+                                   cmds, noise, "poses")
+    r, b, vis = per_tick_measurements(cfg, lms, true_poses, noise)
+    graphs = pg.assemble_streams(cfg, est, r, b, vis, cmds)
+    tidx = torch.arange(t_total, device=lms.device)
+    vis_live = vis & (tidx < t_total - 1)[None, :, None]
+    first_t = torch.where(vis_live, tidx[None, :, None], t_total).amin(dim=1)
+    m_at = (first_t[:, None, :] <= tidx[None, :, None]).sum(dim=2, dtype=torch.int32)
+    saved, runner_mod.REPLAY_CAP_STEP = runner_mod.REPLAY_CAP_STEP, t_total + 1
+    try:
+        graphs = runner_mod.replay_chunk(cfg, graphs, m_at)
+    finally:
+        runner_mod.REPLAY_CAP_STEP = saved
+    return runner_mod._pg_bulk_solve(cfg, graphs, true_poses, lms.shape[0])[0]
+
+
+def per_tick_pose_graph_check(name: str, smi: str, dev):
+    """The per-tick run ``name`` against its streams twin, world by world
+    (PTPG_AGAINST) but for the F9 edge worlds; in iterative mode the solved
+    graph world by world against ``same_streams_result`` and by its mean
+    (PTPG_MEAN_RTOL) against the streams path; one ``per_tick_pose_graph``
+    line. Raises when out of tolerance."""
+    secondary, iterative, batch = PTPG_RUNS[name]
+    run, st = PTPG["run"][name], PTPG["streams"][name]
+    held = ~np.asarray(run["fov_edge"], bool)
+    against = {}
+    parts = [("secondary", "err_" + secondary, st), ("initial", "err_pose_graph_initial", st),
+             ("result", "err_pose_graph_result", st)]
+    if iterative:
+        parts.append(("result_same_streams", "err_pose_graph_result",
+                      {"err_pose_graph_result": st["same_streams_result"]}))
+    for part, key, twin in parts:
+        a, ref = np.asarray(run[key], np.float64), np.asarray(twin[key], np.float64)
+        atol, rtol = PTPG_AGAINST[name][part.split("_same")[0]]
+        d = np.abs(a - ref)
+        outside = ~(d <= atol + rtol * np.abs(ref))
+        against[part] = {"tolerance": [atol, rtol], "worlds_held": int(held.sum()),
+                         "max_abs_diff_m": float(d[held].max()),
+                         "median_abs_diff_m": float(np.median(d[held])),
+                         "max_abs_diff_all_worlds_m": float(d.max()),
+                         "worlds_outside": int((outside & held).sum()),
+                         "worlds_outside_all": int(outside.sum()),
+                         "mean_per_tick_m": float(a.mean()), "mean_streams_m": float(ref.mean()),
+                         "mean_gap_rel": float(abs(a.mean() - ref.mean()) / ref.mean())}
+    # held by its mean only where the same-streams twin holds it per world
+    held_by_mean = {"result"} if iterative else set()
+    sec = run["seconds"]
+    line = dict(run=name, secondary=secondary, iterative=iterative, batch=batch,
+                steps=PG_MAIN["steps"], noise="high", wall_s=run["wall_s"], seconds=sec,
+                ms_per_tick=1e3 * sec["rollout"] / PG_MAIN["steps"],
+                window_ms_per_tick=run["window_ms_per_tick"], one_tick=run["one_tick"],
+                streams_wall_s=st["wall_s"], streams_seconds=st["seconds"],
+                per_tick_over_streams_wall=run["wall_s"] / st["wall_s"],
+                mean_err_pose_graph_result=against["result"]["mean_per_tick_m"],
+                mean_err_pose_graph_initial=against["initial"]["mean_per_tick_m"],
+                mean_err_secondary=against["secondary"]["mean_per_tick_m"],
+                diverged=int(np.sum(run["diverged_pose_graph"])),
+                diverged_streams=int(np.sum(st["diverged_pose_graph"])),
+                fov_edge_worlds=int((~held).sum()),
+                held_by_mean_only=sorted(held_by_mean),
+                graph_against_streams=run["graph_against_streams"],
+                against_streams=against, launches=run["launches"], card=smi,
+                run_beside_other_processes=True)
+    if iterative:
+        line["same_streams_s"] = st["same_streams_s"]
+    emit("per_tick_pose_graph", **line)
+    if line["diverged"] or line["diverged_streams"]:
+        raise AssertionError(f"per-tick pose graph {name}: diverged worlds: {line}")
+    if any(a["worlds_outside"] for k, a in against.items() if k not in held_by_mean):
+        raise AssertionError(f"per-tick pose graph {name}: against streams: {against}")
+    if against["result"]["mean_gap_rel"] > PTPG_MEAN_RTOL:
+        raise AssertionError(f"per-tick pose graph {name}: mean result: {against}")
+    if not line["mean_err_pose_graph_result"] < line["mean_err_pose_graph_initial"]:
+        raise AssertionError(f"per-tick pose graph {name}: the solve did not "
+                             f"improve on the seeds: {line}")
+
+
+def pose_graph_solvers(dev):
+    """posegraph.solve with init="chordal" and with solver="dense" on the
+    card against the same solve on the CPU (its first cpu_worlds worlds:
+    worlds are independent) and against the Schur solve (init="secondary")
+    on the card, at PG_SOLVERS on the EKF-SLAM study's graphs: graph errors
+    within PG_SOLVE_RTOL (+ PG_SOLVE_ATOL) of the reference's and the active
+    nodes' positions within PG_POSE_ATOL."""
+    torch.set_num_threads(2)
+    base = pg_config(PG_SOLVERS["steps"], "ekf_slam", False)
+    graphs = pg_graphs(base, PG_SOLVERS["batch"], dev)[0]
+    w = PG_SOLVERS["cpu_worlds"]
+    on_cpu = graphs.map(lambda a: a[:w].cpu())
+    pgc = base.pose_graph
+    cfgs = {"schur": base,
+            "chordal": base.replace(pose_graph=dataclasses.replace(pgc, init="chordal")),
+            "dense": base.replace(pose_graph=dataclasses.replace(pgc, solver="dense"))}
+    out = {}
+
+    def timed(cfg, g, cuda):
+        t0 = time.perf_counter()
+        r = pg.solve(cfg, g)
+        if cuda:
+            torch.cuda.synchronize()
+        return [a.cpu() for a in r], time.perf_counter() - t0
+
+    def held(a, ref, what):
+        (pa, _, ea), (pr, _, er) = a, ref
+        t_act = PG_SOLVERS["steps"]
+        d_err = float(((ea - er) / (er.abs() * PG_SOLVE_RTOL + PG_SOLVE_ATOL)).max())
+        d_pose = float((pa[:, :t_act, :2] - pr[:, :t_act, :2]).abs().max())
+        if not (d_err <= 1.0 and d_pose <= PG_POSE_ATOL):
+            raise AssertionError(f"pose-graph solvers: {what}: err ratio {d_err}, "
+                                 f"pose {d_pose}")
+        return {"err_excess_ratio": d_err, "max_pose_diff_m": d_pose}
+
+    card = {}
+    for name, cfg in cfgs.items():
+        card[name], card_s = timed(cfg, graphs, True)
+        out[name] = {"card_s": card_s, "mean_err": float(card[name][2].mean()),
+                     "finite": bool(torch.isfinite(card[name][0]).all())}
+        if name != "schur":
+            cpu, cpu_s = timed(cfg, on_cpu, False)
+            first = [a[:w] for a in card[name]]
+            out[name].update(cpu_s=cpu_s, card_vs_cpu=held(first, cpu, f"{name} card vs cpu"),
+                             cpu_vs_card=held(cpu, first, f"{name} cpu vs card"))
+    out["schur"]["vs_dense"] = held(card["schur"], card["dense"], "schur vs dense")
+    out["chordal"]["vs_dense"] = held(card["chordal"], card["dense"], "chordal vs dense")
+    emit("pose_graph_solvers", **PG_SOLVERS, tolerance=[PG_SOLVE_RTOL, PG_SOLVE_ATOL,
+                                                        PG_POSE_ATOL], **out)
 
 
 # The checks whose results nothing later reads, by name, and the processes
@@ -1843,6 +2217,13 @@ SIDE_CHECKS = {
        for kind in fr.FILTER_KINDS},
     "block_thomas": lambda dev, n_lm: block_thomas_checks(dev),
     "schur_mv": lambda dev, n_lm: schur_mv_checks(dev),
+    **{f"per_tick_pose_graph[{name}]":
+       (lambda dev, n_lm, name=name: per_tick_pose_graph(name, dev))
+       for name in PTPG_RUNS},
+    **{f"pg_streams_of[{name}]":
+       (lambda dev, n_lm, name=name: pg_streams_of(name, dev))
+       for name in PTPG_RUNS},
+    "pose_graph_solvers": lambda dev, n_lm: pose_graph_solvers(dev),
     # beside the other side processes: two CPU threads
     **{f"per_tick_card_vs_cpu[{i}]":
        (lambda dev, n_lm, modes=modes: (torch.set_num_threads(2),
@@ -1854,6 +2235,10 @@ SIDE_CHECKS = {
 }
 SIDE_GROUPS = (
     *((f"per_tick_run[{i}]",) for i in range(len(PT_RUN_GROUPS))),
+    ("per_tick_pose_graph[naive]",),
+    ("per_tick_pose_graph[ekf_slam]", "pg_streams_of[ekf_slam]"),
+    ("pg_streams_of[naive]",),
+    ("pose_graph_solvers",),
     ("fused_ukf_rollout[slam]",),
     ("fused_ukf_rollout[loc]",),
     ("fused_ekf_rollout", "pose_stream_main[ekf]"),
@@ -1883,6 +2268,11 @@ def side_checks(dev, n_lm: int):
                 if line.startswith('{"per_tick_run"'):  # per-world arrays
                     run = json.loads(line)
                     PT_RUNS[run["per_tick_run"]] = run
+                    continue
+                if line.startswith('{"per_tick_pose_graph_'):  # the same
+                    run = json.loads(line)
+                    kind = "run" if "per_tick_pose_graph_run" in run else "streams"
+                    PTPG.setdefault(kind, {})[run["per_tick_pose_graph_" + kind]] = run
                     continue
                 sys.stdout.write(line)
                 if line.startswith("{"):
@@ -1943,6 +2333,10 @@ def main():
 
     # ---- 3-5. the checks that feed nothing later, in processes side by side
     side_checks(dev, n_lm)
+    # the per-tick pose graph's runs, made in the side processes, against
+    # the streams path on the same worlds
+    for run in PTPG_RUNS:
+        per_tick_pose_graph_check(run, smi, dev)
 
     # ---- 6. the main path, once per filter, through its kernel; the counts
     # read right after run_monte_carlo are that path's own
@@ -2059,6 +2453,11 @@ def main():
 
     # ---- 8. the per-tick path of every online filter
     philox_launches += per_tick_path(dev, n_lm, fused, smi)
+
+    # ---- 9. the per-tick pose graph, run in its side processes: each
+    # counted run launched Philox once and P1 and P2 in its bulk solve
+    # (per_tick_pose_graph raises otherwise)
+    philox_launches += sum(r["launches"]["philox_noise"] for r in PTPG["run"].values())
 
     # the standalone Philox kernel: the rollouts draw in-kernel, the
     # pose-graph path launches it once per world chunk, the per-tick path

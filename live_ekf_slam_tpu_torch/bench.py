@@ -6,6 +6,8 @@
     python -m live_ekf_slam_tpu_torch.bench --impl per_tick --filter naive
     python -m live_ekf_slam_tpu_torch.bench --filter pose_graph \
         --secondary ekf_slam [--iterative] [--worlds 1024]
+    python -m live_ekf_slam_tpu_torch.bench --impl per_tick --filter pose_graph \
+        --secondary naive --iterative [--worlds 1024] [--device cpu]
 
 The JAX ``bench.py`` path with ``BENCH_IMPL=pallas`` and ``BENCH_FILTER`` one
 of ekf_slam, iekf_slam, ukf_slam, ukf_loc (``--filter``), on the card: 4096
@@ -28,7 +30,13 @@ writes nothing to disk. Prints one JSON line: metric, value, unit.
 default 1024 worlds with a map each, the high-noise profile, bulk solve. Its
 value is the accumulation rate in steps/s/world (streams + secondary + graph
 assembly); the line also carries the replay and solve wall seconds and the
-mean errors of the seeds and of the solution.
+mean errors of the seeds and of the solution. With ``--impl per_tick`` the
+same study runs on the per-tick path instead (``run_monte_carlo(impl=
+"per_tick", collect="poses")``, any online filter as the secondary, its
+graphs built tick by tick and, with ``--iterative``, re-solved every tick):
+the line gives each phase's seconds, the ms a tick of the rollout (the
+simulator, the secondary, the graph's update and per-tick solve) and the
+mean errors; ``--device cpu`` runs it on the CPU.
 """
 
 from __future__ import annotations
@@ -46,13 +54,13 @@ import torch
 from live_ekf_slam_tpu_torch.config import Config
 from live_ekf_slam_tpu_torch.eval.runner import (
     ONLINE_FILTERS,
-    PG_SECONDARIES,
     fused_rollout,
     init_carry,
     make_step,
     mc_inputs,
     resolve_device,
     rollout,
+    run_monte_carlo,
     run_monte_carlo_pg_streams,
     sync_clock,
 )
@@ -189,6 +197,53 @@ def pg_summary(res: dict, info: dict, steps: int, secondary: str) -> dict:
     }
 
 
+def time_per_tick_pose_graph(cfg, worlds: int, dev, seed: int = 0) -> dict:
+    """One pose-graph study on the per-tick path, after a warm-up of a few
+    ticks (CUDA context, cuBLAS) and the kernels' build: the numbers of
+    ``pg_summary``'s kind (each phase's seconds, ms a tick of the rollout,
+    mean errors, diverged worlds)."""
+    if dev.type == "cuda":
+        _build.load()
+    warm = cfg.replace(num_iterations=WARMUP_TICKS)
+    lms, cmds = mc_inputs(warm, worlds, seed, dev)
+    noise = philox.philox_noise(seed, WARMUP_TICKS, lms.shape[1], worlds, dev)
+    rollout(warm, init_carry(warm, lms, lms.shape[1]), cmds, noise, "poses")
+    sec = {}
+    t0 = sync_clock(dev)
+    res, _, _ = run_monte_carlo(cfg, worlds, seed=seed, impl="per_tick",
+                                device=dev, collect="poses", seconds=sec)
+    wall = sync_clock(dev) - t0
+    secondary = cfg.pose_graph.filter_to_compare
+    return {
+        "ms_per_tick": 1e3 * sec["rollout"] / cfg.num_iterations,
+        "inputs_s": sec["inputs"], "rollout_s": sec["rollout"],
+        "solve_s": sec["solve"], "wall_s": wall,
+        "mean_err_" + secondary: float(np.mean(res["err_" + secondary])),
+        "mean_err_pose_graph_initial": float(np.mean(res["err_pose_graph_initial"])),
+        "mean_err_pose_graph_result": float(np.mean(res["err_pose_graph_result"])),
+        "diverged": int(res["diverged_pose_graph"].sum()),
+    }
+
+
+def bench_per_tick_pose_graph(args) -> dict:
+    dev = resolve_device(args.device)
+    worlds = args.worlds or PG_WORLDS
+    cfg = pg_config(args.steps, args.secondary, args.iterative)
+    out = time_per_tick_pose_graph(cfg, worlds, dev)
+    if not np.isfinite(out["mean_err_pose_graph_result"]):
+        raise RuntimeError("the per-tick pose-graph run produced non-finite errors")
+    mode = "iterative" if args.iterative else "bulk"
+    where = card() if dev.type == "cuda" else "the CPU, not a device metric"
+    return {
+        "metric": (
+            f"per-tick pose-graph steps/sec/world at {worlds} worlds "
+            f"(T={args.steps}, secondary={args.secondary}, {mode}, high "
+            f"noise; {where})"
+        ),
+        "value": 1e3 / out["ms_per_tick"], "unit": "steps/s/world", **out,
+    }
+
+
 def pg_graphs(cfg, batch: int, dev, seed: int = 0):
     """The graphs of the pose-graph path's first world chunk, rebuilt from
     the pieces ``run_monte_carlo_pg_streams`` composes, with the inputs they
@@ -203,25 +258,24 @@ def pg_graphs(cfg, batch: int, dev, seed: int = 0):
     return graphs, lms, cmds, noise, out
 
 
-def schur_system(cfg, s, meas_scale: float, slots=None) -> dict:
+def schur_system(cfg, s, meas_scale: float, slots=None, chordal: bool = False) -> dict:
     """The Schur-reduced system solve_schur_pcg sets up first on the graphs
     ``s`` (at the seeds, damping 1e-4): the chain blocks d, u, the landmark
     inverses hll_inv, the measurement coefficients, the slot map and the
-    pose gradient rhs, the arguments of posegraph._schur_mv and of P1."""
+    pose gradient rhs, the arguments of posegraph._schur_mv and of P1.
+    ``chordal``: the system of chordal_init's linear solve instead, at
+    ``posegraph.chordal_seed`` with the headings fixed (``fix_theta``)."""
     slots = slots or pg.LmSlots(s)
-    jac = pg._jacobians(cfg, s, s.poses_init, s.lms_init, meas_scale, slots)
-    coeffs, r_meas = pg._meas_coeffs(cfg, s, s.poses_init, s.lms_init,
-                                     meas_scale, slots)
-    d, u, _ = pg._pose_blocks(cfg, s, jac, coeffs, 1e-4)
-    hll_inv, _ = pg._lm_hessian_inv(cfg, s, jac, coeffs, 1e-4, slots)
-    rhs, _ = pg._grad(cfg, s, jac, coeffs, r_meas, slots)
-    return dict(d=d, u=u, hll_inv=hll_inv, coeffs=coeffs, slots=slots, rhs=rhs)
+    poses, lms = pg.chordal_seed(cfg, s, slots) if chordal else (s.poses_init, s.lms_init)
+    sy = pg._schur_system(cfg, s, poses, lms, meas_scale, 1e-4, slots, fix_theta=chordal)
+    return dict(d=sy["d"], u=sy["u"], hll_inv=sy["hll_inv"], coeffs=sy["coeffs"],
+                slots=slots, rhs=sy["gp"])
 
 
-def chain_blocks(cfg, s, meas_scale: float):
+def chain_blocks(cfg, s, meas_scale: float, chordal: bool = False):
     """The block-tridiagonal system solve_schur_pcg factors first on the
     graphs ``s`` and its first right-hand side: (d, u, rhs)."""
-    sy = schur_system(cfg, s, meas_scale)
+    sy = schur_system(cfg, s, meas_scale, chordal=chordal)
     return sy["d"], sy["u"], sy["rhs"]
 
 
@@ -250,8 +304,9 @@ def main(argv=None):
     p.add_argument("--filter", choices=ONLINE_FILTERS + ("pose_graph",),
                    default="ekf_slam",
                    help="naive runs with --impl per_tick only")
-    p.add_argument("--secondary", choices=PG_SECONDARIES, default="naive",
-                   help="pose_graph only: the filter that seeds the graph")
+    p.add_argument("--secondary", choices=ONLINE_FILTERS, default="naive",
+                   help="pose_graph only: the filter that seeds the graph "
+                        "(the streams path: naive, ekf_slam or iekf_slam)")
     p.add_argument("--iterative", action="store_true",
                    help="pose_graph only: replay the per-tick solves first")
     p.add_argument("--impl", choices=["cuda", "plain", "per_tick"],
@@ -270,8 +325,11 @@ def main(argv=None):
         raise SystemExit("naive has no fused rollout: use --impl per_tick")
     if args.device != "cuda" and args.impl != "per_tick":
         raise SystemExit("only --impl per_tick runs on another device")
-    if args.impl == "per_tick" and args.filter != "pose_graph":
+    if args.impl == "per_tick":
         pin_fp32()
+        if args.filter == "pose_graph":
+            print(json.dumps(bench_per_tick_pose_graph(args)))
+            return
         args.worlds = args.worlds or 4096
         print(json.dumps(bench_per_tick(args)))
         return

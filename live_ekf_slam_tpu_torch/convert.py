@@ -22,6 +22,11 @@ The per-tick slice adds ``world_state_from_numpy`` and
 ``filter_state_from_numpy``, which turn the JAX ``WorldState`` and the
 online filters' states (``NaiveState``, ``GaussianState``, ``UKFState``) into
 the port's, so that both packages can start from one state.
+
+The per-tick pose-graph slice adds ``run_carry_from_numpy``: a whole JAX
+``RunCarry`` (world, the primary filter, for the pose graph its
+``PoseGraphState`` and the secondary filter, the error sums and alive
+masks) as the port's.
 """
 
 from __future__ import annotations
@@ -298,3 +303,27 @@ def micro_output_to_numpy(t: torch.Tensor) -> np.ndarray:
     """A world-major result of ``ops/micro_ops`` -> numpy with worlds on the
     last axis, the layout of the scripts' kernels."""
     return np.moveaxis(t.detach().cpu().numpy(), 0, -1)
+
+
+_CARRY_SCALARS = ("err_sum_primary", "err_sum_secondary", "alive_primary",
+                  "alive_secondary", "ticks_primary", "ticks_secondary")
+
+
+def run_carry_from_numpy(carry, primary: str, secondary: str | None = None,
+                         device="cpu"):
+    """A JAX ``RunCarry`` of a ``vmap`` batch (its fields as arrays) -> the
+    port's ``eval.runner.RunCarry`` on ``device``. ``primary`` names the
+    filter (``pose_graph``: the primary is a ``PoseGraphState`` and
+    ``secondary`` names the filter beside it)."""
+    # eval.runner imports this module (through ops.fused_rollout)
+    from live_ekf_slam_tpu_torch.eval.runner import RunCarry
+
+    if primary == "pose_graph":
+        prim = posegraph_state_from_numpy(carry.primary, device)
+        sec = filter_state_from_numpy(secondary, carry.secondary, device)
+    else:
+        prim, sec = filter_state_from_numpy(primary, carry.primary, device), None
+    sums = {f: torch.tensor(np.asarray(getattr(carry, f)), device=device)
+            for f in _CARRY_SCALARS}
+    return RunCarry(world=world_state_from_numpy(carry.world, device),
+                    primary=prim, secondary=sec, **sums)

@@ -7,8 +7,12 @@ Counterpart of ``live_ekf_slam_tpu/eval/runner.py`` for three of its paths.
 simulator (``sim/world``), one of the five online filters (naive, EKF-SLAM
 with known or unknown ids, RI-EKF-SLAM, UKF-SLAM, UKF-Loc) and the per-world
 error with its divergence guard, as batched tensor ops over a leading world
-axis, a Python loop over T. The noise is the Philox stream the fused kernels
-draw (``ops/philox``), so for one seed both paths see the same worlds.
+axis, a Python loop over T. With ``filter="pose_graph"`` the tick runs the
+secondary filter, then adds the tick's factors to each world's graph
+(``models/posegraph.update``) and, in iterative mode, re-solves it; the
+bulk solve (``_pg_bulk_solve``) runs on the finished graphs. The noise is
+the Philox stream the fused kernels draw (``ops/philox``), so for one seed
+both paths see the same worlds.
 ``run_monte_carlo(impl="fused")`` serves the four filters with a fused
 rollout (``ekf_slam``, ``iekf_slam``, ``ukf_slam``, ``ukf_loc``) and
 ``collect="sums"``: random maps, TSP command streams, one fused rollout of
@@ -16,9 +20,9 @@ every world, and per-world average position error with a divergence latch.
 ``run_monte_carlo_pg_streams`` is the fast pose-graph Monte-Carlo: closed-form
 simulator streams, the secondary filter (naive in closed form, EKF or RI-EKF
 through the fused kernel's pose stream on the same noise), vectorised graph
-assembly, the iterative replay and the bulk Schur / block-Thomas solve. The
-per-tick pose graph and the dense pose-graph solver are not ported yet
-(ROADMAP.md, M9b).
+assembly, the iterative replay and the bulk Schur / block-Thomas solve
+(or, with ``pose_graph.solver="dense"``, the dense Levenberg-Marquardt
+solve).
 """
 
 from __future__ import annotations
@@ -77,10 +81,14 @@ REPLAY_CAP_STEP = 256
 BULK_SEG_GN = 10
 
 _NOT_FUSED = (
-    "filter={!r}: no fused rollout; the per-tick pose_graph accumulation is "
-    "not ported yet (ROADMAP.md, M9b; pose_graph runs through "
-    "run_monte_carlo_pg_streams)"
+    "filter={!r}: no fused rollout; run_monte_carlo(impl='per_tick') runs "
+    "it (and run_monte_carlo_pg_streams the pose-graph study)"
 )
+
+# worlds a chunk of the dense pose-graph solve (a world's (3(T+1)+2N)^2
+# float32 normal matrix is 37 MB at T = 1000, N = 20; the JAX runner's
+# run_monte_carlo default solve_chunk)
+DENSE_CHUNK = 8
 
 
 def resolve_device(device=None) -> torch.device:
@@ -179,8 +187,10 @@ class RunCarry(StateFields):
     whose estimate goes non-finite or farther than DIVERGENCE_RADIUS from the
     truth is flagged once and for all, and its error stops accumulating.
     ``secondary`` and the ``*_secondary`` fields belong to the pose graph's
-    secondary filter (ROADMAP.md, M9b); without it they stay as
-    ``init_carry`` made them.
+    secondary filter: with ``filter="pose_graph"`` the primary is the
+    ``PoseGraphState`` and the published pose, whose error both sums
+    accumulate, the secondary's; otherwise they stay as ``init_carry`` made
+    them.
     """
 
     world: WorldState
@@ -192,13 +202,6 @@ class RunCarry(StateFields):
     alive_secondary: torch.Tensor
     ticks_primary: torch.Tensor
     ticks_secondary: torch.Tensor
-
-
-_NO_PER_TICK_PG = (
-    "filter='pose_graph': the per-tick pose-graph accumulation is not ported "
-    "yet (ROADMAP.md, M9b); run_monte_carlo_pg_streams runs the pose-graph "
-    "study"
-)
 
 
 def _filter_init(cfg, name: str, batch: int, device, init_pose=None):
@@ -213,7 +216,7 @@ def _filter_init(cfg, name: str, batch: int, device, init_pose=None):
     if name == "naive":
         return naive.init(cfg, batch, init_pose, device)
     if name == "pose_graph":
-        raise NotImplementedError(_NO_PER_TICK_PG)
+        return posegraph.init(cfg, batch, init_pose, device)
     raise ValueError(f"Invalid filter choice {name!r} (params.yaml:11)")
 
 
@@ -264,38 +267,72 @@ def _filter_landmarks(cfg, name: str, state):
 
 
 def make_step(cfg, collect: str = "sums"):
-    """The per-tick step of ``cfg.filter``: ``step(carry, cmd, u)`` with the
-    tick's commands cmd (B, 2) and uniforms u (B, 2N+8) returns (carry, out).
+    """The per-tick step of ``cfg.filter``: ``step(carry, cmd, u, t=None)``
+    with the tick's commands cmd (B, 2), uniforms u (B, 2N+8) and index t
+    returns (carry, out).
 
     The simulator moves and senses, the filter updates, and the divergence
     guard adds the instantaneous error to the world's sum while the world is
-    alive. ``collect`` "sums" returns out = None; "poses" returns (the true
-    pose, the estimated pose), each (B, 3).
+    alive. With ``filter="pose_graph"`` (localization_node.cpp:123-131) the
+    secondary filter updates first, the graph takes its pose (and, with
+    update_landmarks_after_adding, its landmarks), then adds tick t's
+    factors and, with solve_graph_every_iteration, re-solves; the published
+    pose is the secondary's, and the secondary's divergence mask mirrors the
+    primary's. t, the same in every world, places the graph's rows (default:
+    world 0's graph timestep); the other filters ignore it. ``collect``
+    "sums" returns out = None; "poses" returns (the true pose, the estimated
+    pose), each (B, 3).
     """
     if collect not in ("sums", "poses"):
         raise ValueError(f"unknown collect {collect!r}")
     primary = cfg.filter
-    if primary == "pose_graph":
-        raise NotImplementedError(_NO_PER_TICK_PG)
-    if primary not in ONLINE_FILTERS:
+    if primary not in ONLINE_FILTERS + ("pose_graph",):
         raise ValueError(f"Invalid filter choice {primary!r} (params.yaml:11)")
+    pgc = cfg.pose_graph
+    secondary = pgc.filter_to_compare if primary == "pose_graph" else None
+    if secondary == "pose_graph":
+        raise ValueError("Cannot instantiate two instances of the same filter.")
+    if secondary is not None and secondary not in ONLINE_FILTERS:
+        raise ValueError(f"Invalid filter choice {secondary!r} (params.yaml:11)")
+    t_last = cfg.num_iterations - 1
 
-    def step(carry: RunCarry, cmd: torch.Tensor, u: torch.Tensor):
+    def graph_tick(carry, world, cmd, meas, t):
+        sec = _filter_update(cfg, secondary, carry.secondary, cmd, meas,
+                             true_map=world.landmarks)
+        sec_lms = _filter_landmarks(cfg, secondary, sec)
+        g = posegraph.update_naive_estimate(
+            carry.primary, _filter_state_vector(cfg, secondary, sec),
+            *(sec_lms or (None, None, None)),
+            update_landmarks=pgc.update_landmarks_after_adding and sec_lms is not None,
+        )
+        m_prev = g.M
+        g = posegraph.update(cfg, g, cmd, meas, tick=t)
+        if pgc.solve_graph_every_iteration:
+            # the reference's default mode (pose_graph.cpp:262-267): re-solve
+            # every tick, the result the next initial estimate
+            t_now = int(g.timestep[0]) if t is None else min(t + 1, t_last)
+            g = posegraph.solve_iteration(cfg, g, m_prev, node_t=t_now)
+        return g, sec, _filter_pose(secondary, sec)
+
+    def step(carry: RunCarry, cmd: torch.Tensor, u: torch.Tensor, t=None):
         world, meas = sim_step(cfg, carry.world, cmd, u)
-        prim = _filter_update(cfg, primary, carry.primary, cmd, meas,
-                              true_map=world.landmarks)
-        est_pose = _filter_pose(primary, prim)
+        if secondary is None:
+            prim = _filter_update(cfg, primary, carry.primary, cmd, meas,
+                                  true_map=world.landmarks)
+            sec, est_pose = carry.secondary, _filter_pose(primary, prim)
+        else:
+            prim, sec, est_pose = graph_tick(carry, world, cmd, meas, t)
         d = est_pose[:, :2] - world.pose[:, :2]
         e = torch.sqrt((d * d).sum(dim=1))
         ok = carry.alive_primary & torch.isfinite(e) & (e < DIVERGENCE_RADIUS)
-        new = carry.replace(
-            world=world, primary=prim,
-            err_sum_primary=torch.where(ok, carry.err_sum_primary + e,
-                                        carry.err_sum_primary),
-            alive_primary=ok,
-            ticks_primary=torch.where(ok, carry.ticks_primary + 1,
-                                      carry.ticks_primary),
-        )
+        err_sum = torch.where(ok, carry.err_sum_primary + e, carry.err_sum_primary)
+        ticks = torch.where(ok, carry.ticks_primary + 1, carry.ticks_primary)
+        new = carry.replace(world=world, primary=prim, secondary=sec,
+                            err_sum_primary=err_sum, alive_primary=ok,
+                            ticks_primary=ticks)
+        if secondary is not None:
+            new = new.replace(err_sum_secondary=err_sum, alive_secondary=ok,
+                              ticks_secondary=ticks)
         return new, ((world.pose, est_pose) if collect == "poses" else None)
 
     return step
@@ -309,10 +346,14 @@ def init_carry(cfg, landmarks: torch.Tensor, n_active=None,
     zeros = torch.zeros(b, dtype=torch.float32, device=dev)
     alive = torch.ones(b, dtype=torch.bool, device=dev)
     ticks = torch.zeros(b, dtype=torch.int32, device=dev)
+    secondary = None
+    if cfg.filter == "pose_graph":
+        secondary = _filter_init(cfg, cfg.pose_graph.filter_to_compare, b, dev,
+                                 init_pose)
     return RunCarry(
         world=world,
         primary=_filter_init(cfg, cfg.filter, b, dev, init_pose),
-        secondary=None,
+        secondary=secondary,
         err_sum_primary=zeros, err_sum_secondary=zeros.clone(),
         alive_primary=alive, alive_secondary=alive.clone(),
         ticks_primary=ticks, ticks_secondary=ticks.clone(),
@@ -320,16 +361,19 @@ def init_carry(cfg, landmarks: torch.Tensor, n_active=None,
 
 
 def rollout(cfg, carry: RunCarry, cmds: torch.Tensor, noise: torch.Tensor,
-            collect: str = "sums", step=None):
+            collect: str = "sums", step=None, t0: int = 0):
     """Step a world batch through T ticks: cmds (B, T, 2), noise (T, 2N+8, B)
-    in the fused kernels' injection layout. Returns (final carry, outs):
-    outs is None for "sums" and (true (B, T, 3), est (B, T, 3)) for "poses",
-    world-major as the JAX runner returns them. ``step`` is a step that
-    ``make_step(cfg, collect)`` already made."""
+    in the fused kernels' injection layout; the ticks are numbered from
+    ``t0`` (a pose graph places its rows by them, see ``make_step``: a
+    rollout continued from a mid-run state starts at that state's tick).
+    Returns (final carry, outs): outs is None for "sums" and (true (B, T,
+    3), est (B, T, 3)) for "poses", world-major as the JAX runner returns
+    them. ``step`` is a step that ``make_step(cfg, collect)`` already
+    made."""
     step = step or make_step(cfg, collect)
     trues, ests = [], []
     for t in range(cmds.shape[1]):
-        carry, out = step(carry, cmds[:, t], noise[t].transpose(0, 1))
+        carry, out = step(carry, cmds[:, t], noise[t].transpose(0, 1), t0 + t)
         if out is not None:
             trues.append(out[0])
             ests.append(out[1])
@@ -340,7 +384,8 @@ def rollout(cfg, carry: RunCarry, cmds: torch.Tensor, noise: torch.Tensor,
 
 def run_monte_carlo(cfg, batch: int, seed: int = 0, impl: str = "fused",
                     device=None, protocol: str = "perworld",
-                    collect: str = "sums", *, noise=None, traj_u=None):
+                    collect: str = "sums", *, noise=None, traj_u=None,
+                    solve_chunk: int | None = None, seconds: dict | None = None):
     """Full Monte-Carlo evaluation: B worlds, maps, TSP trajectories.
 
     Returns (results, out, outs) like the JAX version: ``results`` holds the
@@ -348,9 +393,15 @@ def run_monte_carlo(cfg, batch: int, seed: int = 0, impl: str = "fused",
     divergence mask ``diverged_<filter>``.
 
     ``impl="per_tick"`` (the JAX package's ``impl="xla"``) steps the worlds
-    through ``make_step`` for the five online filters; the error is averaged
-    over the ticks a world was alive, ``out`` is the final ``RunCarry`` and
-    ``outs`` with ``collect="poses"`` the (true, est) pose streams (B, T, 3).
+    through ``make_step`` for the five online filters and the pose graph;
+    the error is averaged over the ticks a world was alive, ``out`` is the
+    final ``RunCarry`` and ``outs`` with ``collect="poses"`` the (true, est)
+    pose streams (B, T, 3). ``filter="pose_graph"`` needs
+    ``collect="poses"``: its results add the secondary's ``err_<secondary>``
+    and ``diverged_<secondary>`` and the bulk solve's per-world
+    ``err_pose_graph_result`` and ``err_pose_graph_initial`` (the solved
+    and the seeded nodes against the truth), ``solve_chunk`` worlds at a
+    time (``_pg_bulk_solve``).
     ``impl="fused"`` runs the four filters with a fused rollout kernel and
     ``collect="sums"``: ``out`` is the rollout's result (the UKFs'
     ``update_rejects`` stays there and marks no divergence by itself), outs
@@ -363,19 +414,23 @@ def run_monte_carlo(cfg, batch: int, seed: int = 0, impl: str = "fused",
     (T, 2N+8, B) and ``traj_u`` (B, N, 2) are test hooks that replace the
     simulator's and the trajectory's random draws. ``device`` defaults to
     the card and raises when there is none (see ``resolve_device``).
+    ``seconds``: a dict that the per-tick path fills with the host-clock
+    seconds of its phases ("inputs", "rollout" and, for the pose graph,
+    "solve"), each ended by a device synchronise.
     """
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}: use 'fused' or 'per_tick'")
-    if cfg.filter == "pose_graph":
-        raise NotImplementedError(_NO_PER_TICK_PG)
     if impl == "fused" and (cfg.filter not in FILTERS or collect != "sums"):
         raise ValueError(
             "impl='fused' supports filter in (ekf_slam, iekf_slam, ukf_slam, "
             f"ukf_loc), collect='sums'; got filter={cfg.filter!r}, "
-            f"collect={collect!r} (impl='per_tick' runs every online filter)"
+            f"collect={collect!r} (impl='per_tick' runs every online filter "
+            "and pose_graph)"
         )
-    if impl == "per_tick" and cfg.filter not in ONLINE_FILTERS:
+    if impl == "per_tick" and cfg.filter not in ONLINE_FILTERS + ("pose_graph",):
         raise ValueError(f"Invalid filter choice {cfg.filter!r} (params.yaml:11)")
+    if cfg.filter == "pose_graph" and collect != "poses":
+        raise ValueError("pose_graph runs need collect='poses' for metrics")
     if collect not in ("sums", "poses"):
         raise ValueError(f"unknown collect {collect!r}")
     if protocol not in ("perworld", "shared"):
@@ -384,10 +439,12 @@ def run_monte_carlo(cfg, batch: int, seed: int = 0, impl: str = "fused",
     device = resolve_device(device)
     cfg = map_config(cfg)
     shared = protocol == "shared"
+    clock = _Clock(device, seconds)
     lms, cmds = mc_inputs(cfg, batch, seed, device, shared=shared,
                           relabel=shared, traj_u=traj_u)
     if impl == "per_tick":
-        return _run_per_tick(cfg, lms, cmds, seed, collect, noise)
+        return _run_per_tick(cfg, lms, cmds, seed, collect, noise, solve_chunk,
+                             clock)
     out = fused_rollout(cfg, lms, cmds, seed, noise=noise)
     # latched on the running max of the instantaneous error, as the JAX
     # kernels do, not on the run mean
@@ -401,8 +458,24 @@ def run_monte_carlo(cfg, batch: int, seed: int = 0, impl: str = "fused",
     return results, out, None
 
 
-def _run_per_tick(cfg, lms, cmds, seed, collect, noise):
+class _Clock:
+    """Adds the seconds since its last mark to ``seconds[name]`` at each
+    ``mark(name)``, after a device synchronise; without a dict, nothing."""
+
+    def __init__(self, device, seconds: dict | None):
+        self.device, self.seconds = device, seconds
+        self.t = sync_clock(device) if seconds is not None else None
+
+    def mark(self, name: str):
+        if self.seconds is not None:
+            t, self.t = self.t, sync_clock(self.device)
+            self.seconds[name] = self.seconds.get(name, 0.0) + self.t - t
+
+
+def _run_per_tick(cfg, lms, cmds, seed, collect, noise, solve_chunk=None,
+                  clock=None):
     """The per-tick branch of run_monte_carlo on made inputs."""
+    clock = clock or _Clock(lms.device, None)
     b, n_lm = lms.shape[:2]
     t_total = cfg.num_iterations
     if not cfg.precompute_trajectory:
@@ -411,13 +484,37 @@ def _run_per_tick(cfg, lms, cmds, seed, collect, noise):
     if noise is None:
         noise = philox_noise(seed, t_total, n_lm, b, lms.device)
     carry = init_carry(cfg, lms, n_lm)
-    final, outs = rollout(cfg, carry, cmds, noise.to(lms.device), collect)
-    ticks = torch.clamp_min(final.ticks_primary, 1).to(torch.float32)
+    noise = noise.to(lms.device)
+    clock.mark("inputs")
+    final, outs = rollout(cfg, carry, cmds, noise, collect)
+    clock.mark("rollout")
+    results = _per_tick_results(cfg, final, outs, solve_chunk)
+    if cfg.filter == "pose_graph":
+        clock.mark("solve")
+    return results, final, outs
+
+
+def _per_tick_results(cfg, final: RunCarry, outs, solve_chunk=None) -> dict:
+    """The results of a per-tick run from its final carry and, for the pose
+    graph, its pose streams: each filter's per-world average error over the
+    ticks it was alive and its divergence mask; for the pose graph also the
+    secondary's and the bulk solve's (``_pg_bulk_solve``) metrics."""
+    def avg(err_sum, ticks):
+        return (err_sum / torch.clamp_min(ticks, 1).to(torch.float32)).cpu().numpy()
+
     results = {
-        "err_" + cfg.filter: (final.err_sum_primary / ticks).cpu().numpy(),
+        "err_" + cfg.filter: avg(final.err_sum_primary, final.ticks_primary),
         "diverged_" + cfg.filter: (~final.alive_primary).cpu().numpy(),
     }
-    return results, final, outs
+    if cfg.filter == "pose_graph":
+        sec = cfg.pose_graph.filter_to_compare
+        results["err_" + sec] = avg(final.err_sum_secondary, final.ticks_secondary)
+        results["diverged_" + sec] = (~final.alive_secondary).cpu().numpy()
+        err_pg, err_pg_init = _pg_bulk_solve(
+            cfg, final.primary, outs[0], final.primary.odom.shape[0], solve_chunk)
+        results["err_pose_graph_result"] = err_pg
+        results["err_pose_graph_initial"] = err_pg_init
+    return results
 
 
 def sync_clock(device) -> float:
@@ -466,16 +563,19 @@ def replay_chunk(cfg, graphs, m_at):
 def _pg_bulk_solve(cfg, primary, true_poses, batch, solve_chunk=None):
     """Final bulk solve and metrics over a batched ``PoseGraphState``.
     Returns per-world (err_pose_graph_result, err_pose_graph_initial)
-    arrays. ``solve_chunk`` worlds are solved at a time, by default all of
-    them (the JAX runner's 64 was what its device memory held)."""
+    arrays. ``solve_chunk`` worlds are solved at a time: by default all of
+    them for the Schur solve (the JAX runner's 64 was what its device
+    memory held), DENSE_CHUNK for the dense one, whose normal matrices
+    grow as T^2.
+
+    ``pose_graph.solver="dense"`` runs ``posegraph.solve`` (the graduated
+    dense LM), warm-started from the per-tick solution in iterative mode.
+    The Schur solve runs its own schedule, described below."""
     t_total = cfg.num_iterations
     pgc = cfg.pose_graph
     warm = pgc.solve_graph_every_iteration
-    if pgc.solver != "schur":
-        raise NotImplementedError(
-            f"pose_graph.solver={pgc.solver!r}: the dense Levenberg-Marquardt "
-            "path is not ported yet (ROADMAP.md, dense solver)"
-        )
+    if pgc.solver not in ("schur", "dense"):
+        raise ValueError(f"unknown pose_graph.solver {pgc.solver!r}")
 
     def segs(total):
         return ([BULK_SEG_GN] * (total // BULK_SEG_GN)
@@ -502,10 +602,13 @@ def _pg_bulk_solve(cfg, primary, true_poses, batch, solve_chunk=None):
         return torch.linalg.vector_norm(est - tr, dim=-1).mean(dim=-1).cpu().numpy()
 
     err_pg, err_pg_init = [], []
-    step = batch if solve_chunk is None else solve_chunk
+    step = solve_chunk or (DENSE_CHUNK if pgc.solver == "dense" else batch)
     for i in range(0, batch, step):
         sub = primary.map(lambda a: a[i:i + step])
-        if warm:
+        if pgc.solver == "dense":
+            warm_start = (sub.poses_sol, sub.lms_sol) if warm else ()
+            p = posegraph.solve(cfg, sub, *warm_start)[0]
+        elif warm:
             p, e = run(sub, sub.poses_sol, sub.lms_sol, schedule)
             pr, er = run(sub, sub.poses_init, sub.lms_init, graduated)
             p = torch.where((er < e)[:, None, None], pr, p)

@@ -1,14 +1,15 @@
-"""Pose-graph SLAM on assembled graphs: vectorised assembly, the bulk
-Schur / block-Thomas Gauss-Newton solver and the iterative replay.
+"""Pose-graph SLAM: per-tick accumulation, vectorised assembly, the bulk
+Schur / block-Thomas Gauss-Newton solver, the iterative replay, chordal
+initialisation and the dense Levenberg-Marquardt solve.
 
-Counterpart of ``live_ekf_slam_tpu/models/posegraph.py`` for the streams path
-(``eval/runner.run_monte_carlo_pg_streams``). The factors are those of
-pose_graph.cpp: a prior on pose 0, one SE(2) between-factor per tick from the
-commanded odometry, one bearing-range factor per detection (bearing first),
-node values seeded from the secondary filter. Every function takes a batch of
-worlds on the leading axis (the JAX functions are per world under
-``jax.vmap``), so errors and dampings are (B,) vectors and each world keeps
-its own Levenberg schedule.
+Counterpart of ``live_ekf_slam_tpu/models/posegraph.py``, all of it but
+``solve_alternating`` (a documented dead end of the JAX package). The
+factors are those of pose_graph.cpp: a prior on pose 0, one SE(2)
+between-factor per tick from the commanded odometry, one bearing-range
+factor per detection (bearing first), node values seeded from the secondary
+filter. Every function takes a batch of worlds on the leading axis (the
+JAX functions are per world under ``jax.vmap``), so errors and dampings are
+(B,) vectors and each world keeps its own Levenberg schedule.
 
 Solvers here:
 
@@ -28,15 +29,24 @@ Solvers here:
   (the reduced rhs, the landmark back-substitution) stay torch passes.
 * ``solve_pcg_gn``: matrix-free Jacobi-PCG, used per tick by
   ``replay_iterative`` (solve_graph_every_iteration mode, warm starts only).
+* ``chordal_init``: the initial iterate from the factors alone (integrated
+  headings, dead-reckoned positions, averaged landmark back-projections),
+  polished by ``solve_schur_pcg(fix_theta=True)``.
+* ``solve_dense``: the graduated dense Levenberg-Marquardt solve over the
+  (3(T+1)+2N)-dim normal equations (``_assemble``, ``_solve_stage``), with
+  ``torch.linalg.cholesky_ex``; ``solve`` dispatches between it and the
+  graduated Schur solve, ``finalize`` runs ``solve`` on a finished graph.
 
-Not ported yet (ROADMAP.md): ``chordal_init`` and ``fix_theta``, the dense
-Levenberg-Marquardt path (``solve``, ``solve_dense``, ``finalize``,
-``_assemble``), and the per-tick accumulation (``init``, ``update``).
+The per-tick accumulation (``init``, ``update_naive_estimate``, ``update``)
+builds the graph one tick at a time, as the per-tick runner steps it. The
+tick is a Python int shared by every world, so a tick's rows are plain
+column writes into the graph tensors.
 
 Scatter-adds. ``.at[meas_lm].add`` of the JAX code would be ``scatter_add_``
 here, which on CUDA adds with atomics in an order that changes from run to
-run, and CG amplifies that. Graphs from ``assemble_streams`` bind measurement
-column j to one landmark slot in every tick, so a sum over ticks followed by
+run, and CG amplifies that. Graphs from ``assemble_streams`` and from
+``update`` (with K >= N) bind measurement column j to one landmark slot in
+every tick, so a sum over ticks followed by
 a per-world placement of the K column sums is exact and deterministic.
 ``LmSlots`` checks that property on the graph it is given and takes the
 general ``scatter_add_`` when it does not hold.
@@ -49,8 +59,9 @@ import functools
 import torch
 
 from live_ekf_slam_tpu_torch.core.noise import S3, _div, clip_uniform_moments
-from live_ekf_slam_tpu_torch.core.types import PoseGraphState
+from live_ekf_slam_tpu_torch.core.types import Measurements, PoseGraphState
 from live_ekf_slam_tpu_torch.ops import _build
+from live_ekf_slam_tpu_torch.ops.precision import first_match, pin_fp32
 from live_ekf_slam_tpu_torch.utils.geometry import wrap_angle
 
 # launches of the block-Thomas kernels and of the Schur matvec (not of their
@@ -62,6 +73,119 @@ SOLVE_SEGMENTS = 128
 # threads of the Schur matvec kernel a world (csrc/schur_mv.cu, kThreads), so
 # the partial sums of H_pl^T v its plain version keeps apart
 SCHUR_THREADS = 256
+
+
+def init(cfg, batch: int, init_pose=None, device="cpu") -> PoseGraphState:
+    """Empty graphs of ``batch`` worlds at full capacity (T ticks, K
+    measurement slots a tick, N landmark slots), node 0 at the initial
+    pose."""
+    t_cap = cfg.num_iterations
+    n, k = cfg.num_landmark_slots, cfg.num_meas_slots
+    f32 = dict(dtype=torch.float32, device=device)
+    pose = torch.as_tensor(cfg.init_pose if init_pose is None else init_pose,
+                           **f32).expand(batch, 3)
+    poses = torch.zeros((batch, t_cap + 1, 3), **f32)
+    poses[:, 0] = pose
+    i32 = dict(dtype=torch.int32, device=device)
+    return PoseGraphState(
+        poses_init=poses,
+        lms_init=torch.zeros((batch, n, 2), **f32),
+        odom=torch.zeros((batch, t_cap, 2), **f32),
+        odom_valid=torch.zeros((batch, t_cap), dtype=torch.bool, device=device),
+        meas_rb=torch.zeros((batch, t_cap, k, 2), **f32),
+        meas_lm=torch.zeros((batch, t_cap, k), **i32),
+        meas_valid=torch.zeros((batch, t_cap, k), dtype=torch.bool, device=device),
+        ids=torch.full((batch, n), -1, **i32),
+        M=torch.zeros(batch, **i32),
+        timestep=torch.zeros(batch, **i32),
+        cur_pose=pose.clone(),
+        poses_sol=poses.clone(),
+        lms_sol=torch.zeros((batch, n, 2), **f32),
+        solved=torch.zeros(batch, dtype=torch.bool, device=device),
+    )
+
+
+def update_naive_estimate(s: PoseGraphState, secondary_pose, secondary_lms=None,
+                          secondary_ids=None, secondary_m=None,
+                          update_landmarks: bool = False) -> PoseGraphState:
+    """updateNaiveVehPoseEstimate (pose_graph.cpp:97-119): keep the secondary
+    filter's pose (B, >=3) to seed the next graph node.
+
+    With ``update_landmarks`` (update_landmarks_after_adding) and a SLAM
+    secondary, the graph's landmark values, initial and solved, are
+    refreshed from the secondary's estimates (B, Ns, 2), matched by id: a
+    one-hot contraction over the secondary's slots, as in the JAX model
+    (ids are unique, so a row holds at most one match; a NaN estimate
+    spreads to every row of its world, as there)."""
+    s = s.replace(cur_pose=secondary_pose[:, :3])
+    if not update_landmarks or secondary_lms is None:
+        return s
+    dev = s.ids.device
+    slot_idx = torch.arange(s.ids.shape[1], device=dev)
+    sec_idx = torch.arange(secondary_ids.shape[1], device=dev)
+    # graph slot i (id g) <- secondary slot j with ids[j] == g
+    match = ((secondary_ids[:, None, :] == s.ids[:, :, None])
+             & (sec_idx[None, None, :] < secondary_m[:, None, None]))
+    found = match.any(dim=2) & (slot_idx[None, :] < s.M[:, None])
+    est = (match.to(torch.float32)[..., None]
+           * secondary_lms[:, None, :, :]).sum(dim=2)  # (B, N, 2)
+    return s.replace(lms_init=torch.where(found[..., None], est, s.lms_init),
+                     lms_sol=torch.where(found[..., None], est, s.lms_sol))
+
+
+def update(cfg, s: PoseGraphState, cmd: torch.Tensor, meas: Measurements,
+           tick=None) -> PoseGraphState:
+    """One graph-building tick (pose_graph.cpp:199-271), without the solve.
+
+    ``tick``: the tick index, the same in every world (default: world 0's
+    timestep). The last tick (tick + 1 == cfg.num_iterations) adds nothing:
+    the reference solves there instead. Otherwise the between-factor of
+    ``cmd`` (B, 2) and a node seeded from the secondary's pose are added,
+    the tick's measurements resolved to landmark slots (a new id takes the
+    next slot and seeds its position from the secondary's pose; one that
+    arrives when the slot table is full is dropped) and their factors
+    attached to the new node. The tick's rows are written into ``s``'s
+    graph tensors in place, as the JAX scan updates its buffers; the state
+    returned shares them.
+    """
+    t = int(s.timestep[0]) if tick is None else int(tick)
+    if t + 1 >= cfg.num_iterations:
+        return s.replace(timestep=torch.full_like(s.timestep, t))
+    t_new = min(t + 1, s.odom.shape[1])
+    s.odom[:, t] = cmd[:, :2]
+    s.odom_valid[:, t] = True
+    s.poses_init[:, t_new] = s.cur_pose
+
+    # measurements: resolve landmark slots, seed first sightings, add factors
+    n_cap = s.ids.shape[1]
+    slot_idx = torch.arange(n_cap, device=s.ids.device)[None, :]
+    ids, m, lms_init = s.ids, s.M, s.lms_init
+    cx, cy, cth = s.cur_pose[:, 0], s.cur_pose[:, 1], s.cur_pose[:, 2]
+    rows_rb, rows_lm, rows_valid = [], [], []
+    for j in range(meas.ids.shape[1]):
+        mid, r, b, valid = meas.ids[:, j], meas.r[:, j], meas.b[:, j], meas.valid[:, j]
+        found, first = first_match((ids == mid[:, None]) & (slot_idx < m[:, None]))
+        idx = torch.where(found, first, m.long())
+        is_new = valid & ~found & (m < n_cap)
+        # first sighting: seed the global position from the secondary's
+        # pose (pose_graph.cpp:163-169), a one-hot write at slot m
+        seed = torch.stack([cx + r * torch.cos(cth + b), cy + r * torch.sin(cth + b)], dim=1)
+        put = is_new[:, None] & (slot_idx == m[:, None])
+        lms_init = torch.where(put[..., None], seed[:, None, :], lms_init)
+        ids = torch.where(put, mid[:, None], ids)
+        m = torch.where(is_new, m + 1, m)
+        # a never-seen landmark arriving with the table full would bind to
+        # slot N: drop it
+        at_j = valid & (found | is_new)
+        rows_rb.append(torch.where(at_j[:, None], torch.stack([r, b], dim=1), 0.0))
+        rows_lm.append(torch.where(at_j, idx, 0))
+        rows_valid.append(at_j)
+    # the factors attach to the new node t_new; their row is t
+    s.meas_rb[:, t] = torch.stack(rows_rb, dim=1)
+    s.meas_lm[:, t] = torch.stack(rows_lm, dim=1).to(torch.int32)
+    s.meas_valid[:, t] = torch.stack(rows_valid, dim=1)
+    return s.replace(ids=ids, M=m, lms_init=lms_init,
+                     timestep=torch.full_like(s.timestep, t_new))
 
 
 def assemble_streams(cfg, est_poses, r, b, vis, cmds) -> PoseGraphState:
@@ -381,8 +505,8 @@ def _jacobians(cfg, s: PoseGraphState, poses, lms, meas_scale=1.0, slots=None,
     ja, jb (B, T, 3, 3): d residual / d pose_t and / d pose_{t+1}."""
     odom_eff, odom_sig = _odom_moments(cfg, s.odom)
     prior_s = _prior_sigmas(cfg, poses.device)
-    r_prior, r_odom, r_meas, _, _ = res or _residuals(
-        cfg, s, poses, lms, meas_scale, slots)
+    res = res or _residuals(cfg, s, poses, lms, meas_scale, slots)
+    r_prior, r_odom, r_meas, _, _ = res
 
     pa = poses[:, :-1]
     ca, sa = torch.cos(pa[..., 2]), torch.sin(pa[..., 2])
@@ -433,11 +557,31 @@ def _jacobians(cfg, s: PoseGraphState, poses, lms, meas_scale=1.0, slots=None,
         "ja": ja,
         "jb": jb,
         "r_odom": r_odom,
+        # the (B, T, K, 2, 5) bearing-range Jacobian, made on demand (the
+        # dense assembly needs it; the matrix-free paths use _meas_coeffs)
+        "make_jm": lambda: _meas_jacobian(cfg, s, res, meas_scale),
         "r_meas": r_meas,
         "p0": s.poses_init[:, 0],
         "pose_active": torch.arange(t_cap + 1, device=dev)[None] <= s.timestep[:, None],
         "lm_active": torch.arange(n_cap, device=dev)[None] < s.M[:, None],
     }
+
+
+def _meas_jacobian(cfg, s: PoseGraphState, res, meas_scale) -> torch.Tensor:
+    """Whitened bearing-range Jacobians (B, T, K, 2, 5) from a ``_residuals``
+    result: rows (bearing, range), columns (px, py, pth, lx, ly); zero
+    where invalid."""
+    _, meas_s = _noise_sigmas(cfg, meas_scale)
+    _, _, _, rng_safe, (mdx, mdy) = res
+    r2 = rng_safe * rng_safe
+    jm = torch.stack(
+        [_div(torch.stack([mdy / r2, -mdx / r2, -torch.ones_like(rng_safe),
+                           -mdy / r2, mdx / r2], dim=-1), meas_s[0]),
+         _div(torch.stack([-mdx / rng_safe, -mdy / rng_safe,
+                           torch.zeros_like(rng_safe), mdx / rng_safe,
+                           mdy / rng_safe], dim=-1), meas_s[1])], dim=-2,
+    )
+    return jm * s.meas_valid.to(torch.float32)[..., None, None]
 
 
 def _meas_coeffs(cfg, s: PoseGraphState, poses, lms, meas_scale, slots=None,
@@ -1022,6 +1166,38 @@ def _retract(poses, lms, xp, xl, alpha: float):
     return pn, lms + alpha * xl
 
 
+def _zero_theta(j: torch.Tensor) -> torch.Tensor:
+    """(..., r, 3) Jacobian rows with the heading column set to 0."""
+    return torch.cat([j[..., :2], torch.zeros_like(j[..., 2:])], dim=-1)
+
+
+def _schur_system(cfg, s: PoseGraphState, poses, lms, meas_scale, damping,
+                  slots: LmSlots, fix_theta: bool = False) -> dict:
+    """What a Gauss-Newton step of ``solve_schur_pcg`` sets up at (poses,
+    lms): the damped chain blocks d, u (``_pose_blocks``), the landmark
+    inverses hll_inv, the measurement coefficients, the gradient blocks gp,
+    gl (unmasked) and the active masks. ``fix_theta`` freezes the headings
+    (chordal_init's linear position solve): every heading column of the
+    Jacobians is zeroed, so H's heading block vanishes and is pinned to the
+    identity, and the heading steps stay exactly 0."""
+    res = _residuals(cfg, s, poses, lms, meas_scale, slots)
+    jac = _jacobians(cfg, s, poses, lms, meas_scale, slots, res)
+    coeffs, r_meas = _meas_coeffs(cfg, s, poses, lms, meas_scale, slots, res)
+    if fix_theta:
+        jac = dict(jac, ja=_zero_theta(jac["ja"]), jb=_zero_theta(jac["jb"]))
+        ab, bb, cb, ar, br = coeffs
+        coeffs = (ab, bb, torch.zeros_like(cb), ar, br)
+    gp, gl = _grad(cfg, s, jac, coeffs, r_meas, slots)
+    if fix_theta:
+        gp[..., 2] = 0.0
+    d, u, p_active = _pose_blocks(cfg, s, jac, coeffs, damping)
+    if fix_theta:
+        d[..., 2, 2] += 1.0
+    hll_inv, l_active = _lm_hessian_inv(cfg, s, jac, coeffs, damping, slots)
+    return dict(d=d, u=u, hll_inv=hll_inv, coeffs=coeffs, gp=gp, gl=gl,
+                p_active=p_active, l_active=l_active)
+
+
 def solve_schur_pcg(
     cfg, s: PoseGraphState, poses, lms,
     n_gn: int = 8, n_cg: int = 12, damping: float = 1e-4,
@@ -1037,27 +1213,21 @@ def solve_schur_pcg(
     softer landmark coupling that the Schur complement spreads across
     co-visible poses. Levenberg-style relative damping adapts per world and
     GN iteration: a rejected step raises it, an accepted one lowers it. Each
-    call starts at ``damping`` again. Returns (poses, lms, err (B,)).
+    call starts at ``damping`` again. ``fix_theta``: headings frozen (see
+    ``_schur_system``). Returns (poses, lms, err (B,)).
     """
-    if fix_theta:
-        raise NotImplementedError(
-            "fix_theta belongs to chordal_init, which is not ported yet "
-            "(ROADMAP.md, chordal_init)")
     slots = LmSlots(s)
     err = graph_error(cfg, s, poses, lms, meas_scale, slots)
     lam = torch.full_like(err, damping)
 
     for _ in range(n_gn):
-        res = _residuals(cfg, s, poses, lms, meas_scale, slots)
-        jac = _jacobians(cfg, s, poses, lms, meas_scale, slots, res)
-        coeffs, r_meas = _meas_coeffs(cfg, s, poses, lms, meas_scale, slots, res)
-        gp, gl = _grad(cfg, s, jac, coeffs, r_meas, slots)
-        d, u, p_active = _pose_blocks(cfg, s, jac, coeffs, lam)
+        sy = _schur_system(cfg, s, poses, lms, meas_scale, lam, slots, fix_theta)
+        d, u, hll_inv, coeffs = sy["d"], sy["u"], sy["hll_inv"], sy["coeffs"]
         fac = _tridiag_factor(d, u)
-        hll_inv, l_active = _lm_hessian_inv(cfg, s, jac, coeffs, lam, slots)
-        p_mask = p_active[:, :, None]
-        gp = gp * p_mask
-        gl = gl * l_active[:, :, None]
+        l_active = sy["l_active"]
+        p_mask = sy["p_active"][:, :, None]
+        gp = sy["gp"] * p_mask
+        gl = sy["gl"] * l_active[:, :, None]
 
         # reduced rhs: g_p - H_pl H_ll^-1 g_l
         rhs = gp - _hpl_apply(s, coeffs, _hll_inv_apply(hll_inv, gl), slots)
@@ -1100,6 +1270,249 @@ def solve_schur_pcg(
             torch.clamp_max(lam * 8.0, 1e4),
         )
     return poses, lms, err
+
+
+# ----------------------------------------------------------------------
+# Chordal initialisation, the graduated solves and the dense LM
+# ----------------------------------------------------------------------
+
+def chordal_seed(cfg, s: PoseGraphState, slots=None):
+    """The iterate chordal_init starts its linear solve from, from the
+    factors alone: headings integrated from the anchored pose 0 along the
+    chain of (clip-aware) expected turns (the graph's only rotation
+    coupling is that chain, so rotation averaging is exact), positions
+    dead-reckoned, each landmark at the mean of its measurements'
+    back-projections through that trajectory. The landmark sums go through
+    ``LmSlots`` (no atomics). Returns (poses (B, T+1, 3), lms (B, N, 2))."""
+    slots = slots or LmSlots(s)
+    eff, _ = _odom_moments(cfg, s.odom)
+    p0 = s.poses_init[:, 0]
+    dth = torch.where(s.odom_valid, eff[..., 1], 0.0)
+    th = torch.cat([p0[:, 2:3], p0[:, 2:3] + torch.cumsum(dth, dim=1)], dim=1)
+    d_eff = torch.where(s.odom_valid, eff[..., 0], 0.0)
+    zero = torch.zeros_like(p0[:, :1])
+    px = p0[:, 0:1] + torch.cat(
+        [zero, torch.cumsum(d_eff * torch.cos(th[:, :-1]), dim=1)], dim=1)
+    py = p0[:, 1:2] + torch.cat(
+        [zero, torch.cumsum(d_eff * torch.sin(th[:, :-1]), dim=1)], dim=1)
+    poses = torch.stack([px, py, wrap_angle(th)], dim=-1)
+    # the measurement at row t attaches to pose t+1
+    pt = poses[:, 1:, None, :]
+    ang = pt[..., 2] + s.meas_rb[..., 1]
+    gx = pt[..., 0] + s.meas_rb[..., 0] * torch.cos(ang)
+    gy = pt[..., 1] + s.meas_rb[..., 0] * torch.sin(ang)
+    valid = s.meas_valid.to(torch.float32)
+    wsum = slots.scatter(valid)
+    lms = (torch.stack([slots.scatter(gx * valid), slots.scatter(gy * valid)], dim=-1)
+           / torch.clamp_min(wsum, 1.0)[..., None])
+    return poses, lms
+
+
+def chordal_init(cfg, s: PoseGraphState):
+    """Chordal-style initialisation from the factors alone, independent of
+    the secondary filter's node seeds (the analog of the reference's
+    disabled SE-Sync path, pose_graph.cpp:31-63): ``chordal_seed``, then
+    two Gauss-Newton steps of ``solve_schur_pcg`` with the headings fixed
+    (the problem is linear there; the second step mops up CG truncation).
+    Returns (poses, lms) for ``solve``."""
+    poses, lms = chordal_seed(cfg, s)
+    poses, lms, _ = solve_schur_pcg(
+        cfg, s, poses, lms, n_gn=2,
+        n_cg=max(cfg.pose_graph.bulk_cg_iters, 40), fix_theta=True,
+    )
+    return poses, lms
+
+
+def _take(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a where the world's cond (B,) holds, else b."""
+    return torch.where(cond.reshape((-1,) + (1,) * (a.dim() - 1)), a, b)
+
+
+def solve(cfg, s: PoseGraphState, poses0=None, lms0=None):
+    """Full graph optimisation (pose_graph.cpp:283-284). Returns (poses,
+    lms, err (B,)).
+
+    ``pose_graph.solver`` "dense" runs ``solve_dense``; "schur" a graduated
+    schedule of ``solve_schur_pcg``: the measurement sigmas relaxed 16x,
+    then 4x (max(8, bulk_gn_iters // 3) steps each), then bulk_gn_iters
+    steps at 1x; the tight bearing sigmas make contorted local minima from
+    a drifted start. A cold start begins at the seeds, or at
+    ``chordal_init`` with ``pose_graph.init="chordal"``; a warm start
+    (poses0, lms0) also runs the schedule from the raw seeds and keeps the
+    lower residual of the two, world by world.
+    """
+    if cfg.pose_graph.solver == "dense":
+        return solve_dense(cfg, s, poses0, lms0)
+    pg = cfg.pose_graph
+    if poses0 is None and pg.init == "chordal":
+        start = chordal_init(cfg, s)
+    else:
+        start = (s.poses_init if poses0 is None else poses0,
+                 s.lms_init if lms0 is None else lms0)
+    stage_gn = max(8, pg.bulk_gn_iters // 3)
+
+    def graduated(poses, lms):
+        for scale in (16.0, 4.0):
+            poses, lms, _ = solve_schur_pcg(
+                cfg, s, poses, lms, n_gn=stage_gn, n_cg=pg.bulk_cg_iters,
+                meas_scale=scale)
+        return solve_schur_pcg(cfg, s, poses, lms, n_gn=pg.bulk_gn_iters,
+                               n_cg=pg.bulk_cg_iters)
+
+    poses, lms, err = graduated(*start)
+    if poses0 is not None:
+        poses_r, lms_r, err_r = graduated(s.poses_init, s.lms_init)
+        take = err_r < err
+        poses, lms = _take(take, poses_r, poses), _take(take, lms_r, lms)
+        err = torch.minimum(err_r, err)
+    return poses, lms, err
+
+
+def solve_dense(cfg, s: PoseGraphState, poses0=None, lms0=None):
+    """Graduated dense Levenberg-Marquardt (the reference implementation of
+    the solve; GTSAM's defaults lambda0 = 1e-5, factor 10): a direct solve
+    from the start and a graduated one (measurement sigmas 16x / 4x / 1x),
+    the lower residual kept; a warm start also runs the graduated solve
+    from the raw seeds. O((3T+2N)^3) an iteration a world. Returns (poses,
+    lms, err (B,))."""
+    pin_fp32()  # the Cholesky's internal products in full float32
+    slots = LmSlots(s)
+    poses0_ = s.poses_init if poses0 is None else poses0
+    lms0_ = s.lms_init if lms0 is None else lms0
+
+    def graduated(poses, lms):
+        for scale in (16.0, 4.0, 1.0):
+            poses, lms, err = _solve_stage(cfg, s, poses, lms, scale, slots)
+        return poses, lms, err
+
+    poses, lms, err = _solve_stage(cfg, s, poses0_, lms0_, 1.0, slots)
+    candidates = [graduated(poses0_, lms0_)]
+    if poses0 is not None:
+        candidates.append(graduated(s.poses_init, s.lms_init))
+    for poses_g, lms_g, err_g in candidates:
+        take = err_g < err
+        poses, lms = _take(take, poses_g, poses), _take(take, lms_g, lms)
+        err = torch.minimum(err_g, err)
+    return poses, lms, err
+
+
+def _assemble(cfg, s: PoseGraphState, poses, lms, meas_scale=1.0, slots=None):
+    """The dense damped-GN system of every world: (h (B, D, D) = J^T J, g
+    (B, D) = -J^T r, var_active (B, D)), D = 3(T+1) + 2N, poses first.
+    Inactive variables are pinned by identity rows.
+
+    The blocks are summed without atomics: the chain's 3 x 3 blocks by
+    node, a tick's pose-landmark blocks by a one-hot contraction over its K
+    slots (a tick binds each landmark at most once, so each entry is one
+    product), the landmark blocks through ``LmSlots``."""
+    slots = slots or LmSlots(s)
+    res = _residuals(cfg, s, poses, lms, meas_scale, slots)
+    jac = _jacobians(cfg, s, poses, lms, meas_scale, slots, res)
+    coeffs, r_meas = _meas_coeffs(cfg, s, poses, lms, meas_scale, slots, res)
+    bsz, t_cap = s.odom.shape[:2]
+    n_cap = lms.shape[1]
+    n_p = 3 * (t_cap + 1)
+    dev = poses.device
+    ja, jb = jac["ja"], jac["jb"]
+    jm = jac["make_jm"]()
+    h55 = _mtm(jm, jm)  # (B, T, K, 5, 5)
+
+    # ---- poses: block tridiagonal (prior, between-factors, the unary
+    # bearing-range blocks of node t+1)
+    dblk = torch.zeros((bsz, t_cap + 1, 3, 3), dtype=torch.float32, device=dev)
+    i3 = torch.arange(3, device=dev)
+    dblk[:, 0, i3, i3] += jac["inv_pr"] ** 2
+    dblk[:, :-1] += _mtm(ja, ja)
+    dblk[:, 1:] += _mtm(jb, jb)
+    dblk[:, 1:] += h55[..., :3, :3].sum(dim=2)
+    ublk = _mtm(ja, jb)  # (t, t+1)
+    node = torch.arange(t_cap + 1, device=dev)
+    hpp = torch.zeros((bsz, t_cap + 1, 3, t_cap + 1, 3), dtype=torch.float32,
+                      device=dev)
+    hpp[:, node, :, node, :] = dblk.transpose(0, 1)
+    hpp[:, node[:-1], :, node[1:], :] = ublk.transpose(0, 1)
+    hpp[:, node[1:], :, node[:-1], :] = ublk.transpose(-1, -2).transpose(0, 1)
+
+    # ---- poses x landmarks: node t+1 against each landmark its tick binds
+    onehot = torch.nn.functional.one_hot(slots.per_measurement(), n_cap).to(
+        torch.float32)  # (B, T, K, N)
+    hpl = (onehot[..., None, :, None]
+           * h55[..., :3, None, 3:]).sum(dim=2)  # (B, T, 3, N, 2)
+
+    # ---- landmarks: 2 x 2 blocks summed over every measurement
+    hxx, hxy, hyy = (slots.scatter(h55[..., a, b]) for a, b in ((3, 3), (3, 4), (4, 4)))
+    hll = torch.stack([torch.stack([hxx, hxy], -1), torch.stack([hxy, hyy], -1)], -2)
+    lm = torch.arange(n_cap, device=dev)
+    hlm = torch.zeros((bsz, n_cap, 2, n_cap, 2), dtype=torch.float32, device=dev)
+    hlm[:, lm, :, lm, :] = hll.transpose(0, 1)
+
+    dim = n_p + 2 * n_cap
+    h = torch.zeros((bsz, dim, dim), dtype=torch.float32, device=dev)
+    h[:, :n_p, :n_p] = hpp.reshape(bsz, n_p, n_p)
+    h[:, 3:n_p, n_p:] = hpl.reshape(bsz, 3 * t_cap, 2 * n_cap)
+    h[:, n_p:, 3:n_p] = h[:, 3:n_p, n_p:].transpose(1, 2)
+    h[:, n_p:, n_p:] = hlm.reshape(bsz, 2 * n_cap, 2 * n_cap)
+    gp, gl = _grad(cfg, s, jac, coeffs, r_meas, slots)
+    g = torch.cat([gp.reshape(bsz, -1), gl.reshape(bsz, -1)], dim=1)
+
+    var_active = torch.cat([jac["pose_active"].repeat_interleave(3, dim=1),
+                            jac["lm_active"].repeat_interleave(2, dim=1)], dim=1)
+    h = h + torch.diag_embed(torch.where(var_active, 0.0, 1.0))
+    return h, torch.where(var_active, g, 0.0), var_active
+
+
+def _solve_stage(cfg, s: PoseGraphState, poses, lms, meas_scale, slots=None):
+    """Levenberg-Marquardt at one measurement scale, every world on its own
+    schedule: the loop runs until every world is done or max_lm_iters, and
+    a finished world's iterate, lambda and error stay as they were (JAX's
+    ``while_loop`` under ``vmap``). Each step solves the Jacobi-scaled
+    damped system by Cholesky (``cholesky_ex``): where a world's matrix is
+    not positive definite its step is NaN, its error NaN, and the step is
+    rejected (JAX's ``cho_factor`` returns NaN there). Returns (poses,
+    lms, err)."""
+    pg = cfg.pose_graph
+    slots = slots or LmSlots(s)
+    err = graph_error(cfg, s, poses, lms, meas_scale, slots)
+    n_p = 3 * poses.shape[1]
+    lam = torch.full_like(err, pg.lambda_init)
+    done = torch.zeros_like(err, dtype=torch.bool)
+    for _ in range(pg.max_lm_iters):
+        if bool(done.all()):
+            break
+        h, g, _ = _assemble(cfg, s, poses, lms, meas_scale, slots)
+        hd = h + lam[:, None, None] * torch.eye(h.shape[1], device=h.device)
+        # Jacobi scaling: the whitened equations span ~8 orders of
+        # magnitude (odometry weights 1/sigma^2 against the weak prior)
+        dscale = torch.rsqrt(torch.clamp_min(torch.diagonal(hd, dim1=1, dim2=2), 1e-12))
+        hs = hd * dscale[:, :, None] * dscale[:, None, :]
+        chol, info = torch.linalg.cholesky_ex(hs)
+        delta = torch.cholesky_solve((g * dscale)[..., None], chol)[..., 0] * dscale
+        delta = torch.where((info == 0)[:, None], delta, float("nan"))
+        poses_new = poses + delta[:, :n_p].reshape(poses.shape)
+        poses_new[..., 2] = wrap_angle(poses_new[..., 2])
+        lms_new = lms + delta[:, n_p:].reshape(lms.shape)
+        err_new = graph_error(cfg, s, poses_new, lms_new, meas_scale, slots)
+        accept = (err_new < err) & torch.isfinite(err_new) & ~done
+        poses, lms = _take(accept, poses_new, poses), _take(accept, lms_new, lms)
+        lam_new = torch.where(accept, _div(lam, pg.lambda_factor),
+                              lam * pg.lambda_factor)
+        rel = (err - err_new).abs() / torch.clamp_min(err, 1e-12)
+        finished = (accept & (rel < pg.rel_err_tol)) | (lam_new > 1e10)
+        lam = torch.where(done, lam, lam_new)
+        err = torch.where(accept, err_new, err)
+        done = done | finished
+    return poses, lms, err
+
+
+def finalize(cfg, s: PoseGraphState) -> PoseGraphState:
+    """The final solve of a finished graph: in iterative mode warm-started
+    from the per-tick solution history (initial_estimate = result,
+    pose_graph.cpp:262-267), else cold."""
+    if cfg.pose_graph.solve_graph_every_iteration:
+        poses, lms, _ = solve(cfg, s, poses0=s.poses_sol, lms0=s.lms_sol)
+    else:
+        poses, lms, _ = solve(cfg, s)
+    return s.replace(poses_sol=poses, lms_sol=lms, solved=torch.ones_like(s.solved))
 
 
 # ----------------------------------------------------------------------

@@ -108,3 +108,33 @@ def max_co_observed(cfg, lms, cmds, noise) -> int:
                & (beta > vis_cfg.fov_min) & (beta < vis_cfg.fov_max))
         most = max(most, int(vis.sum(axis=1).max()))
     return most
+
+
+def tick_noise(tick_keys, n: int) -> np.ndarray:
+    """(T, 2N+8) uniforms of one world's tick keys, as JAX's sim_step draws
+    them (k_move, k_sense = split(key)), in the injection layout. jax is
+    imported inside: the card's tests import this module and need none."""
+    import jax
+    import jax.numpy as jnp
+
+    def one(tk):
+        k_move, k_sense = jax.random.split(tk)
+        u_move = jax.random.uniform(k_move, (2,), jnp.float32, -1.0, 1.0)
+        u_sense = jax.random.uniform(k_sense, (2, n), jnp.float32, -1.0, 1.0)
+        return jnp.concatenate([u_move, u_sense.reshape(-1), jnp.zeros(8)])
+    return np.asarray(jax.vmap(one)(tick_keys))
+
+
+def key_chain(key, batch: int, t: int, n: int):
+    """(traj_u (B, N, 2), noise (T, 2N+8, B)): the trajectory's and the
+    simulator's draws of JAX run_monte_carlo(impl="xla") for ``key``: per
+    world k_traj, k_roll = split(key_w), the tick keys split(k_roll, T)."""
+    import jax
+    import jax.numpy as jnp
+
+    u, nz = [], []
+    for k in jax.random.split(key, batch):
+        k_traj, k_roll = jax.random.split(k)
+        u.append(np.asarray(jax.random.uniform(k_traj, (n, 2), jnp.float32, -1.0, 1.0)))
+        nz.append(tick_noise(jax.random.split(k_roll, t), n))
+    return torch.from_numpy(np.stack(u)), torch.from_numpy(np.stack(nz, axis=2))

@@ -270,6 +270,26 @@ def test_schur_mv_kernel_matches_plain(steps, cuda_device):
         pg._schur_mv(*args[:2], hll_wide, args[3], slots, args[5])
 
 
+@pytest.mark.parametrize("steps", [37, 200, 1000])
+def test_p1_and_p2_match_plain_on_chordal_systems(steps, cuda_device):
+    # chordal_init's linear solve (fix_theta): the heading rows and columns
+    # of the chain blocks are zero but for the pinned diagonal, cb is zero;
+    # P1 and P2 held to their plain versions as on the Schur systems (the
+    # compare functions raise otherwise)
+    cfg = pg_config(steps, "ekf_slam", False)
+    graphs = pg_graphs(cfg, 9, cuda_device, seed=1)[0]
+    sy = schur_system(cfg, graphs, 1.0, chordal=True)
+    assert not bool(sy["coeffs"][2].any()) and not bool(sy["rhs"][..., 2].any())
+    res = chip_smoke.block_thomas_compare(sy["d"], sy["u"], sy["rhs"],
+                                          f"chordal T={steps}")
+    assert all(res["no_fma_bitwise_equal"].values())
+    x = pg._tridiag_solve(pg._tridiag_factor(sy["d"], sy["u"]), sy["rhs"])
+    assert not bool(x[..., 2].any())  # the headings do not move
+    res = chip_smoke.schur_mv_compare(sy, chip_smoke.cg_direction(sy),
+                                      f"chordal T={steps}")
+    assert all(res["no_fma_bitwise_equal"].values()) and res["repeat_bitwise_equal"]
+
+
 def test_schur_mv_does_not_spill(cuda_device):
     occ = pg.schur_mv_occupancy(20, 20)
     rep = next(v for k, v in chip_smoke.ptxas_report("schur_mv.cu").items()

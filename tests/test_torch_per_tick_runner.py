@@ -22,6 +22,7 @@ from live_ekf_slam_tpu_torch.convert import (
     world_state_from_numpy,
 )
 from live_ekf_slam_tpu_torch.eval import runner
+from port_harness import key_chain, tick_noise
 
 B, T, N, SEED = 4, 40, 6, 3
 # Per-world average error (metres) and the pose streams (metres, radians):
@@ -55,29 +56,6 @@ def make_cfg(cls, filt, t=T, unknown_ids=False, sigma_sqrt=None, **kw):
     if sigma_sqrt:
         cfg = cfg.replace(ukf=dataclasses.replace(cfg.ukf, sigma_sqrt=sigma_sqrt))
     return cfg
-
-
-def tick_noise(tick_keys, n: int) -> np.ndarray:
-    """(T, 2N+8) uniforms of one world's tick keys, as JAX's sim_step draws
-    them (k_move, k_sense = split(key)), in the injection layout."""
-    def one(tk):
-        k_move, k_sense = jax.random.split(tk)
-        u_move = jax.random.uniform(k_move, (2,), jnp.float32, -1.0, 1.0)
-        u_sense = jax.random.uniform(k_sense, (2, n), jnp.float32, -1.0, 1.0)
-        return jnp.concatenate([u_move, u_sense.reshape(-1), jnp.zeros(8)])
-    return np.asarray(jax.vmap(one)(tick_keys))
-
-
-def key_chain(key, batch: int, t: int, n: int):
-    """(traj_u (B, N, 2), noise (T, 2N+8, B)): the trajectory's and the
-    simulator's draws of JAX run_monte_carlo(impl="xla") for ``key``: per
-    world k_traj, k_roll = split(key_w), the tick keys split(k_roll, T)."""
-    u, nz = [], []
-    for k in jax.random.split(key, batch):
-        k_traj, k_roll = jax.random.split(k)
-        u.append(np.asarray(jax.random.uniform(k_traj, (n, 2), jnp.float32, -1.0, 1.0)))
-        nz.append(tick_noise(jax.random.split(k_roll, t), n))
-    return torch.from_numpy(np.stack(u)), torch.from_numpy(np.stack(nz, axis=2))
 
 
 def run_both(jcfg, cfg, collect="poses", n=N):
@@ -212,3 +190,4 @@ def test_zero_command_runs_match_jax(filt):
     _check_results(filt, res_j, res)
     np.testing.assert_allclose(outs[0].numpy(), np.asarray(outs_j[0]), rtol=0, atol=POSE_ATOL)
     np.testing.assert_allclose(outs[1].numpy(), np.asarray(outs_j[1]), rtol=0, atol=POSE_ATOL)
+

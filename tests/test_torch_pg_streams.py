@@ -161,9 +161,15 @@ def test_scope_and_argument_errors(monkeypatch):
         with pytest.raises(ValueError, match=match):
             runner.run_monte_carlo_pg_streams(
                 cfg.replace(pose_graph=dataclasses.replace(pgc, **kw)), 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="dense solver"):
+    # the dense solver runs (tests/test_torch_pg_solvers.py holds it to
+    # JAX); an unknown one is refused
+    res, _, _ = runner.run_monte_carlo_pg_streams(
+        cfg.replace(num_iterations=12, pose_graph=dataclasses.replace(pgc, solver="dense")),
+        2, device="cpu")
+    assert np.isfinite(res["err_pose_graph_result"]).all()
+    with pytest.raises(ValueError, match="unknown pose_graph.solver"):
         runner.run_monte_carlo_pg_streams(
-            cfg.replace(pose_graph=dataclasses.replace(pgc, solver="dense")), 2,
+            cfg.replace(pose_graph=dataclasses.replace(pgc, solver="lu")), 2,
             device="cpu")
     with pytest.raises(ValueError, match="both lms and cmds"):
         runner.run_monte_carlo_pg_streams(cfg, 2, device="cpu",

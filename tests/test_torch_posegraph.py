@@ -248,8 +248,10 @@ def test_solve_schur_pcg_matches_jax(kind, exact):
     # residual is rounding noise, hence the floor at 1e-6 of the start)
     np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), rtol=1e-2,
                                atol=1e-6 * float(e0.max()))
-    with pytest.raises(NotImplementedError, match="chordal_init"):
-        pg.solve_schur_pcg(cfg, s, p, l, fix_theta=True)
+    # with the headings fixed (chordal_init's solve) they stay as they came
+    fixed = pg.solve_schur_pcg(cfg, s, p, l, n_gn=2, n_cg=12, fix_theta=True)
+    assert torch.equal(fixed[0][..., 2], pg.wrap_angle(p[..., 2]))
+    assert bool((fixed[2] < pg.graph_error(cfg, s, p, l)).all())
 
 
 @pytest.mark.parametrize("kind,exact", [("default", False), ("compat", True)])

@@ -20,7 +20,7 @@ from live_ekf_slam_tpu.ops.fused_ukf import fused_ukf_rollout as j_ukf_rollout
 from live_ekf_slam_tpu.sim.trajectory import generate_trajectory as j_gen
 from live_ekf_slam_tpu_torch import bench, cli
 from live_ekf_slam_tpu_torch.config import Config
-from live_ekf_slam_tpu_torch.eval import runner
+from live_ekf_slam_tpu_torch.eval import pgs_iterative, runner
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -128,13 +128,15 @@ def test_shared_protocol_repeats_maps_relabelled_by_tour():
 
 def test_out_of_scope_runs_raise():
     cfg = Config(num_iterations=5)
-    # the per-tick pose graph is the next slice; the streams path runs it
-    for impl in ("fused", "per_tick"):
-        with pytest.raises(NotImplementedError, match="M9b"):
-            runner.run_monte_carlo(cfg.replace(filter="pose_graph"), 2,
-                                   impl=impl, device="cpu")
-    with pytest.raises(NotImplementedError, match="run_monte_carlo_pg_streams"):
-        runner.run_monte_carlo(cfg.replace(filter="pose_graph"), 2)
+    # the pose graph has no fused rollout (the per-tick path runs it), and
+    # its metrics need the pose streams
+    with pytest.raises(ValueError, match="impl='per_tick' runs every online filter and pose_graph"):
+        runner.run_monte_carlo(cfg.replace(filter="pose_graph"), 2, device="cpu")
+    with pytest.raises(NotImplementedError, match="impl='per_tick'"):
+        runner.fused_rollout(cfg.replace(filter="pose_graph"), None, None, 0)
+    with pytest.raises(ValueError, match="need collect='poses'"):
+        runner.run_monte_carlo(cfg.replace(filter="pose_graph"), 2,
+                               impl="per_tick", device="cpu")
     # an unknown impl names both
     with pytest.raises(ValueError, match="'fused' or 'per_tick'"):
         runner.run_monte_carlo(cfg, 2, impl="xla", device="cpu")
@@ -167,6 +169,12 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
                   "--batch", "2", "--steps", "5"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         runner.run_monte_carlo_pg_streams(cfg.replace(filter="pose_graph"), 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        runner.run_monte_carlo(cfg.replace(filter="pose_graph"), 2, impl="per_tick",
+                               collect="poses")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pgs_iterative.run_iterative_pgs(cfg.replace(filter="pose_graph"),
+                                        np.zeros((20, 2), np.float32))
     assert runner.resolve_device("cpu") == torch.device("cpu")
 
 
@@ -234,8 +242,9 @@ def test_port_runs_its_slice_without_jax():
     # every module of the port and chip_smoke (imported, not run), the three
     # microbenchmark tools on the CPU at a tiny size, then the
     # CPU slice of all four fused filters, the per-tick path of naive and
-    # EKF-SLAM, and the pose-graph streams path in both
-    # solve modes; no module of jax, jaxlib, flax or the
+    # EKF-SLAM, the pose-graph streams path in both solve modes, the
+    # per-tick pose graph (UKF-SLAM secondary, iterative) and the host-loop
+    # run_iterative_pgs; no module of jax, jaxlib, flax or the
     # JAX package may be loaded (split on "." so that the port's own name,
     # live_ekf_slam_tpu_torch, does not match)
     code = (
@@ -274,6 +283,17 @@ def test_port_runs_its_slice_without_jax():
         "        bulk_cg_iters=2, solve_graph_every_iteration=it))\n"
         "    res, _, _ = run_monte_carlo_pg_streams(cfg, 2, device='cpu')\n"
         "    assert res['err_pose_graph_result'].shape == (2,)\n"
+        "cfg = Config(num_iterations=8).replace(filter='pose_graph')\n"
+        "cfg = cfg.replace(pose_graph=dataclasses.replace(\n"
+        "    cfg.pose_graph, filter_to_compare='ukf_slam', bulk_gn_iters=2,\n"
+        "    bulk_cg_iters=2))\n"
+        "res, fin, _ = run_monte_carlo(cfg, 2, device='cpu', impl='per_tick',\n"
+        "                              collect='poses')\n"
+        "assert res['err_pose_graph_result'].shape == (2,)\n"
+        "from live_ekf_slam_tpu_torch.eval.pgs_iterative import run_iterative_pgs\n"
+        "out = run_iterative_pgs(cfg, fin.world.landmarks[0], solve_stride=4,\n"
+        "                        device='cpu')\n"
+        "assert out['pgs_result'].shape == (8, 3)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'live_ekf_slam_tpu'))\n"
         "assert not bad, bad\n"
