@@ -86,8 +86,7 @@ _NOT_FUSED = (
 )
 
 # worlds a chunk of the dense pose-graph solve (a world's (3(T+1)+2N)^2
-# float32 normal matrix is 37 MB at T = 1000, N = 20; the JAX runner's
-# run_monte_carlo default solve_chunk)
+# float32 normal matrix is 37 MB at T = 1000, N = 20)
 DENSE_CHUNK = 8
 
 
@@ -385,7 +384,7 @@ def rollout(cfg, carry: RunCarry, cmds: torch.Tensor, noise: torch.Tensor,
 def run_monte_carlo(cfg, batch: int, seed: int = 0, impl: str = "fused",
                     device=None, protocol: str = "perworld",
                     collect: str = "sums", *, noise=None, traj_u=None,
-                    solve_chunk: int | None = None, seconds: dict | None = None):
+                    seconds: dict | None = None):
     """Full Monte-Carlo evaluation: B worlds, maps, TSP trajectories.
 
     Returns (results, out, outs) like the JAX version: ``results`` holds the
@@ -400,8 +399,7 @@ def run_monte_carlo(cfg, batch: int, seed: int = 0, impl: str = "fused",
     ``collect="poses"``: its results add the secondary's ``err_<secondary>``
     and ``diverged_<secondary>`` and the bulk solve's per-world
     ``err_pose_graph_result`` and ``err_pose_graph_initial`` (the solved
-    and the seeded nodes against the truth), ``solve_chunk`` worlds at a
-    time (``_pg_bulk_solve``).
+    and the seeded nodes against the truth, ``_pg_bulk_solve``).
     ``impl="fused"`` runs the four filters with a fused rollout kernel and
     ``collect="sums"``: ``out`` is the rollout's result (the UKFs'
     ``update_rejects`` stays there and marks no divergence by itself), outs
@@ -443,8 +441,7 @@ def run_monte_carlo(cfg, batch: int, seed: int = 0, impl: str = "fused",
     lms, cmds = mc_inputs(cfg, batch, seed, device, shared=shared,
                           relabel=shared, traj_u=traj_u)
     if impl == "per_tick":
-        return _run_per_tick(cfg, lms, cmds, seed, collect, noise, solve_chunk,
-                             clock)
+        return _run_per_tick(cfg, lms, cmds, seed, collect, noise, clock)
     out = fused_rollout(cfg, lms, cmds, seed, noise=noise)
     # latched on the running max of the instantaneous error, as the JAX
     # kernels do, not on the run mean
@@ -472,8 +469,7 @@ class _Clock:
             self.seconds[name] = self.seconds.get(name, 0.0) + self.t - t
 
 
-def _run_per_tick(cfg, lms, cmds, seed, collect, noise, solve_chunk=None,
-                  clock=None):
+def _run_per_tick(cfg, lms, cmds, seed, collect, noise, clock=None):
     """The per-tick branch of run_monte_carlo on made inputs."""
     clock = clock or _Clock(lms.device, None)
     b, n_lm = lms.shape[:2]
@@ -488,13 +484,13 @@ def _run_per_tick(cfg, lms, cmds, seed, collect, noise, solve_chunk=None,
     clock.mark("inputs")
     final, outs = rollout(cfg, carry, cmds, noise, collect)
     clock.mark("rollout")
-    results = _per_tick_results(cfg, final, outs, solve_chunk)
+    results = _per_tick_results(cfg, final, outs)
     if cfg.filter == "pose_graph":
         clock.mark("solve")
     return results, final, outs
 
 
-def _per_tick_results(cfg, final: RunCarry, outs, solve_chunk=None) -> dict:
+def _per_tick_results(cfg, final: RunCarry, outs) -> dict:
     """The results of a per-tick run from its final carry and, for the pose
     graph, its pose streams: each filter's per-world average error over the
     ticks it was alive and its divergence mask; for the pose graph also the
@@ -511,7 +507,7 @@ def _per_tick_results(cfg, final: RunCarry, outs, solve_chunk=None) -> dict:
         results["err_" + sec] = avg(final.err_sum_secondary, final.ticks_secondary)
         results["diverged_" + sec] = (~final.alive_secondary).cpu().numpy()
         err_pg, err_pg_init = _pg_bulk_solve(
-            cfg, final.primary, outs[0], final.primary.odom.shape[0], solve_chunk)
+            cfg, final.primary, outs[0], final.primary.odom.shape[0])
         results["err_pose_graph_result"] = err_pg
         results["err_pose_graph_initial"] = err_pg_init
     return results
@@ -524,21 +520,24 @@ def sync_clock(device) -> float:
     return time.perf_counter()
 
 
-def replay_chunk(cfg, graphs, m_at):
+def replay_chunk(cfg, graphs, m_at, window: int | None = None):
     """Iterative mode: re-enact the per-tick incremental solves on the
     assembled graphs (``posegraph.replay_iterative``), in graph-prefix
     windows: tick t only involves graph rows <= t, so the ticks in [i, cap)
-    run on tensors cut to cap rows, and the per-tick cost is O(cap K), not
+    run on tensors cut to cap rows, cap the next multiple of ``window``
+    (default REPLAY_CAP_STEP), and the per-tick cost is O(cap K), not
     O(T K). Equivalent up to the order of float sums (~1e-5 on the final
     metrics): all factor rows >= cap are invalid at those ticks, all pose
     nodes > cap inactive, and every pose row is seeded again from
-    ``poses_init`` when its own tick is replayed."""
+    ``poses_init`` when its own tick is replayed. A ``window`` of T or more
+    is one window, the per-tick path's shapes."""
     t_total = cfg.num_iterations
+    window = window or REPLAY_CAP_STEP
     t_live = t_total - 1
     p_sol, l_sol = graphs.poses_sol, graphs.lms_sol
     i = 0
     while i < t_live:
-        cap = min(-(-(i + 1) // REPLAY_CAP_STEP) * REPLAY_CAP_STEP, t_live + 1)
+        cap = min(-(-(i + 1) // window) * window, t_live + 1)
         hi = min(cap, t_live)
         s_c = graphs.replace(
             poses_init=graphs.poses_init[:, :cap + 1],

@@ -122,6 +122,29 @@ def test_replay_prefix_windows_change_cost_not_results(monkeypatch):
         np.testing.assert_allclose(win[k], full[k], rtol=0, atol=1e-4, err_msg=k)
 
 
+@pytest.mark.parametrize("window", [32, 80])
+def test_replay_window_argument_is_the_cap_step(monkeypatch, window):
+    # replay_chunk(window=w) replays exactly as REPLAY_CAP_STEP = w does; a
+    # window of T is one window
+    cfg = _cfg(Config, "naive", True, t=80)
+    lms, cmds = runner.mc_inputs(cfg, B, 3, "cpu")
+    seen = []
+    real = runner.replay_chunk
+
+    def spy(cfg_, graphs, m_at):
+        seen.append((cfg_, graphs, m_at))
+        return real(cfg_, graphs, m_at)
+
+    monkeypatch.setattr(runner, "replay_chunk", spy)
+    runner.run_monte_carlo_pg_streams(cfg, B, seed=3, device="cpu", lms=lms, cmds=cmds)
+    (cfg_, graphs, m_at), = seen
+    got = real(cfg_, graphs, m_at, window)
+    monkeypatch.setattr(runner, "REPLAY_CAP_STEP", window)
+    want = real(cfg_, graphs, m_at)
+    for f in ("poses_sol", "lms_sol"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+
+
 @pytest.mark.parametrize("warm", [False, True])
 def test_bulk_solve_keeps_the_reference_schedule_of_calls(monkeypatch, warm):
     # every solve_schur_pcg call starts its damping afresh, so the cut of
