@@ -23,7 +23,15 @@ its results world by world to ``run_monte_carlo_pg_streams`` on the same
 seed (the iterative solved graph to the streams replay on its own streams,
 and by its mean to the streams path); ``posegraph.solve`` with
 ``init="chordal"`` and with ``solver="dense"`` runs on the card at 64 x 200
-against the CPU and against the Schur solve. Those checks feed nothing
+against the CPU and against the Schur solve. The closed loop
+(``eval/closed_loop.run_closed_loop``) runs the JAX bench's igvc1
+configuration at 1024 worlds x 1000 ticks through its entry point, its
+launches counted (Philox once), its blocks timed as replan and ticks and one
+block under the profiler; JAX's scale test (64 x 200) runs on the card and
+on the CPU from the same Philox noise, each world held until its first
+replan or pare that differs between the two (F15), the test's bounds on the
+card; one batched replan is held against its CPU run, and the igvc1 grid is
+read from its PNG without Pillow. Those checks feed nothing
 later and wait mostly for the host, so they run in processes side by side (``python3 chip_smoke.py --side-checks NAME ...`` is
 one of them). Then it drives the main paths, alone on the card.
 ``run_monte_carlo`` at 4096 worlds, T = 1000, N = 20
@@ -71,14 +79,17 @@ import torch
 from live_ekf_slam_tpu_torch.bench import (
     card,
     chain_blocks,
+    closed_loop_config,
     pg_config,
     pg_graphs,
     pg_summary,
+    plan_once_ms,
     schur_system,
     time_rollouts,
 )
 from live_ekf_slam_tpu_torch.config import CompatConfig, Config
 from live_ekf_slam_tpu_torch.convert import kernel_params
+from live_ekf_slam_tpu_torch.eval import closed_loop as cl
 from live_ekf_slam_tpu_torch.eval.runner import (
     _pg_bulk_solve,
     fused_rollout,
@@ -97,6 +108,7 @@ from live_ekf_slam_tpu_torch.ops import fused_ukf as fu
 from live_ekf_slam_tpu_torch.ops import micro_ops as mo
 from live_ekf_slam_tpu_torch.ops.kernel_math import atan2, wrap
 from live_ekf_slam_tpu_torch.ops.precision import pin_fp32
+from live_ekf_slam_tpu_torch.planning import astar as p_astar
 from live_ekf_slam_tpu_torch.sim.streams import naive_deadreckon, sim_streams
 from live_ekf_slam_tpu_torch.sim.world import init_world, propagate_truth, sense
 from live_ekf_slam_tpu_torch.utils.geometry import wrap_angle
@@ -1653,19 +1665,24 @@ def held_against_fused(mode, cfg, err, diverged, ref, lms, cmds, noise) -> dict:
 
 
 def tick_launches(cfg, carry, cmd, u, t=None) -> dict:
-    """One tick (tick t) of the per-tick step under torch.profiler: the
-    CUDA kernels it runs (and memory copies / sets), their summed device
-    time, the runtime's launch calls, and the tick's host time (profiled).
-    A pose graph's tick writes its rows into the carry's graph: the same
-    rows twice."""
+    """One tick (tick t) of the per-tick step under torch.profiler
+    (``profiled``). A pose graph's tick writes its rows into the carry's
+    graph: the same rows twice."""
+    step = make_step(cfg)
+    return profiled(lambda: step(carry, cmd, u, t))
+
+
+def profiled(fn) -> dict:
+    """``fn()`` once untimed, then once under torch.profiler: the CUDA
+    kernels it runs (and memory copies / sets), their summed device time,
+    the runtime's launch calls, and its host time (profiled)."""
     from torch.profiler import ProfilerActivity, profile
 
-    step = make_step(cfg)
-    step(carry, cmd, u, t)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(carry, cmd, u, t)
+        fn()
         torch.cuda.synchronize()
         host_s = time.perf_counter() - t0
     kernels = memops = launch_calls = 0
@@ -2176,6 +2193,224 @@ def pose_graph_solvers(dev):
                                                         PG_POSE_ATOL], **out)
 
 
+# ---- the closed loop (eval/closed_loop): the JAX bench's configuration at
+# CL_MAIN through run_closed_loop, its launches counted; JAX's scale test
+# (tests/test_closed_loop.py:41-89) at CL_SCALE on the card against the
+# port's CPU run on the same Philox noise; one batched replan against its
+# CPU run; and the igvc1 grid read without Pillow
+CL_MAIN = dict(batch=1024, steps=1000)
+CL_SCALE = dict(batch=64, steps=200, seed=3)
+CL_REPLAN_WORLDS = 64
+# card against CPU (F15): a world is held until the first replan whose plan
+# differs between the two runs, or the first tick whose pursuit head or
+# length differ (a waypoint pared on one side of the 0.15 m edge only);
+# before that its true and estimated poses must agree to CL_PART_ATOL (m,
+# rad), float order alone: ten times the largest gap measured at CL_SCALE
+# on an H100 (6.1e-6, true and estimated poses alike). A world that parts
+# with no such event fails.
+CL_PART_ATOL = 6e-5
+# the scale test's bounds (tests/test_closed_loop.py:80-89), on the card
+CL_BOUNDS = dict(median_err=0.2, max_err=0.6, median_progress=1.0, min_progress=0.3)
+
+
+def cl_traced(cfg, batch: int, dev, noise):
+    """A closed-loop run through its block step on ``dev`` that records,
+    per tick, the true and estimated poses and the pursuit head and length
+    after the tick, and per replan the pursuit path, head and length after
+    it. Returns (final carry, the record on the CPU)."""
+    block = cl.BlockStep(cfg, cl.occupancy(cfg, dev))
+    carry = cl.init_closed_loop(cfg, batch, dev)
+    noise = noise.to(dev)
+    period = cfg.path_planning.replan_period
+    rec = {k: [] for k in ("true", "est", "head", "length", "plan")}
+    for i in range(noise.shape[0] // period):
+        if i:
+            carry = block.replan(carry)
+            p = carry.pursuit
+            rec["plan"].append(torch.cat([p.path.flatten(1), p.head[:, None].float(),
+                                          p.length[:, None].float()], 1))
+        for k in range(period):
+            carry, (tp, est) = block.tick(carry, noise[i * period + k].T)
+            rec["true"].append(tp)
+            rec["est"].append(est)
+            rec["head"].append(carry.pursuit.head)
+            rec["length"].append(carry.pursuit.length)
+    return carry, {k: torch.stack(v, 1).cpu() for k, v in rec.items()}
+
+
+def cl_first_events(a: dict, b: dict, period: int) -> np.ndarray:
+    """Each world's first tick from which two runs' poses may part: the
+    tick after the first pursuit head or length that differs, or the first
+    tick of the block whose replan differs; the run's length if none."""
+    t_total = a["true"].shape[1]
+    first = np.full(a["true"].shape[0], t_total)
+    pare = ((a["head"] != b["head"]) | (a["length"] != b["length"])).numpy()
+    plan = (a["plan"] != b["plan"]).any(dim=2).numpy()
+    for w in range(first.size):
+        hits = [t + 1 for t in np.flatnonzero(pare[w])[:1]]
+        hits += [period * (i + 1) for i in np.flatnonzero(plan[w])[:1]]
+        first[w] = min(hits + [t_total])
+    return first
+
+
+def cl_card_vs_cpu(dev, batch: int, steps: int, seed: int) -> dict:
+    """JAX's scale-test configuration on the card and on the CPU (the
+    port's plain run) from the same Philox noise, held world by world under
+    the F15 rule; the card run's errors and progress against CL_BOUNDS'
+    quantities (reported; ``cl_scale_card_vs_cpu`` holds them)."""
+    cfg = closed_loop_config(steps, meas_slots=12, sweeps=(96, 48))
+    period = cfg.path_planning.replan_period
+    n_lm = len(cl.landmarks(cfg)[0])
+    # each side draws as run_closed_loop does: the kernel on the card, its
+    # plain version on the CPU (2N+8 = 82 rows, a partial last 4-row block)
+    noise_c = philox.philox_noise(seed, steps, n_lm, batch, dev)
+    noise_h = philox.philox_noise_reference(seed, steps, n_lm, batch)
+    if not torch.equal(noise_c.cpu(), noise_h):
+        raise AssertionError(f"closed loop: the Philox kernel differs from its plain "
+                             f"version at ({steps}, {2 * n_lm + 8}, {batch})")
+    t0 = time.perf_counter()
+    fin_c, card = cl_traced(cfg, batch, dev, noise_c)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fin_h, cpu = cl_traced(cfg, batch, torch.device("cpu"), noise_h)
+    cpu_s = time.perf_counter() - t0
+    first = cl_first_events(card, cpu, period)
+    parted, failed = {}, []
+    gaps = {"true": 0.0, "est": 0.0}  # the largest gap before each world's event
+    for w in range(batch):
+        t1 = int(first[w])
+        for k in gaps:
+            gap = float((card[k][w, :t1] - cpu[k][w, :t1]).abs().max()) if t1 else 0.0
+            gaps[k] = max(gaps[k], gap)
+            if gap > CL_PART_ATOL and w not in failed:
+                failed.append(w)
+        if t1 < steps:
+            parted[w] = t1
+    err = fin_c.err_sum.cpu().numpy() / steps
+    dist = np.linalg.norm(fin_c.world.pose[:, :2].cpu().numpy()
+                          - np.asarray(cfg.init_pose[:2]), axis=1)
+    line = dict(batch=batch, steps=steps, seed=seed, tolerance_m=CL_PART_ATOL,
+                max_gap_before_event=gaps, noise_kernel_equals_plain=True,
+                worlds_with_an_event=len(parted), event_ticks=parted,
+                worlds_failed=failed, card_s=card_s, cpu_s=cpu_s,
+                card=dict(median_err=float(np.median(err)), max_err=float(err.max()),
+                          median_progress=float(np.median(dist)),
+                          min_progress=float(dist.min())),
+                mean_err_card_m=float(err.mean()),
+                mean_err_cpu_m=float(fin_h.err_sum.mean()) / steps,
+                nan_worlds=int((~np.isfinite(err)).sum()))
+    emit("closed_loop_card_vs_cpu", **line)
+    if failed or line["nan_worlds"]:
+        raise AssertionError(f"closed loop: card against CPU: {line}")
+    return line
+
+
+def cl_scale_card_vs_cpu(dev) -> dict:
+    """``cl_card_vs_cpu`` at JAX's scale test's size, its bounds on the card."""
+    line = cl_card_vs_cpu(dev, **CL_SCALE)
+    got = line["card"]
+    if not (got["median_err"] < CL_BOUNDS["median_err"]
+            and got["max_err"] < CL_BOUNDS["max_err"]
+            and got["median_progress"] > CL_BOUNDS["median_progress"]
+            and got["min_progress"] > CL_BOUNDS["min_progress"]):
+        raise AssertionError(f"closed loop: the scale test's bounds {CL_BOUNDS}: {line}")
+    return line
+
+
+def cl_replan_card_vs_cpu(dev) -> dict:
+    """One batched replan of CL_REPLAN_WORLDS seeded poses on the igvc1 grid
+    (the bench configuration) on the card and on the CPU: the goals, flags
+    and paths must be equal."""
+    cfg = closed_loop_config(CL_MAIN["steps"])
+    rng = np.random.default_rng(5)
+    b = CL_REPLAN_WORLDS
+    poses = torch.from_numpy(np.concatenate(
+        [rng.uniform(-9.0, 9.0, (b, 2)), rng.uniform(-np.pi, np.pi, (b, 1))],
+        1).astype(np.float32))
+    out = []
+    for d in (dev, torch.device("cpu")):
+        occ = cl.occupancy(cfg, d)
+        goal, ok = p_astar.local_planner(cfg, occ, poses.to(d))
+        path, valid, reached = p_astar.astar(cfg, occ, poses[:, :2].to(d), goal)
+        out.append([x.cpu() for x in (goal, ok, path, valid, reached)])
+    equal = all(torch.equal(x, y) for x, y in zip(*out))
+    line = dict(worlds=b, equal=equal, ok=int(out[1][1].sum()),
+                reached=int(out[1][4].sum()))
+    emit("closed_loop_replan_card_vs_cpu", **line)
+    if not equal or not line["reached"]:
+        raise AssertionError(f"closed loop: the replan, card against CPU: {line}")
+    return line
+
+
+def closed_loop_checks(dev):
+    """The closed-loop phase (a side check): the map, the full run, the
+    replan's times and its card-against-CPU check, the scale test."""
+    import importlib.util
+    import zlib
+
+    # the igvc1 grid read without Pillow
+    cfg = closed_loop_config(CL_MAIN["steps"])
+    occ, color = cl.sim_maps.load_occ_map(cfg)
+    emit("closed_loop_map", image=cfg.occ_map_img, shape=list(occ.shape),
+         free_cells=int(occ.sum()), crc32=zlib.crc32(occ.tobytes()),
+         color_crc32=zlib.crc32(color.tobytes()),
+         pillow_installed=importlib.util.find_spec("PIL") is not None)
+
+    # the full run, through the entry point, its launches counted
+    b, t_total = CL_MAIN["batch"], CL_MAIN["steps"]
+    period = cfg.path_planning.replan_period
+    cl.run_closed_loop(cfg.replace(num_iterations=2 * period), b, 0, device=dev)
+    zero_counts()
+    sec = {}
+    t0 = time.perf_counter()
+    m, fin, _ = cl.run_closed_loop(cfg, b, 0, device=dev, seconds=sec)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counts()
+    want = {k: int(k == "philox_noise") for k in launches}
+    if launches != want:
+        raise AssertionError(f"closed loop: the main path launched {launches}, "
+                             "not once philox_noise")
+    err = m["err_" + cfg.filter]
+    dist = np.linalg.norm(m["final_true_pose"][:, :2] - np.asarray(cfg.init_pose[:2]),
+                          axis=1)
+    n_lm = fin.world.landmarks.shape[1]
+    # the run's Philox draw, (1000, 82, 1024): 82 rows end in a partial
+    # 4-row block, which the main Monte-Carlo shape (48 rows) never has
+    shape = (0, t_total, n_lm, b, dev)
+    nz, nz_ref = philox.philox_noise(*shape), philox.philox_noise_reference(*shape)
+    emit("closed_loop_philox", shape=[t_total, 2 * n_lm + 8, b],
+         bitwise_equal=bool(torch.equal(nz, nz_ref)),
+         max_abs_err=float((nz - nz_ref).abs().max()))
+    if not torch.equal(nz, nz_ref):
+        raise AssertionError("closed loop: the Philox kernel differs from its plain "
+                             "version at the run's shape")
+    del nz, nz_ref
+    noise = philox.philox_noise(1, period, n_lm, b, dev)
+    block = cl.BlockStep(cfg, cl.occupancy(cfg, dev))
+    one_block = profiled(lambda: block(fin, noise))
+    plan_ms = plan_once_ms(cfg, b, dev)
+    line = dict(**CL_MAIN, n_lm=n_lm, meas_slots=cfg.num_meas_slots, wall_s=wall,
+                steps_per_s_per_world=t_total / wall,
+                block_ms=1e3 * (float(np.median(sec["replan"][1:]))
+                                + float(np.median(sec["ticks"]))),
+                replan_ms_median=1e3 * float(np.median(sec["replan"][1:])),
+                ticks_ms_median=1e3 * float(np.median(sec["ticks"])),
+                tick_ms=1e3 * float(np.median(sec["ticks"])) / period,
+                plan_once_ms=plan_ms, one_block=one_block,
+                mean_err_m=float(np.nanmean(err)), median_err_m=float(np.nanmedian(err)),
+                max_err_m=float(np.nanmax(err)), nan_worlds=int(np.isnan(err).sum()),
+                progress_median_m=float(np.median(dist)), progress_min_m=float(dist.min()),
+                launches=launches)
+    emit("closed_loop_path", **line)
+    if not np.isfinite(err).all():
+        raise AssertionError(f"closed loop: non-finite errors: {line}")
+    cl_replan_card_vs_cpu(dev)
+    torch.set_num_threads(2)  # beside the other side processes
+    cl_scale_card_vs_cpu(dev)
+
+
 # The checks whose results nothing later reads, by name, and the processes
 # they run in: the plain versions they wait for are bound by the host (one
 # Python thread issuing small launches), so processes side by side shorten
@@ -2199,6 +2434,7 @@ SIDE_CHECKS = {
        (lambda dev, n_lm, name=name: pg_streams_of(name, dev))
        for name in PTPG_RUNS},
     "pose_graph_solvers": lambda dev, n_lm: pose_graph_solvers(dev),
+    "closed_loop": lambda dev, n_lm: closed_loop_checks(dev),
     # beside the other side processes: two CPU threads
     **{f"per_tick_card_vs_cpu[{i}]":
        (lambda dev, n_lm, modes=modes: (torch.set_num_threads(2),
@@ -2214,6 +2450,7 @@ SIDE_GROUPS = (
     ("per_tick_pose_graph[ekf_slam]", "pg_streams_of[ekf_slam]"),
     ("pg_streams_of[naive]",),
     ("pose_graph_solvers",),
+    ("closed_loop",),
     ("fused_ukf_rollout[slam]",),
     ("fused_ukf_rollout[loc]",),
     ("fused_ekf_rollout", "pose_stream_main[ekf]"),
@@ -2433,10 +2670,13 @@ def main():
     # counted run launched Philox once and P1 and P2 in its bulk solve
     # (per_tick_pose_graph raises otherwise)
     philox_launches += sum(r["launches"]["philox_noise"] for r in PTPG["run"].values())
+    # ---- 10. the closed loop, run in its side process: once per run
+    philox_launches += next(line["launches"]["philox_noise"] for line in LINES
+                            if line["phase"] == "closed_loop_path")
 
     # the standalone Philox kernel: the rollouts draw in-kernel, the
     # pose-graph path launches it once per world chunk, the per-tick path
-    # once per run
+    # and the closed loop once per run
     args = (0, MAIN["steps"], n_lm, MAIN["batch"], dev)
     philox.philox_noise(*args)
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -2449,12 +2689,18 @@ def main():
     torch.cuda.synchronize()
     p_ms = 1e3 * (time.perf_counter() - t0)
     nbytes = 4.0 * nz.numel()
+    # and at the closed loop's shape (its side process held it bit for bit)
+    cl_nz = next(line for line in LINES if line["phase"] == "closed_loop_philox")
+    err = float((nz - nz_ref).abs().max())
     record.append({
         "name": "philox_noise", "route": "cuda",
         "source": SRC + "philox_noise.cu",
         "replaces": "live_ekf_slam_tpu/ops/fused_rollout.py:160",
         "launches": philox_launches,
-        "max_abs_err": float((nz - nz_ref).abs().max()),
+        "max_abs_err": max(err, cl_nz["max_abs_err"]),
+        "max_abs_err_main_shape": err,
+        "max_abs_err_closed_loop_shape": cl_nz["max_abs_err"],
+        "closed_loop_shape": cl_nz["shape"],
         "ms": e0.elapsed_time(e1), "plain_ms": p_ms,
         "bound_ms": 1e3 * nbytes / PEAK_BYTES, "bound_by": "bytes",
         "library_ms": None, "bytes": nbytes,

@@ -8,6 +8,8 @@
         --secondary ekf_slam [--iterative] [--worlds 1024]
     python -m live_ekf_slam_tpu_torch.bench --impl per_tick --filter pose_graph \
         --secondary naive --iterative [--worlds 1024] [--device cpu]
+    python -m live_ekf_slam_tpu_torch.bench --filter closed_loop [--worlds 1024] \
+        [--steps 1000] [--reps 1] [--device cpu]
 
 The JAX ``bench.py`` path with ``BENCH_IMPL=pallas`` and ``BENCH_FILTER`` one
 of ekf_slam, iekf_slam, ukf_slam, ukf_loc (``--filter``), on the card: 4096
@@ -37,6 +39,19 @@ graphs built tick by tick and, with ``--iterative``, re-solved every tick):
 the line gives each phase's seconds, the ms a tick of the rollout (the
 simulator, the secondary, the graph's update and per-tick solve) and the
 mean errors; ``--device cpu`` runs it on the CPU.
+
+``--filter closed_loop`` times the closed loop instead (the JAX
+``BENCH_FILTER=closed_loop``, bench.py:126-248): the igvc1 course at the
+JAX bench's configuration (``closed_loop_config``: 37 barrels, 16
+measurement slots, 128 / 64 relaxation sweeps, a 64-cell window, EKF-SLAM),
+1024 worlds x 1000 ticks (200 replan blocks of 5 ticks) by default, one rep.
+Each rep is ``run_closed_loop`` on the Philox noise of its seed, with a
+device synchronise around every block's replan and ticks; its value is
+steps/s/world of the median rep; the line also gives the ms of the replan
+alone at the same batch (the JAX bench's ``plan_once``: the local planner
+and A* from the course's start pose, median of 5), the median ms per block
+of the run's replans and of a control tick, and the mean average position
+error. ``--device cpu`` runs it on the CPU, labelled so.
 """
 
 from __future__ import annotations
@@ -51,7 +66,8 @@ import time
 import numpy as np
 import torch
 
-from live_ekf_slam_tpu_torch.config import Config
+from live_ekf_slam_tpu_torch.config import Config, preset
+from live_ekf_slam_tpu_torch.eval.closed_loop import occupancy, run_closed_loop
 from live_ekf_slam_tpu_torch.eval.runner import (
     ONLINE_FILTERS,
     fused_rollout,
@@ -65,6 +81,7 @@ from live_ekf_slam_tpu_torch.eval.runner import (
     sync_clock,
 )
 from live_ekf_slam_tpu_torch.models import posegraph as pg
+from live_ekf_slam_tpu_torch.planning import astar as p_astar
 from live_ekf_slam_tpu_torch.ops import _build, philox
 from live_ekf_slam_tpu_torch.ops import fused_rollout as fr
 from live_ekf_slam_tpu_torch.ops.precision import pin_fp32
@@ -72,6 +89,7 @@ from live_ekf_slam_tpu_torch.sim.streams import sim_streams
 
 WARMUP_TICKS = 10
 PG_WORLDS = 1024
+CL_WORLDS = 1024
 # the high-noise profile of the accuracy studies (scripts/accuracy_matrix.py)
 HIGH_NOISE = dict(V_00=0.01, V_11=0.001, W_00=0.01, W_11=0.01)
 
@@ -299,11 +317,92 @@ def bench_pose_graph(args) -> dict:
     }
 
 
+def closed_loop_config(steps: int, meas_slots: int = 16, sweeps=(128, 64)) -> Config:
+    """The JAX bench's closed-loop configuration (bench.py:141-156,
+    docs/BENCHMARKS.md:20): the igvc1 preset (map, 37 barrels, start
+    (0, -8.5, 0), tight control), 37 landmark slots, ``meas_slots``
+    measurement slots (16 cover the barrels visible at once in the 3 m,
+    +/-90 deg cone), A* and local-planner sweeps, path capacity 128 and a
+    64-cell A* window; EKF-SLAM."""
+    cfg = preset("igvc1", num_iterations=steps)
+    return cfg.replace(
+        num_landmark_slots=37, num_meas_slots=meas_slots,
+        path_planning=dataclasses.replace(
+            cfg.path_planning, astar_max_iters=sweeps[0],
+            local_astar_max_iters=sweeps[1], path_capacity=128,
+            astar_window=64))
+
+
+def plan_once_ms(cfg, batch: int, dev, reps: int = 5) -> float:
+    """Median ms of one batched replan alone (the JAX bench's
+    ``plan_once``): the local planner's goal and A* to it for ``batch``
+    worlds at the course's start pose, between two synchronises, after one
+    untimed call."""
+    occ = occupancy(cfg, dev)
+    est = torch.tensor(cfg.init_pose, dtype=torch.float32, device=dev).expand(batch, 3)
+
+    def plan():
+        goal, _ = p_astar.local_planner(cfg, occ, est)
+        p_astar.astar(cfg, occ, est[:, :2], goal)
+
+    plan()
+    times = []
+    for _ in range(reps):
+        t0 = sync_clock(dev)
+        plan()
+        times.append(sync_clock(dev) - t0)
+    return 1e3 * float(np.median(times))
+
+
+def time_closed_loop(cfg, worlds: int, dev, reps: int = 1) -> dict:
+    """``reps`` closed-loop runs (seeds 1, 2, ...) after a two-block warm-up
+    (CUDA context, cuBLAS, the Philox build): each rep's host-clock seconds,
+    the median rep's, the median ms of a block's replan and of a control
+    tick over the last rep, its per-world average errors."""
+    period = cfg.path_planning.replan_period
+    run_closed_loop(cfg.replace(num_iterations=2 * period), worlds, 0, device=dev)
+    rep_s, sec, m = [], {}, None
+    for rep in range(reps):
+        sec = {}
+        t0 = sync_clock(dev)
+        m, _, _ = run_closed_loop(cfg, worlds, rep + 1, device=dev, seconds=sec)
+        rep_s.append(sync_clock(dev) - t0)
+    return {"rep_s": rep_s, "wall_s": float(np.median(rep_s)),
+            "replan_ms": 1e3 * float(np.median(sec["replan"][1:])),
+            "tick_ms": 1e3 * float(np.median(sec["ticks"])) / period,
+            "err": m["err_" + cfg.filter]}
+
+
+def bench_closed_loop(args) -> dict:
+    dev = resolve_device(args.device)
+    worlds = args.worlds or CL_WORLDS
+    cfg = closed_loop_config(args.steps)
+    period = cfg.path_planning.replan_period
+    t_run = (args.steps // period) * period
+    out = time_closed_loop(cfg, worlds, dev, args.reps or 1)
+    err = out.pop("err")
+    if not np.isfinite(err).all():
+        raise RuntimeError("the closed loop produced non-finite errors")
+    plan_ms = plan_once_ms(cfg, worlds, dev)
+    where = card() if dev.type == "cuda" else "the CPU, not a device metric"
+    return {
+        "metric": (
+            f"closed-loop igvc sim+EKF+A*+pure-pursuit steps/sec/world at "
+            f"{worlds} worlds (T={t_run}, replan every {period}; replan alone "
+            f"{plan_ms:.2f} ms at batch {worlds}; mean avg-pos-err "
+            f"{float(err.mean()):.4f} m; {where})"
+        ),
+        "value": t_run / out["wall_s"], "unit": "steps/s/world",
+        "plan_once_ms": plan_ms, "mean_avg_pos_err_m": float(err.mean()), **out,
+    }
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="live_ekf_slam_tpu_torch.bench")
-    p.add_argument("--filter", choices=ONLINE_FILTERS + ("pose_graph",),
+    p.add_argument("--filter", choices=ONLINE_FILTERS + ("pose_graph", "closed_loop"),
                    default="ekf_slam",
-                   help="naive runs with --impl per_tick only")
+                   help="naive runs with --impl per_tick only; closed_loop "
+                        "times the igvc1 closed loop (EKF-SLAM)")
     p.add_argument("--secondary", choices=ONLINE_FILTERS, default="naive",
                    help="pose_graph only: the filter that seeds the graph "
                         "(the streams path: naive, ekf_slam or iekf_slam)")
@@ -312,15 +411,19 @@ def main(argv=None):
     p.add_argument("--impl", choices=["cuda", "plain", "per_tick"],
                    default="cuda")
     p.add_argument("--device", default="cuda",
-                   help="per_tick only: cpu runs it on the CPU")
+                   help="per_tick and closed_loop only: cpu runs it on the CPU")
     p.add_argument("--protocol", choices=["shared", "perworld"],
                    default="shared")
     p.add_argument("--worlds", type=int, default=None,
-                   help="default 4096, pose_graph 1024")
+                   help="default 4096, pose_graph and closed_loop 1024")
     p.add_argument("--steps", type=int, default=1000)
     p.add_argument("--reps", type=int, default=None,
-                   help="default 5, per_tick 1")
+                   help="default 5, per_tick and closed_loop 1")
     args = p.parse_args(argv)
+    if args.filter == "closed_loop":
+        pin_fp32()
+        print(json.dumps(bench_closed_loop(args)))
+        return
     if args.filter == "naive" and args.impl != "per_tick":
         raise SystemExit("naive has no fused rollout: use --impl per_tick")
     if args.device != "cuda" and args.impl != "per_tick":

@@ -27,6 +27,10 @@ The per-tick pose-graph slice adds ``run_carry_from_numpy``: a whole JAX
 ``RunCarry`` (world, the primary filter, for the pose graph its
 ``PoseGraphState`` and the secondary filter, the error sums and alive
 masks) as the port's.
+
+The closed-loop slice adds ``closed_loop_carry_from_numpy``: a JAX
+``ClosedLoopCarry`` (world, filter, pursuit state, next command, error sum,
+tick count), so that a JAX run stopped between blocks continues in the port.
 """
 
 from __future__ import annotations
@@ -327,3 +331,26 @@ def run_carry_from_numpy(carry, primary: str, secondary: str | None = None,
             for f in _CARRY_SCALARS}
     return RunCarry(world=world_state_from_numpy(carry.world, device),
                     primary=prim, secondary=sec, **sums)
+
+
+def closed_loop_carry_from_numpy(carry, name: str, device="cpu"):
+    """A JAX ``ClosedLoopCarry`` of a ``vmap`` batch (its fields as arrays)
+    -> the port's ``eval.closed_loop.ClosedLoopCarry`` on ``device``;
+    ``name`` is the online filter whose state ``carry.filt`` holds."""
+    from live_ekf_slam_tpu_torch.eval.closed_loop import ClosedLoopCarry
+    from live_ekf_slam_tpu_torch.planning.pure_pursuit import PursuitState
+
+    def t(a, dtype):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    p = carry.pursuit
+    pursuit = PursuitState(
+        path=t(p.path, torch.float32), head=t(p.head, torch.int32),
+        length=t(p.length, torch.int32), integ=t(p.integ, torch.float32),
+        err_prev=t(p.err_prev, torch.float32))
+    return ClosedLoopCarry(
+        world=world_state_from_numpy(carry.world, device),
+        filt=filter_state_from_numpy(name, carry.filt, device),
+        pursuit=pursuit, cmd=t(carry.cmd, torch.float32),
+        err_sum=t(carry.err_sum, torch.float32),
+        timestep=t(carry.timestep, torch.int32))

@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 
@@ -34,6 +35,18 @@ def constant(value, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     per-tick loop that is a wait on the card per call. Callers must not
     write to it."""
     return torch.tensor(value, dtype=dtype, device=device)
+
+
+def reciprocal(value: float, device: torch.device) -> torch.Tensor:
+    """The float32 reciprocal of ``value``, 1.0f / float32(value), as a
+    constant on ``device``. XLA compiles JAX's division by a constant as a
+    product with this reciprocal, so ``x * reciprocal(c, dev)`` gives the
+    bits of ``x / c`` inside a jitted or scanned JAX function (the closed
+    loop, a ``lax.while_loop`` body); outside one, JAX divides. torch too
+    multiplies by it for a Python divisor on the card but divides on the
+    CPU, so the port spells the product out to agree on both."""
+    return constant(float(np.float32(1.0) / np.float32(value)), torch.float32,
+                    torch.device(device))
 
 
 def sel_cols(dim: int, li: torch.Tensor, k: int = 2) -> torch.Tensor:

@@ -1,19 +1,26 @@
-"""Landmark maps, in numpy: the fixed maps and random maps on the blank
-occupancy grid.
+"""Landmark maps and occupancy grids, in numpy.
 
-A copy of the landmark-map part of ``live_ekf_slam_tpu/sim/maps.py``:
-importing that module runs ``live_ekf_slam_tpu/sim/__init__.py``, which
-imports the simulator and so jax. The fixed maps are the same float32
-constants, and given the same ``np.random.Generator`` the random maps are
-bit-identical (the tests hold both to that). ``DEMO_MAP`` and
-``IGVC1_BARRELS`` are data constants of the reference world definitions
-(sim_node.py:26-30 and sim_node.py:190). Image-backed occupancy maps are not
-ported yet; ``load_occ_map`` raises for them.
+A copy of ``live_ekf_slam_tpu/sim/maps.py``: importing that module runs
+``live_ekf_slam_tpu/sim/__init__.py``, which imports the simulator and so
+jax. The fixed maps are the same float32 constants, and given the same
+``np.random.Generator`` the random maps are bit-identical (the tests hold
+both to that). ``DEMO_MAP`` and ``IGVC1_BARRELS`` are data constants of the
+reference world definitions (sim_node.py:26-30 and sim_node.py:190).
+
+``load_occ_map`` reads the map images of the JAX package's assets
+(``live_ekf_slam_tpu/assets/maps``, as data) without Pillow: ``sim/png``
+decodes the PNG and copies Pillow's bilinear reduce bit for bit, so the grid
+equals the JAX package's Pillow path exactly.
 """
 
 from __future__ import annotations
 
+import functools
+import os
+
 import numpy as np
+
+from live_ekf_slam_tpu_torch.sim.png import read_png, resize_bilinear
 
 # RSS demo landmark map (20 landmarks), sim_node.py:26-30.
 DEMO_MAP = np.array(
@@ -54,11 +61,24 @@ IGVC1_BARRELS = np.array(
 )
 
 
+# the map images are the JAX package's assets, read as data
+ASSET_DIR = os.path.normpath(os.path.join(
+    os.path.dirname(__file__), "..", "..", "live_ekf_slam_tpu", "assets", "maps"))
+
+
 def tf_ekf_to_map(cfg, pt):
     """World (x, y) -> occupancy grid (row, col); truncates toward zero."""
     i = int(cfg.grid_shift - pt[1] / cfg.grid_scale)
     j = int(cfg.grid_shift + pt[0] / cfg.grid_scale)
     return [i, j]
+
+
+def tf_map_to_ekf(cfg, pt):
+    """Occupancy grid (row, col) -> world (x, y)."""
+    return [
+        (pt[1] - cfg.grid_shift) * cfg.grid_scale,
+        -(pt[0] - cfg.grid_shift) * cfg.grid_scale,
+    ]
 
 
 def blank_occ_map(cfg) -> np.ndarray:
@@ -67,8 +87,40 @@ def blank_occ_map(cfg) -> np.ndarray:
     return np.ones((s, s), dtype=np.float32)
 
 
+def _balloon(occ: np.ndarray, amt: int) -> np.ndarray:
+    """Dilate obstacles by ``amt`` cells in every direction
+    (sim_node.py:286-299): the reference's index-clamped writes stay inside
+    the grid, so this is binary dilation with a (2 amt + 1)^2 kernel."""
+    out = occ.copy()
+    blocked = occ < 0.5
+    s = occ.shape[0]
+    for di in range(-amt, amt + 1):
+        for dj in range(-amt, amt + 1):
+            if di == 0 and dj == 0:
+                continue
+            shifted = np.zeros_like(blocked)
+            src = blocked[
+                max(0, -di): s - max(0, di), max(0, -dj): s - max(0, dj)
+            ]
+            shifted[max(0, di): s + min(0, di), max(0, dj): s + min(0, dj)] = src
+            out[shifted] = 0.0
+    return out
+
+
+@functools.lru_cache(maxsize=8)
+def _image(path: str) -> np.ndarray:
+    """The decoded image, read once a process (read-only)."""
+    arr = read_png(path)
+    arr.flags.writeable = False
+    return arr
+
+
 def load_occ_map(cfg):
-    """(occ_grid {0=blocked,1=free}, color_map) for the blank world."""
+    """Image file -> (occ_grid {0=blocked,1=free}, color_map)
+    (sim_node.py:255-315): alpha as white, the bilinear reduce to
+    occ_map_size^2, the ITU-R 601 grayscale, threshold > 200, the balloon.
+    ``blank.jpg`` is the all-free grid; other images must be 8-bit RGB or
+    RGBA PNGs (``sim/png.read_png`` raises for the rest)."""
     name = cfg.occ_map_img
     if name in (None, "", "blank.jpg", "blank"):
         occ = blank_occ_map(cfg)
@@ -76,10 +128,23 @@ def load_occ_map(cfg):
             (cfg.map.occ_map_size, cfg.map.occ_map_size, 3), 255, np.uint8
         )
         return occ, color
-    raise NotImplementedError(
-        f"occupancy map {name!r}: image maps are not ported yet "
-        "(ROADMAP.md, M11)"
-    )
+    path = name if os.path.isabs(name) else os.path.join(ASSET_DIR, name)
+    arr = _image(path)
+    if arr.shape[2] == 4:
+        # Treat transparency as white: add inverted alpha to each channel,
+        # clipping (sim_node.py:264-267).
+        a1 = 255 - arr[:, :, 3].astype(np.int32)
+        rgb = np.clip(arr[:, :, :3].astype(np.int32) + a1[:, :, None], 0, 255)
+        arr = rgb.astype(np.uint8)
+    color = arr.copy()
+
+    s = cfg.map.occ_map_size
+    small = np.asarray(resize_bilinear(arr, s, s), dtype=np.float32)
+    # Grayscale with the standard ITU-R 601 weights (cv2 BGR2GRAY equivalent).
+    gray = 0.299 * small[:, :, 0] + 0.587 * small[:, :, 1] + 0.114 * small[:, :, 2]
+    occ = (gray > 200).astype(np.float32)  # threshold 200 then floor-to-binary
+    occ = _balloon(occ, cfg.map.occ_map_balloon_amt)
+    return occ.astype(np.float32), color
 
 
 def random_landmarks(cfg, rng: np.random.Generator, occ=None) -> np.ndarray:

@@ -138,3 +138,27 @@ def key_chain(key, batch: int, t: int, n: int):
         u.append(np.asarray(jax.random.uniform(k_traj, (n, 2), jnp.float32, -1.0, 1.0)))
         nz.append(tick_noise(jax.random.split(k_roll, t), n))
     return torch.from_numpy(np.stack(u)), torch.from_numpy(np.stack(nz, axis=2))
+
+
+def closed_loop_noise(key, batch: int, t: int, n: int) -> torch.Tensor:
+    """(T, 2N+8, B): the simulator's draws of JAX run_closed_loop(key,
+    batch) over T ticks for an N-landmark map: per world key_w of
+    split(key, batch), the tick keys split(key_w, T) (the blocks' keys in
+    order), each drawn as ``tick_noise`` does."""
+    import jax
+
+    return torch.from_numpy(np.stack(
+        [tick_noise(jax.random.split(k, t), n) for k in jax.random.split(key, batch)],
+        axis=2))
+
+
+@pytest.fixture(scope="module")
+def few_threads():
+    """torch on 2 CPU threads for a module's tests, then as before: the
+    tests run in several processes side by side (pytest-xdist), and the
+    small batched ops of the per-tick and closed-loop paths gain nothing
+    from more."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)

@@ -66,6 +66,14 @@ def test_philox_kernel_matches_torch(cuda_device):
     assert torch.equal(nz, ref)
 
 
+def test_philox_kernel_matches_torch_with_a_partial_block(cuda_device):
+    # the closed loop's N = 37: 2N+8 = 82 rows, so the last 4-row block of
+    # each tick is half full
+    nz = philox.philox_noise(11, 50, 37, 1024, device=cuda_device)
+    ref = philox.philox_noise_reference(11, 50, 37, 1024, device=cuda_device)
+    assert torch.equal(nz, ref)
+
+
 @pytest.mark.parametrize("kind", KINDS)
 def test_kernel_matches_plain(kind, cuda_device):
     cfg, lms, cmds, noise = _inputs(kind, cuda_device)
@@ -544,3 +552,11 @@ def test_per_tick_run_launches_only_the_philox_kernel(cuda_device):
     counts = chip_smoke.counts()
     assert counts == {k: int(k == "philox_noise") for k in counts}
     assert np.isfinite(res["err_ekf_slam"]).all() and fin.primary.x.is_cuda
+
+
+def test_closed_loop_on_the_card_matches_the_cpu(cuda_device):
+    # 16 worlds x 100 ticks of the scale test's configuration, card against
+    # the CPU on the same Philox noise, each world held until its first
+    # replan or pare that differs between the two (ROADMAP F15)
+    line = chip_smoke.cl_card_vs_cpu(cuda_device, 16, 100, 3)
+    assert not line["worlds_failed"] and not line["nan_worlds"]

@@ -23,7 +23,10 @@ from live_ekf_slam_tpu_torch.convert import filter_state_from_numpy
 from live_ekf_slam_tpu_torch.core.types import Measurements
 from live_ekf_slam_tpu_torch.eval import runner
 from live_ekf_slam_tpu_torch.models import ekf, iekf, ukf
-from port_harness import arc_commands
+from port_harness import arc_commands, few_threads  # noqa: F401  (few_threads: a fixture)
+
+# torch on 2 threads: six pytest-xdist workers share the host's cores
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 B, N, T, MID = 4, 6, 50, 25
 

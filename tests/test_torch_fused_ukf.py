@@ -27,7 +27,10 @@ from live_ekf_slam_tpu_torch.eval.runner import mc_inputs
 from live_ekf_slam_tpu_torch.ops import fused_ukf as fu
 from live_ekf_slam_tpu_torch.ops import philox
 from live_ekf_slam_tpu_torch.sim.maps import random_landmarks_batched
-from port_harness import arc_commands, max_co_observed, small_cfg
+from port_harness import arc_commands, few_threads, max_co_observed, small_cfg  # noqa: F401  (few_threads: a fixture)
+
+# torch on 2 threads: six pytest-xdist workers share the host's cores
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 KINDS = ["default", "compat", "calibrated"]
 # B = 4 worlds, N = 4 landmarks in a +/-3 m box, T = 20 ticks: worlds see
@@ -88,11 +91,11 @@ def _run_both(kind, slam, n_lm=N, steps=T, **replace):
     return got, want
 
 
-@pytest.mark.parametrize("slam, kind, n_lm", [
-    pytest.param(slam, kind, N, id=f"{'slam' if slam else 'loc'}-{kind}")
-    for slam in (True, False) for kind in KINDS] + [
-    pytest.param(True, "default", n, id=f"slam-default-N{n}") for n in WIDE])
-def test_plain_matches_pallas_kernel(slam, kind, n_lm):
+def check_plain_matches_pallas_kernel(slam, kind, n_lm):
+    """The body of ``test_plain_matches_pallas_kernel``; the two wide cases
+    (N in WIDE, several minutes each in interpret mode) run it from files of
+    their own, test_torch_fused_ukf_n14.py and _n31.py, so that pytest-xdist
+    spreads them over workers."""
     got, want = _run_both(kind, slam, n_lm=n_lm, steps=WIDE.get(n_lm, T))
     calm = got["update_rejects"] == 0
     assert calm.all() if n_lm == N else calm.sum() >= B - 1
@@ -103,6 +106,13 @@ def test_plain_matches_pallas_kernel(slam, kind, n_lm):
         assert got["seen"].sum(axis=1).max() >= 2
     else:
         assert not got["seen"].any()
+
+
+@pytest.mark.parametrize("slam, kind, n_lm", [
+    pytest.param(slam, kind, N, id=f"{'slam' if slam else 'loc'}-{kind}")
+    for slam in (True, False) for kind in KINDS])
+def test_plain_matches_pallas_kernel(slam, kind, n_lm):
+    check_plain_matches_pallas_kernel(slam, kind, n_lm)
 
 
 def test_sanity_gate_rejects_match_pallas_kernel():

@@ -5,6 +5,7 @@ Every input is made with numpy from a seed and handed to both packages.
 
 import dataclasses
 import math
+import os
 
 import jax
 import jax.numpy as jnp
@@ -114,11 +115,18 @@ def test_random_landmarks_batched_bit_identical(sep, occ):
 
 
 def test_blank_occ_map_matches_and_image_maps_raise():
+    # the blank world and an image map equal the JAX package's; an image
+    # the port cannot read (a JPEG other than blank.jpg) raises
     cfg = tconfig.Config()
     for x, y in zip(tmaps.load_occ_map(cfg), jmaps.load_occ_map(cfg)):
         np.testing.assert_array_equal(x, y)
-    with pytest.raises(NotImplementedError, match="M11"):
-        tmaps.load_occ_map(cfg.replace(occ_map_img="igvc1.png"))
+    img = cfg.replace(occ_map_img="igvc1.png")
+    for x, y in zip(tmaps.load_occ_map(img),
+                    jmaps.load_occ_map(jconfig.Config().replace(occ_map_img="igvc1.png"))):
+        np.testing.assert_array_equal(x, y)
+    with pytest.raises(ValueError, match="not a PNG"):
+        tmaps.load_occ_map(cfg.replace(
+            occ_map_img=os.path.join(tmaps.ASSET_DIR, "blank.jpg")))
 
 
 def test_generate_trajectory_matches_jax():

@@ -22,7 +22,10 @@ from live_ekf_slam_tpu_torch.convert import (
     world_state_from_numpy,
 )
 from live_ekf_slam_tpu_torch.eval import runner
-from port_harness import key_chain, tick_noise
+from port_harness import few_threads, key_chain, tick_noise  # noqa: F401  (few_threads: a fixture)
+
+# torch on 2 threads: six pytest-xdist workers share the host's cores
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 B, T, N, SEED = 4, 40, 6, 3
 # Per-world average error (metres) and the pose streams (metres, radians):

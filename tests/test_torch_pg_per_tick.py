@@ -34,7 +34,10 @@ from live_ekf_slam_tpu_torch.convert import posegraph_state_from_numpy, run_carr
 from live_ekf_slam_tpu_torch.core.types import Measurements
 from live_ekf_slam_tpu_torch.eval import runner
 from live_ekf_slam_tpu_torch.models import posegraph as pg
-from port_harness import key_chain, tick_noise
+from port_harness import few_threads, key_chain, tick_noise  # noqa: F401  (few_threads: a fixture)
+
+# torch on 2 threads: six pytest-xdist workers share the host's cores
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 B, T, N, SEED = 4, 40, 6, 3
 SOLVER = dict(bulk_gn_iters=12, bulk_cg_iters=12)

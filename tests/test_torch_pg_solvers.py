@@ -26,7 +26,10 @@ from live_ekf_slam_tpu_torch.convert import posegraph_state_from_numpy
 from live_ekf_slam_tpu_torch.eval import pgs_iterative, runner
 from live_ekf_slam_tpu_torch.models import posegraph as pg
 from live_ekf_slam_tpu_torch.sim.maps import random_landmarks_batched
-from port_harness import tick_noise
+from port_harness import few_threads, tick_noise  # noqa: F401  (few_threads: a fixture)
+
+# torch on 2 threads: six pytest-xdist workers share the host's cores
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 B, T, N, SEED = 3, 40, 6, 3
 SOLVER = dict(bulk_gn_iters=12, bulk_cg_iters=12)

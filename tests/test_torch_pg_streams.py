@@ -26,6 +26,10 @@ from live_ekf_slam_tpu_torch.config import Config
 from live_ekf_slam_tpu_torch.convert import streams_from_numpy
 from live_ekf_slam_tpu_torch.eval import runner
 from live_ekf_slam_tpu_torch.models import posegraph as pg
+from port_harness import few_threads  # noqa: F401  (fixture)
+
+# torch on 2 threads: six pytest-xdist workers share the host's cores
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 B, T, N, SEED = 2, 60, 6, 5
 

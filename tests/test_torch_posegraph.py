@@ -26,7 +26,10 @@ from live_ekf_slam_tpu_torch.config import CompatConfig, Config
 from live_ekf_slam_tpu_torch.convert import posegraph_state_from_numpy
 from live_ekf_slam_tpu_torch.models import posegraph as pg
 from live_ekf_slam_tpu_torch.sim.maps import random_landmarks_batched
-from port_harness import small_cfg
+from port_harness import few_threads, small_cfg  # noqa: F401  (few_threads: a fixture)
+
+# torch on 2 threads: six pytest-xdist workers share the host's cores
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 B, T, N, BOUND = 3, 30, 5, 4.0
 # (honest or compat sigmas, exact_logmap)

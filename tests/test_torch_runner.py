@@ -21,6 +21,10 @@ from live_ekf_slam_tpu.sim.trajectory import generate_trajectory as j_gen
 from live_ekf_slam_tpu_torch import bench, cli
 from live_ekf_slam_tpu_torch.config import Config
 from live_ekf_slam_tpu_torch.eval import pgs_iterative, runner
+from port_harness import few_threads  # noqa: F401  (fixture)
+
+# torch on 2 threads: six pytest-xdist workers share the host's cores
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -244,11 +248,20 @@ def test_port_runs_its_slice_without_jax():
     # CPU slice of all four fused filters, the per-tick path of naive and
     # EKF-SLAM, the pose-graph streams path in both solve modes, the
     # per-tick pose graph (UKF-SLAM secondary, iterative) and the host-loop
-    # run_iterative_pgs; no module of jax, jaxlib, flax or the
-    # JAX package may be loaded (split on "." so that the port's own name,
-    # live_ekf_slam_tpu_torch, does not match)
+    # run_iterative_pgs, the closed loop on the igvc1 map and every image
+    # map; jax, jaxlib, flax, Pillow and the JAX package cannot be imported,
+    # and no module of theirs may be loaded (split on "." so that the
+    # port's own name, live_ekf_slam_tpu_torch, does not match)
     code = (
-        "import sys\n"
+        "import sys, importlib.abc\n"
+        "BLOCKED = ('jax', 'jaxlib', 'flax', 'PIL', 'live_ekf_slam_tpu')\n"
+        "class Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        "        if name.split('.')[0] in BLOCKED:\n"
+        "            raise ModuleNotFoundError(f'blocked: {name}')\n"
+        "sys.meta_path.insert(0, Block())\n"
+        "import torch\n"
+        "torch.set_num_threads(2)\n"
         "import chip_smoke\n"
         "from live_ekf_slam_tpu_torch.config import Config\n"
         "from live_ekf_slam_tpu_torch.eval.runner import FILTERS, run_monte_carlo\n"
@@ -294,8 +307,15 @@ def test_port_runs_its_slice_without_jax():
         "out = run_iterative_pgs(cfg, fin.world.landmarks[0], solve_stride=4,\n"
         "                        device='cpu')\n"
         "assert out['pgs_result'].shape == (8, 3)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
-        "             ('jax', 'jaxlib', 'flax', 'live_ekf_slam_tpu'))\n"
+        "from live_ekf_slam_tpu_torch.config import preset\n"
+        "from live_ekf_slam_tpu_torch.eval.closed_loop import run_closed_loop\n"
+        "from live_ekf_slam_tpu_torch.sim.maps import load_occ_map\n"
+        "for img in ('igvc2.png', 'building1.png', 'building2.png'):\n"
+        "    assert 0 < load_occ_map(Config().replace(occ_map_img=img))[0].mean() < 1\n"
+        "cfg = preset('igvc1', num_iterations=10).replace(num_landmark_slots=37)\n"
+        "m, fin, outs = run_closed_loop(cfg, 2, device='cpu', collect=True)\n"
+        "assert m['err_ekf_slam'].shape == (2,) and outs[0].shape == (2, 10, 3)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )

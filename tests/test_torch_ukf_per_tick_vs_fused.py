@@ -17,6 +17,7 @@ import functools
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from live_ekf_slam_tpu.config import Config as JConfig
@@ -29,6 +30,10 @@ from live_ekf_slam_tpu_torch.eval import runner
 from live_ekf_slam_tpu_torch.ops.fused_ukf import fused_ukf_rollout_reference
 from live_ekf_slam_tpu_torch.ops.philox import philox_noise_reference
 from live_ekf_slam_tpu_torch.sim.world import sim_step
+from port_harness import few_threads  # noqa: F401  (fixture)
+
+# torch on 2 threads: six pytest-xdist workers share the host's cores
+pytestmark = pytest.mark.usefixtures("few_threads")
 
 UKF_MEAN_RTOL = 0.03
 UKF_WORLD, UKF_TICK = 8, 103
