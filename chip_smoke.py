@@ -31,7 +31,20 @@ block under the profiler; JAX's scale test (64 x 200) runs on the card and
 on the CPU from the same Philox noise, each world held until its first
 replan or pare that differs between the two (F15), the test's bounds on the
 card; one batched replan is held against its CPU run, and the igvc1 grid is
-read from its PNG without Pillow. Those checks feed nothing
+read from its PNG without Pillow. The host side (``host_side``) runs the
+single-world demo presets through ``cli.run_demo`` and ``cli.run_sim_base``
+on the card, each timed with its launches counted (Philox once a run, the
+pose graph's final solve P1 and P2): filter_demo_results_only for every
+filter (EKF-SLAM and the pose graph at the preset's 1000 ticks, EKF-SLAM on
+the CPU too), filter_demo_live with the async frame feed, sim_base in both
+trajectory modes, goal pursuit with async replans on building1, the
+EKF-SLAM and pose-graph demos card against CPU (the pose graph's final
+solve at one world; the clicked-goal run under F15) and P1 and P2 against
+their plain versions at one world (these two in ``host_side_vs_cpu``, a
+process of their own), Philox bit for bit at one world, the AprilTag
+replay, a checkpoint saved on the card
+and resumed on the CPU, and a pose-graph study's CSVs with the bar charts
+(PNGs and CSVs under ``chiprun_out/host_side``). Those checks feed nothing
 later and wait mostly for the host, so they run in processes side by side (``python3 chip_smoke.py --side-checks NAME ...`` is
 one of them). Then it drives the main paths, alone on the card.
 ``run_monte_carlo`` at 4096 worlds, T = 1000, N = 20
@@ -65,8 +78,12 @@ before printing any result. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import math
+import re
 import subprocess
 import sys
 import time
@@ -112,6 +129,7 @@ from live_ekf_slam_tpu_torch.planning import astar as p_astar
 from live_ekf_slam_tpu_torch.sim.streams import naive_deadreckon, sim_streams
 from live_ekf_slam_tpu_torch.sim.world import init_world, propagate_truth, sense
 from live_ekf_slam_tpu_torch.utils.geometry import wrap_angle
+from live_ekf_slam_tpu_torch.viz.live import FrameRecorder
 from live_ekf_slam_tpu_torch.tools import micro_downdate, micro_ukf, micro_ukf_probe
 from live_ekf_slam_tpu_torch.tools._common import DIM as MICRO_DIM
 from live_ekf_slam_tpu_torch.tools.kernel_ab import (
@@ -916,6 +934,10 @@ def pose_graph_paths(dev, n_lm: int) -> tuple[list, int]:
     # the per-tick pose graph's launches (its side process's counted run) and
     # the chordal systems' checks (the side checks' lines)
     ptpg = {d["run"]: d["launches"] for d in LINES if d["phase"] == "per_tick_pose_graph"}
+    # the host side's demos (their side process's counted runs) and its
+    # one-world checks of P1 and P2
+    hs = next(d for d in LINES if d["phase"] == "host_side")
+    hs_one = next(d for d in LINES if d["phase"] == "host_side_solve_vs_plain")
     chordal = {"block_thomas_factor": ("block_thomas_vs_plain", ("sinv", "l", "u", "dsc")),
                "block_thomas_solve": ("block_thomas_vs_plain", ("x",)),
                "schur_mv": ("schur_mv_vs_plain", ("vs_reference",))}
@@ -924,7 +946,9 @@ def pose_graph_paths(dev, n_lm: int) -> tuple[list, int]:
         phase, keys = chordal[name]
         extra = dict(extra, launches_by_path={
             "pose_graph_streams": launches[name],
-            **{f"per_tick_pose_graph[{run}]": ls.get(name, 0) for run, ls in ptpg.items()}},
+            **{f"per_tick_pose_graph[{run}]": ls.get(name, 0) for run, ls in ptpg.items()},
+            "host_side": hs["solve_launches"][name]},
+            single_world_max_rel_to_scale=hs_one["max_rel_to_scale"][name],
             chordal_max_rel_to_scale=max(
                 d[k]["rel_to_scale" if phase == "block_thomas_vs_plain"
                      else "max_world_rel_to_scale"]
@@ -2411,6 +2435,468 @@ def closed_loop_checks(dev):
     cl_scale_card_vs_cpu(dev)
 
 
+# ---- the host side (cli's single-world presets, clicked-goal pursuit, the
+# recorder, checkpoints, the AprilTag replay): a side check of its own, one
+# world through the entry points a user calls. filter -> ticks of its
+# filter_demo_results_only run: the preset's T = 1000 for EKF-SLAM and the
+# pose graph (naive secondary), T = 200 for the others
+HS_RESULTS = {"ekf_slam": 1000, "pose_graph": 1000, "naive": 200,
+              "iekf_slam": 200, "ukf_slam": 200, "ukf_loc": 200}
+HS_LIVE = ("ekf_slam", "ukf_slam", "pose_graph")  # filter_demo_live, async_viz
+HS_LIVE_T = 100
+HS_SHORT_T = 200  # sim_base, goal pursuit, card against CPU, the recorder's study
+# the pose-graph demo card against CPU: on the CPU its final solve's plain
+# P1 and P2 loops take ~30 s at any T (2 threads), each tick ~0.2 s more
+HS_PG_T = 50
+HS_OUT = Path(__file__).resolve().parent / "chiprun_out" / "host_side"
+# The EKF-SLAM demo card against CPU. Its precomputed-trajectory run: every
+# tick's true and estimated poses agree to HS_PART_ATOL (m, rad), the closed
+# loop's CL_PART_ATOL (measured on an H100: 6.7e-6). Its clicked-goal run
+# (F15): the discrete decisions are the pursuit queue (the replans and the
+# pared waypoints) and pure pursuit's lookahead point (which segment, which
+# radius), which shows as a jump in the command; the first tick whose queue
+# differs between the two runs, or whose commands differ by more than
+# HS_CMD_JUMP (m, rad a tick), is the world's event. Before it the poses
+# agree to HS_PURSUIT_ATOL, ten times the largest gap measured on an H100
+# (1.0e-3): the pursuit's PID (its derivative term 0.4 / dt = 8 on the
+# bearing) carries float-order differences of ~1e-6 to ~1e-3 in ~30 ticks,
+# as the CPU run against itself with its noise scaled by HS_NUDGE shows
+# (6.2e-4 before the same events), which the line reports.
+HS_PART_ATOL = CL_PART_ATOL
+# the kernels of the pose-graph demo's final solve (``posegraph.finalize``)
+HS_SOLVE = ("block_thomas_factor", "block_thomas_solve", "schur_mv")
+HS_PURSUIT_ATOL = 1e-2
+HS_CMD_JUMP = 1e-3
+HS_NUDGE = 1.0 + 2.0 ** -20
+
+
+def hs_viewer():
+    """The viewer class of the host-side runs: the live viewer under Agg
+    where matplotlib imports, else the frame recorder; and its name."""
+    from live_ekf_slam_tpu_torch.viz.live import LiveViewer
+
+    try:
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot  # noqa: F401  (it imports Pillow)
+    except ImportError:
+        return FrameRecorder, "frames"
+    return LiveViewer, "agg"
+
+
+def hs_config(preset_name: str, filt: str, steps: int, **kw) -> Config:
+    """A preset at ``steps`` ticks whose viewer saves its final map and
+    appends its average error under HS_OUT (``--base-dir``)."""
+    from live_ekf_slam_tpu_torch.config import preset
+
+    cfg = preset(preset_name, Config(num_iterations=steps)).replace(
+        filter=filt, num_iterations=steps, **kw)
+    return cfg.replace(
+        plotter=dataclasses.replace(cfg.plotter, save_final_map=True),
+        pose_graph=dataclasses.replace(cfg.pose_graph, save_average_error_at_end=True))
+
+
+def hs_demo(cfg, dev, live: bool, viewer, tag: str) -> dict:
+    """``cli.run_demo`` once on ``dev``, its launches counted: the line of
+    that run (ms a tick, wall seconds, the printed average, the frames the
+    async feed dropped, as the printed line gives them). Each run launches
+    Philox once; the pose graph's final solve P1 and P2; nothing else."""
+    from live_ekf_slam_tpu_torch import cli
+
+    zero_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        avg = cli.run_demo(cfg, seed=0, live=live, base_dir=str(HS_OUT / tag),
+                           device=dev, viewer=viewer)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v for k, v in counts().items() if v}
+    printed = out.getvalue().strip().splitlines()[-1]
+    dropped = re.search(r"async viz: (\d+) frames skipped", printed)
+    line = dict(filter=cfg.filter, steps=cfg.num_iterations, live=live,
+                async_viz=bool(live and cfg.plotter.async_viz), device=str(dev),
+                wall_s=wall, ms_per_tick=1e3 * wall / cfg.num_iterations,
+                avg_err_m=avg, printed=printed,
+                frames_dropped=int(dropped.group(1)) if dropped else None,
+                launches=launches)
+    if dev.type == "cuda":
+        want = {"philox_noise"} | (set(HS_SOLVE) if cfg.filter == "pose_graph" else set())
+        if set(launches) != want or launches["philox_noise"] != 1:
+            raise AssertionError(f"host side: the {cfg.filter} demo launched "
+                                 f"{launches}, not once philox_noise"
+                                 + (" and the final solve's P1, P2"
+                                    if cfg.filter == "pose_graph" else ""))
+    if not np.isfinite(avg):
+        raise AssertionError(f"host side: the {cfg.filter} demo's average is {avg}")
+    return line
+
+
+class PursuitRecorder(FrameRecorder):
+    """The frame recorder that also keeps, each tick, the clicked-goal
+    pursuit's command and its queue after the tick: the pursuit whose
+    ``set_goal`` ``cli.run_demo`` hands its viewer as ``on_goal``."""
+
+    def __post_init__(self):
+        super().__post_init__()
+        self.cmds, self.queues = [], []
+
+    def update(self, frame):
+        super().update(frame)
+        gp = self.on_goal.__self__
+        self.cmds.append(gp.cmd)
+        self.queues.append([tuple(p) for p in gp.pp.goal_queue])
+
+
+def hs_run(cfg, dev, noise, viewer=FrameRecorder):
+    """``cli.run_demo`` with live frames on ``dev`` from the given noise:
+    (its recorder, the average, seconds)."""
+    from live_ekf_slam_tpu_torch import cli
+
+    views = []
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        avg = cli.run_demo(cfg, live=True, device=dev, viewer=viewer.into(views),
+                           noise=noise)
+    return views[0], avg, time.perf_counter() - t0
+
+
+def hs_pursuit(cfg, dev, noise) -> dict:
+    """The clicked-goal demo on ``dev``: per tick the true and estimated
+    poses, the command and the pursuit queue after the tick, and the run's
+    seconds."""
+    v, _, sec = hs_run(cfg, dev, noise, PursuitRecorder)
+    return {"true": np.asarray([f.true_pose for f in v.frames]),
+            "est": np.asarray([f.est_pose for f in v.frames]),
+            "cmd": np.asarray(v.cmds), "queue": v.queues, "s": sec}
+
+
+def hs_card_vs_cpu(dev) -> dict:
+    """The demos on the card and on the CPU from the same Philox noise,
+    through ``cli.run_demo``: EKF-SLAM and the pose graph (HS_PG_T ticks) on
+    the preset's precomputed trajectory (live frames: every tick's poses, the average;
+    the pose graph's final frame, whose solve runs P1 and P2 at one world,
+    to the per-tick pose graph's tolerances) and EKF-SLAM's clicked-goal
+    pursuit on building1 (the local planner, a native A* replan every 5
+    ticks), held under F15: each tick before the run's first event to
+    HS_PURSUIT_ATOL; the CPU run against its nudged twin, for the pursuit's
+    own amplification."""
+    cpu = torch.device("cpu")
+    cfg = hs_config("filter_demo_live", "ekf_slam", HS_SHORT_T)
+    n_lm = cfg.map.num_landmarks
+    noise_c = philox.philox_noise(1, HS_SHORT_T, n_lm, 1, dev)
+    noise_h = philox.philox_noise_reference(1, HS_SHORT_T, n_lm, 1)
+    if not torch.equal(noise_c.cpu(), noise_h):
+        raise AssertionError("host side: the Philox kernel differs from its plain "
+                             f"version at ({HS_SHORT_T}, {2 * n_lm + 8}, 1)")
+    atol, rtol = PT_CARD_TOL
+    tsp, bad = {}, []
+    for filt, steps in (("ekf_slam", HS_SHORT_T), ("pose_graph", HS_PG_T)):
+        (vc, avg_c, card_s), (vh, avg_h, cpu_s) = (
+            hs_run(cfg.replace(filter=filt, num_iterations=steps), d, noise_h)
+            for d in (dev, cpu))
+        pairs = list(zip(vc.frames, vh.frames))
+        d_avg = abs(avg_c - avg_h)
+        one = dict(steps=steps, avg_err_card_m=avg_c, avg_err_cpu_m=avg_h,
+                   avg_err_abs_diff_m=d_avg, tolerance=PT_CARD_TOL,
+                   max_est_gap=max(float(np.abs(a.est_pose - b.est_pose).max())
+                                   for a, b in pairs),
+                   max_true_gap=max(float(np.abs(a.true_pose - b.true_pose).max())
+                                    for a, b in pairs),
+                   card_s=card_s, cpu_s=cpu_s)
+        if (d_avg > atol + rtol * abs(avg_h)
+                or max(one["max_est_gap"], one["max_true_gap"]) > HS_PART_ATOL):
+            bad.append(filt)
+        if filt == "pose_graph":
+            fc, fh = vc.frames[-1], vh.frames[-1]
+            tol = PTPG_AGAINST[cfg.pose_graph.filter_to_compare]
+            final = {}
+            for key, (a_tol, r_tol) in (("pg_initial", tol["initial"]),
+                                        ("pg_result", tol["result"]),
+                                        ("pg_landmarks", tol["result"])):
+                a, b = np.asarray(getattr(fc, key)), np.asarray(getattr(fh, key))
+                final[key] = dict(shape=list(a.shape), tolerance=[a_tol, r_tol],
+                                  max_abs_diff=float(np.abs(a - b).max()))
+                if a.shape != b.shape or not np.all(np.abs(a - b) <= a_tol + r_tol * np.abs(b)):
+                    bad.append(f"{filt} {key}")
+            one["final_frame"] = final
+        tsp[filt] = one
+
+    pcfg = cfg.replace(occ_map_img="building1.png", precompute_trajectory=False,
+                       use_local_planner=True)
+    card = hs_pursuit(pcfg, dev, noise_h)
+    host = hs_pursuit(pcfg, cpu, noise_h)
+    nudged = hs_pursuit(pcfg, cpu, noise_h * HS_NUDGE)
+
+    def parting(a, b):
+        """(first event tick, first queue difference, first command jump,
+        the largest pose gaps up to the event)."""
+        differs = [t for t in range(HS_SHORT_T) if a["queue"][t] != b["queue"][t]]
+        jumps = np.flatnonzero(np.abs(a["cmd"] - b["cmd"]).max(axis=1) > HS_CMD_JUMP)
+        first = min(differs[:1] + [int(t) for t in jumps[:1]] + [HS_SHORT_T])
+        gaps = {k: float(np.abs(a[k][: first + 1] - b[k][: first + 1]).max())
+                for k in ("true", "est")}
+        return dict(first_event_tick=first,
+                    first_queue_difference=differs[0] if differs else None,
+                    first_command_jump=int(jumps[0]) if len(jumps) else None,
+                    max_gap_before_event=gaps)
+
+    progress = float(np.linalg.norm(card["true"][-1, :2] - np.asarray(pcfg.init_pose[:2])))
+    pursuit = dict(steps=HS_SHORT_T, image=pcfg.occ_map_img, **parting(card, host),
+                   cpu_against_nudged_cpu=dict(nudge=HS_NUDGE, **parting(host, nudged)),
+                   command_jump=HS_CMD_JUMP, tolerance_m=HS_PURSUIT_ATOL,
+                   progress_card_m=progress, card_s=card["s"], cpu_s=host["s"])
+    if max(pursuit["max_gap_before_event"].values()) > HS_PURSUIT_ATOL:
+        bad.append("clicked_goal")
+    line = dict(precomputed=tsp, clicked_goal=pursuit, noise_kernel_equals_plain=True)
+    emit("host_side_card_vs_cpu", **line)
+    if bad:
+        raise AssertionError(f"host side: the demos, card against CPU ({bad}): {line}")
+    return line
+
+
+def hs_solve_single_world(dev) -> dict:
+    """P1 and P2 at one world, a new edge of their layouts (half a warp a
+    world for P1's factor, 256 threads a world for P2), at the pose-graph
+    demo's T: on a one-world graph's systems, at the first and the last
+    measurement scale and on chordal_init's, with both slot maps for P2,
+    against their plain versions as the side checks hold them at P1_WORLDS
+    worlds (``block_thomas_compare``, ``schur_mv_compare``). Returns the
+    largest error relative to scale of each kernel."""
+    steps = HS_RESULTS["pose_graph"]
+    cfg = pg_config(steps, "ekf_slam", False)
+    graphs = pg_graphs(cfg, 1, dev, seed=1)[0]
+    worst = dict.fromkeys(HS_SOLVE, 0.0)
+    for sc, chordal in ((16.0, False), (1.0, False), (1.0, True)):
+        what = f"one world T={steps} scale={sc} chordal={chordal}"
+        res = block_thomas_compare(*chain_blocks(cfg, graphs, sc, chordal),
+                                   "block-Thomas " + what)
+        worst["block_thomas_factor"] = max(worst["block_thomas_factor"], *(
+            res[k]["rel_to_scale"] for k in ("sinv", "l", "u", "dsc")))
+        worst["block_thomas_solve"] = max(worst["block_thomas_solve"],
+                                          res["x"]["rel_to_scale"])
+        for slots in (pg.LmSlots(graphs), pg.LmSlots(graphs, detect=False)):
+            sy = schur_system(cfg, graphs, sc, slots, chordal)
+            res_m = schur_mv_compare(sy, cg_direction(sy), "Schur matvec " + what)
+            worst["schur_mv"] = max(worst["schur_mv"],
+                                    res_m["vs_reference"]["max_world_rel_to_scale"])
+    line = dict(worlds=1, steps=steps, rtol_of_scale={"block_thomas": P1_RTOL,
+                                                      "schur_mv": SCHUR_RTOL},
+                max_rel_to_scale=worst)
+    emit("host_side_solve_vs_plain", **line)
+    return line
+
+
+def hs_replay_log(cfg, lms):
+    """A noiseless straight drive's camera-frame AprilTag log (the JAX
+    package's recorded-replay test's)."""
+    from live_ekf_slam_tpu_torch.hw.apriltag import TagDetection
+
+    pose = np.zeros(3)
+    cmds, log = [], []
+    for _ in range(cfg.num_iterations):
+        pose[0] += 0.1
+        cmds.append((0.1, 0.0))
+        dets = []
+        for j, lm in enumerate(lms):
+            dx, dy = lm - pose[:2]
+            r = math.hypot(dx, dy)
+            if r <= cfg.constraints.vision.range_max:
+                b = math.atan2(dy, dx) - pose[2]
+                dets.append(TagDetection(j, (r * math.cos(b), r * math.sin(b), 0.5)))
+        log.append(dets)
+    return np.asarray(cmds, np.float32), log, pose
+
+
+def hs_tools(dev, viewer_name: str) -> dict:
+    """The AprilTag replay on the card, a checkpoint saved on the card and
+    resumed on the CPU, and the recorder: a pose-graph study's CSVs
+    (``cli monte_carlo --runs-dir``) and ``cli bar_graphs`` over them."""
+    from live_ekf_slam_tpu_torch import cli
+    from live_ekf_slam_tpu_torch.eval import recorder
+    from live_ekf_slam_tpu_torch.hw import apriltag
+    from live_ekf_slam_tpu_torch.utils import checkpoint as ckpt
+
+    out = {}
+    # the AprilTag replay, EKF-SLAM on the card
+    cfg = Config(num_iterations=40).replace(num_landmark_slots=3, num_meas_slots=3)
+    lms = np.array([[2.0, 0.5], [3.0, -0.8], [4.0, 1.2]])
+    cmds, log, pose = hs_replay_log(cfg, lms)
+    state, poses = apriltag.replay_detection_log(
+        cfg, log, cmds, "ekf_slam", T_base_cam=apriltag.se3((0.0, 0.0, 0.0)), device=dev)
+    err = float(np.linalg.norm(poses[-1][:2] - pose[:2]))
+    out["apriltag_replay"] = dict(ticks=len(log), landmarks=int(state.M[0]),
+                                  final_err_m=err)
+    if err > 0.05 or int(state.M[0]) < 2:
+        raise AssertionError(f"host side: the AprilTag replay: {out['apriltag_replay']}")
+
+    # a checkpoint of 4 worlds' per-tick EKF-SLAM run at 20 ticks, saved on
+    # the card, restored into a template on the CPU, both resumed 20 ticks
+    cfg = Config(num_iterations=40)
+    lms4, cmds4 = mc_inputs(cfg, 4, 3, torch.device("cpu"))
+    noise = philox.philox_noise_reference(3, 40, lms4.shape[1], 4)
+    step = make_step(cfg)
+    carry = init_carry(cfg, lms4.to(dev), lms4.shape[1])
+    for t in range(20):
+        carry, _ = step(carry, cmds4[:, t].to(dev), noise[t].T.to(dev), t)
+    path = HS_OUT / "checkpoint.npz"
+    ckpt.save(str(path), carry)
+    like = ckpt.tree_map(carry, lambda x: x.cpu())
+    back = ckpt.restore(str(path), like)
+    same = all(torch.equal(a, b) for a, b in zip(ckpt.leaves(back), ckpt.leaves(like)))
+    on_cpu = all(x.device.type == "cpu" for x in ckpt.leaves(back))
+    step_h = make_step(cfg)
+    for t in range(20, 40):
+        carry, _ = step(carry, cmds4[:, t].to(dev), noise[t].T.to(dev), t)
+        back, _ = step_h(back, cmds4[:, t], noise[t].T, t)
+    d = float((carry.primary.x.cpu() - back.primary.x).abs().max())
+    out["checkpoint"] = dict(worlds=4, saved_at_tick=20, resumed_ticks=20,
+                             restored_equal=same, restored_on_cpu=on_cpu,
+                             leaves=len(ckpt.leaves(back)),
+                             resumed_max_abs_diff_x=d, tolerance=PT_CARD_TOL[1])
+    if not (same and on_cpu) or d > PT_CARD_TOL[1]:
+        raise AssertionError(f"host side: the checkpoint: {out['checkpoint']}")
+
+    # the recorder: a small pose-graph study's CSVs on the card, then the
+    # bar charts (``cli bar_graphs``, matplotlib); where matplotlib is
+    # absent, the charts' means as ``bar_chart`` computes them, from the CSVs
+    data, plots = HS_OUT / "data", HS_OUT / "plots" / "err_comparisons"
+    run = data / "naive_low_noise_iter"
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["monte_carlo", "--filter", "pose_graph", "--batch", "4", "--steps",
+                  str(HS_SHORT_T), "--runs-dir", str(run)])
+        if viewer_name == "agg":
+            cli.main(["bar_graphs", "--data-dir", str(data), "--plots-dir", str(plots)])
+    pgs = recorder.read_errs(str(run / "pose_graph_result.csv"))
+    naive = recorder.read_errs(str(run / "naive.csv"))
+    chart = plots / "naive_low_noise_iter.png"
+    out["recorder"] = dict(study_s=time.perf_counter() - t0, worlds=len(pgs),
+                           pgs_mean_m=float(np.mean(pgs)), naive_mean_m=float(np.mean(naive)),
+                           bar_charts="png" if viewer_name == "agg" else "means",
+                           chart_bytes=chart.stat().st_size if chart.exists() else 0)
+    if len(pgs) != 4 or not np.isfinite(pgs + naive).all() or (
+            out["recorder"]["bar_charts"] == "png" and not chart.exists()):
+        raise AssertionError(f"host side: the recorder: {out['recorder']}")
+    return out
+
+
+def host_side_checks(dev):
+    """The host-side phase (a side check, 2 CPU threads): the native
+    library's build, the demos through ``cli.run_demo`` and
+    ``cli.run_sim_base`` on the card, each timed with its launches counted
+    (Philox once a run); the EKF-SLAM demo on the CPU; goal pursuit with
+    async replans; Philox at a single world; the tools. The card against
+    the CPU runs beside it (``host_side_vs_cpu_checks``)."""
+    from live_ekf_slam_tpu_torch import cli, native
+
+    import shutil
+
+    torch.set_num_threads(2)
+    shutil.rmtree(HS_OUT, ignore_errors=True)  # the CSVs append: start empty
+    HS_OUT.mkdir(parents=True)
+    viewer, viewer_name = hs_viewer()
+    native.load()
+    build_s = native.build_seconds
+
+    # Philox at a demo's shape, one world: (1000, 48, 1)
+    shape = (1, HS_RESULTS["ekf_slam"], Config().map.num_landmarks, 1, dev)
+    nz, nz_ref = philox.philox_noise(*shape), philox.philox_noise_reference(*shape)
+    ph = dict(shape=list(nz.shape), bitwise_equal=bool(torch.equal(nz, nz_ref)),
+              max_abs_err=float((nz - nz_ref).abs().max()))
+    emit("host_side_philox", **ph)
+    if not ph["bitwise_equal"]:
+        raise AssertionError(f"host side: Philox at one world: {ph}")
+
+    demos = []
+    for filt, steps in HS_RESULTS.items():
+        cfg = hs_config("filter_demo_results_only", filt, steps)
+        demos.append(hs_demo(cfg, dev, False, viewer, "results_only"))
+        emit("host_side_demo", **demos[-1])
+    # the same EKF-SLAM demo on the CPU, the plain versions
+    cfg = hs_config("filter_demo_results_only", "ekf_slam", HS_RESULTS["ekf_slam"])
+    cpu_line = hs_demo(cfg, torch.device("cpu"), False, FrameRecorder, "cpu")
+    emit("host_side_demo", **cpu_line)
+    for filt in HS_LIVE:
+        cfg = hs_config("filter_demo_live", filt, HS_LIVE_T)
+        cfg = cfg.replace(plotter=dataclasses.replace(cfg.plotter, async_viz=True))
+        demos.append(hs_demo(cfg, dev, True, viewer, "live_async"))
+        emit("host_side_demo", **demos[-1])
+
+    # one EKF-SLAM demo tick under the profiler: kernels, device busy share
+    cfg = hs_config("filter_demo_results_only", "ekf_slam", 10)
+    cfg, _, _, lms, lms_t, cmds, noise = cli._one_world(cfg, 0, dev, None, None)
+    carry = init_carry(cfg, lms_t, lms.shape[0])
+    step = make_step(cfg, collect="poses")
+    for t in range(5):
+        carry, _ = step(carry, cmds[:, t], noise[t].T, t)
+    one_tick = profiled(lambda: step(carry, cmds[:, 5], noise[5].T, 5))
+
+    # sim_base in both trajectory modes
+    sims = {}
+    for pre in (True, False):
+        cfg = hs_config("sim_base", "ekf_slam", HS_SHORT_T, precompute_trajectory=pre)
+        t0 = time.perf_counter()
+        view = cli.run_sim_base(cfg, base_dir=str(HS_OUT / f"sim_base_{pre}"),
+                                device=dev, viewer=viewer)
+        torch.cuda.synchronize()
+        sims["tsp" if pre else "goal_pursuit"] = dict(
+            steps=HS_SHORT_T, wall_s=time.perf_counter() - t0,
+            true_pose=[float(v) for v in view.true_hist[-1]]
+            if hasattr(view, "true_hist") else [float(v) for v in view.frames[-1].true_pose])
+
+    # clicked-goal pursuit on building1, the local planner's replans on the
+    # native scheduler's threads
+    cfg = hs_config("filter_demo_live", "ekf_slam", HS_SHORT_T, occ_map_img="building1.png",
+                    precompute_trajectory=False, use_local_planner=True)
+    cfg = cfg.replace(path_planning=dataclasses.replace(cfg.path_planning,
+                                                        async_replan=True))
+    views = []
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        avg = cli.run_demo(cfg, device=dev, viewer=FrameRecorder.into(views))
+    gp = views[0].on_goal.__self__  # run_demo closed its scheduler
+    frames = views[0].frames
+    pursuit = dict(steps=HS_SHORT_T, image=cfg.occ_map_img, wall_s=time.perf_counter() - t0,
+                   avg_err_m=avg, async_replans=gp.async_replans,
+                   async_replans_blocked=gp.async_replans_blocked,
+                   progress_m=float(np.linalg.norm(frames[-1].true_pose[:2]
+                                                   - np.asarray(cfg.init_pose[:2]))))
+    if not gp.async_replans or pursuit["progress_m"] < 0.5:
+        raise AssertionError(f"host side: goal pursuit with async replans: {pursuit}")
+
+    tools = hs_tools(dev, viewer_name)
+    ekf = demos[0]
+    line = dict(nvidia_smi=card(), viewer=viewer_name, native_build_s=build_s,
+                demos=len(demos),
+                ekf_slam_results_only=dict(card_s=ekf["wall_s"], cpu_s=cpu_line["wall_s"],
+                                           card_ms_per_tick=ekf["ms_per_tick"],
+                                           cpu_ms_per_tick=cpu_line["ms_per_tick"],
+                                           avg_err_card_m=ekf["avg_err_m"],
+                                           avg_err_cpu_m=cpu_line["avg_err_m"]),
+                one_tick_ekf_slam=one_tick, sim_base=sims, goal_pursuit=pursuit,
+                frames_dropped={d["filter"]: d["frames_dropped"] for d in demos
+                                if d["async_viz"]},
+                philox_launches=sum(d["launches"].get("philox_noise", 0) for d in demos),
+                solve_launches={k: sum(d["launches"].get(k, 0) for d in demos)
+                                for k in HS_SOLVE},
+                outputs=str(HS_OUT.relative_to(HS_OUT.parent.parent)), **tools)
+    emit("host_side", **line)
+
+
+def host_side_vs_cpu_checks(dev):
+    """The host side's checks against the CPU and the plain versions (a side
+    check of its own, 2 CPU threads, beside ``host_side``, which would
+    otherwise bound the side checks' time): the demos card against CPU and
+    P1 and P2 at one world."""
+    torch.set_num_threads(2)
+    hs_card_vs_cpu(dev)
+    hs_solve_single_world(dev)
+
+
 # The checks whose results nothing later reads, by name, and the processes
 # they run in: the plain versions they wait for are bound by the host (one
 # Python thread issuing small launches), so processes side by side shorten
@@ -2435,6 +2921,8 @@ SIDE_CHECKS = {
        for name in PTPG_RUNS},
     "pose_graph_solvers": lambda dev, n_lm: pose_graph_solvers(dev),
     "closed_loop": lambda dev, n_lm: closed_loop_checks(dev),
+    "host_side": lambda dev, n_lm: host_side_checks(dev),
+    "host_side_vs_cpu": lambda dev, n_lm: host_side_vs_cpu_checks(dev),
     # beside the other side processes: two CPU threads
     **{f"per_tick_card_vs_cpu[{i}]":
        (lambda dev, n_lm, modes=modes: (torch.set_num_threads(2),
@@ -2451,6 +2939,8 @@ SIDE_GROUPS = (
     ("pg_streams_of[naive]",),
     ("pose_graph_solvers",),
     ("closed_loop",),
+    ("host_side",),
+    ("host_side_vs_cpu",),
     ("fused_ukf_rollout[slam]",),
     ("fused_ukf_rollout[loc]",),
     ("fused_ekf_rollout", "pose_stream_main[ekf]"),
@@ -2673,6 +3163,9 @@ def main():
     # ---- 10. the closed loop, run in its side process: once per run
     philox_launches += next(line["launches"]["philox_noise"] for line in LINES
                             if line["phase"] == "closed_loop_path")
+    # ---- 11. the host side's demos, run in their side process: once a run
+    philox_launches += next(line["philox_launches"] for line in LINES
+                            if line["phase"] == "host_side")
 
     # the standalone Philox kernel: the rollouts draw in-kernel, the
     # pose-graph path launches it once per world chunk, the per-tick path
@@ -2691,16 +3184,20 @@ def main():
     nbytes = 4.0 * nz.numel()
     # and at the closed loop's shape (its side process held it bit for bit)
     cl_nz = next(line for line in LINES if line["phase"] == "closed_loop_philox")
+    # and at a single world's demo shape (its side process, bit for bit)
+    hs_nz = next(line for line in LINES if line["phase"] == "host_side_philox")
     err = float((nz - nz_ref).abs().max())
     record.append({
         "name": "philox_noise", "route": "cuda",
         "source": SRC + "philox_noise.cu",
         "replaces": "live_ekf_slam_tpu/ops/fused_rollout.py:160",
         "launches": philox_launches,
-        "max_abs_err": max(err, cl_nz["max_abs_err"]),
+        "max_abs_err": max(err, cl_nz["max_abs_err"], hs_nz["max_abs_err"]),
         "max_abs_err_main_shape": err,
         "max_abs_err_closed_loop_shape": cl_nz["max_abs_err"],
         "closed_loop_shape": cl_nz["shape"],
+        "max_abs_err_host_side_shape": hs_nz["max_abs_err"],
+        "host_side_shape": hs_nz["shape"],
         "ms": e0.elapsed_time(e1), "plain_ms": p_ms,
         "bound_ms": 1e3 * nbytes / PEAK_BYTES, "bound_by": "bytes",
         "library_ms": None, "bytes": nbytes,

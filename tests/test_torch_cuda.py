@@ -560,3 +560,28 @@ def test_closed_loop_on_the_card_matches_the_cpu(cuda_device):
     # replan or pare that differs between the two (ROADMAP F15)
     line = chip_smoke.cl_card_vs_cpu(cuda_device, 16, 100, 3)
     assert not line["worlds_failed"] and not line["nan_worlds"]
+
+
+def test_checkpoint_saved_on_the_card_resumes_on_the_cpu(cuda_device, tmp_path):
+    from live_ekf_slam_tpu_torch.eval.runner import init_carry, make_step
+    from live_ekf_slam_tpu_torch.utils import checkpoint as ckpt
+
+    cfg = Config(num_iterations=20)
+    lms, cmds = mc_inputs(cfg, 4, 3, torch.device("cpu"))
+    noise = philox.philox_noise_reference(3, 20, lms.shape[1], 4)
+    step = make_step(cfg)
+    carry = init_carry(cfg, lms.to(cuda_device), lms.shape[1])
+    for t in range(10):
+        carry, _ = step(carry, cmds[:, t].to(cuda_device), noise[t].T.to(cuda_device), t)
+    path = str(tmp_path / "ck.npz")
+    ckpt.save(path, carry)
+    like = ckpt.tree_map(carry, lambda x: x.cpu())
+    back = ckpt.restore(path, like)
+    for a, b in zip(ckpt.leaves(back), ckpt.leaves(like)):
+        assert a.device.type == "cpu" and torch.equal(a, b)
+    on_card = ckpt.restore(path, carry)
+    assert all(x.device.type == "cuda" for x in ckpt.leaves(on_card))
+    for t in range(10, 20):
+        carry, _ = step(carry, cmds[:, t].to(cuda_device), noise[t].T.to(cuda_device), t)
+        back, _ = step(back, cmds[:, t], noise[t].T, t)
+    torch.testing.assert_close(back.primary.x, carry.primary.x.cpu(), rtol=0, atol=1e-3)

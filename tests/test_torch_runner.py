@@ -249,7 +249,11 @@ def test_port_runs_its_slice_without_jax():
     # EKF-SLAM, the pose-graph streams path in both solve modes, the
     # per-tick pose graph (UKF-SLAM secondary, iterative) and the host-loop
     # run_iterative_pgs, the closed loop on the igvc1 map and every image
-    # map; jax, jaxlib, flax, Pillow and the JAX package cannot be imported,
+    # map, and the host side: sim_base in both trajectory modes (clicked-goal
+    # pursuit on the native library), filter_demo_results_only for EKF-SLAM
+    # and the pose graph, and the async demo through the native frame ring,
+    # each with the frame recorder for its viewer (matplotlib imports
+    # Pillow); jax, jaxlib, flax, Pillow and the JAX package cannot be imported,
     # and no module of theirs may be loaded (split on "." so that the
     # port's own name, live_ekf_slam_tpu_torch, does not match)
     code = (
@@ -315,6 +319,29 @@ def test_port_runs_its_slice_without_jax():
         "cfg = preset('igvc1', num_iterations=10).replace(num_landmark_slots=37)\n"
         "m, fin, outs = run_closed_loop(cfg, 2, device='cpu', collect=True)\n"
         "assert m['err_ekf_slam'].shape == (2,) and outs[0].shape == (2, 10, 3)\n"
+        "import live_ekf_slam_tpu_torch.eval.recorder, live_ekf_slam_tpu_torch.native\n"
+        "import live_ekf_slam_tpu_torch.planning.rrt, live_ekf_slam_tpu_torch.viz.artists\n"
+        "import live_ekf_slam_tpu_torch.hw.apriltag, live_ekf_slam_tpu_torch.utils.checkpoint\n"
+        "from live_ekf_slam_tpu_torch import cli\n"
+        "from live_ekf_slam_tpu_torch.viz.live import FrameRecorder\n"
+        "cfg = preset('sim_base', Config(num_iterations=6))\n"
+        "for pre in (True, False):\n"
+        "    v = cli.run_sim_base(cfg.replace(precompute_trajectory=pre), device='cpu',\n"
+        "                         viewer=FrameRecorder)\n"
+        "    assert len(v.frames) == 6\n"
+        "for f in ('ekf_slam', 'pose_graph'):\n"
+        "    cfg = preset('filter_demo_results_only', Config(num_iterations=6))\n"
+        "    cfg = cfg.replace(filter=f, pose_graph=dataclasses.replace(\n"
+        "        cfg.pose_graph, bulk_gn_iters=2, bulk_cg_iters=2))\n"
+        "    views = []\n"
+        "    avg = cli.run_demo(cfg, live=False, device='cpu',\n"
+        "                       viewer=FrameRecorder.into(views))\n"
+        "    assert avg == avg and len(views[0].frames) == 1\n"
+        "cfg = preset('filter_demo_live', Config(num_iterations=6))\n"
+        "cfg = cfg.replace(plotter=dataclasses.replace(cfg.plotter, async_viz=True))\n"
+        "views = []\n"
+        "cli.run_demo(cfg, device='cpu', viewer=FrameRecorder.into(views))\n"
+        "assert views[0].frames[-1].timestep == 6\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)\n"
         "assert not bad, bad\n"
         "print('ok')\n"
