@@ -44,7 +44,18 @@ their plain versions at one world (these two in ``host_side_vs_cpu``, a
 process of their own), Philox bit for bit at one world, the AprilTag
 replay, a checkpoint saved on the card
 and resumed on the CPU, and a pose-graph study's CSVs with the bar charts
-(PNGs and CSVs under ``chiprun_out/host_side``). Those checks feed nothing
+(PNGs and CSVs under ``chiprun_out/host_side``). The multi-device layer
+(``parallel/mesh``) shards K1 and K4 (SLAM and Loc) at the main path's
+inputs over a mesh of every card present (the side check
+``multi_device``: each sharded call's launches counted, every shard bit
+for bit its single launch at its shard seed, injected noise sharded
+against unsharded bit for bit; ``mean_over_worlds``, the per-tick
+EKF-SLAM step through ``sharded_step`` against the unsharded step at 4096
+x 20, a sharded checkpoint round trip, the weak-scaling rows of
+``tools/weak_scaling``) and, after the main path, over a virtual mesh of
+4 shards on cuda:0, a stream each (the same checks, shard 1 also against
+the plain version and bit for bit under -fmad=false, and each sharded
+call timed against its one-device launch). Those checks feed nothing
 later and wait mostly for the host, so they run in processes side by side (``python3 chip_smoke.py --side-checks NAME ...`` is
 one of them). Then it drives the main paths, alone on the card.
 ``run_monte_carlo`` at 4096 worlds, T = 1000, N = 20
@@ -117,6 +128,7 @@ from live_ekf_slam_tpu_torch.eval.runner import (
     rollout,
     run_monte_carlo,
     run_monte_carlo_pg_streams,
+    sync_clock,
 )
 from live_ekf_slam_tpu_torch.models import posegraph as pg
 from live_ekf_slam_tpu_torch.ops import _build, philox
@@ -125,12 +137,14 @@ from live_ekf_slam_tpu_torch.ops import fused_ukf as fu
 from live_ekf_slam_tpu_torch.ops import micro_ops as mo
 from live_ekf_slam_tpu_torch.ops.kernel_math import atan2, wrap
 from live_ekf_slam_tpu_torch.ops.precision import pin_fp32
+from live_ekf_slam_tpu_torch.parallel import mesh as pmesh
 from live_ekf_slam_tpu_torch.planning import astar as p_astar
 from live_ekf_slam_tpu_torch.sim.streams import naive_deadreckon, sim_streams
 from live_ekf_slam_tpu_torch.sim.world import init_world, propagate_truth, sense
 from live_ekf_slam_tpu_torch.utils.geometry import wrap_angle
+from live_ekf_slam_tpu_torch.utils import checkpoint as ckpt
 from live_ekf_slam_tpu_torch.viz.live import FrameRecorder
-from live_ekf_slam_tpu_torch.tools import micro_downdate, micro_ukf, micro_ukf_probe
+from live_ekf_slam_tpu_torch.tools import micro_downdate, micro_ukf, micro_ukf_probe, weak_scaling
 from live_ekf_slam_tpu_torch.tools._common import DIM as MICRO_DIM
 from live_ekf_slam_tpu_torch.tools.kernel_ab import (
     factor_kernel_ms,
@@ -2717,7 +2731,6 @@ def hs_tools(dev, viewer_name: str) -> dict:
     from live_ekf_slam_tpu_torch import cli
     from live_ekf_slam_tpu_torch.eval import recorder
     from live_ekf_slam_tpu_torch.hw import apriltag
-    from live_ekf_slam_tpu_torch.utils import checkpoint as ckpt
 
     out = {}
     # the AprilTag replay, EKF-SLAM on the card
@@ -2897,6 +2910,283 @@ def host_side_vs_cpu_checks(dev):
     hs_solve_single_world(dev)
 
 
+# ---- the multi-device layer (parallel/mesh): the sharded rollouts, the
+# reduction, the sharded per-tick step, weak scaling and sharded checkpoints,
+# on a mesh of every card present and on a virtual mesh of MD_SHARDS shards
+# on cuda:0 (a stream each), at the main path's inputs
+MD_SHARDS = 4
+MD_PER_TICK_STEPS = 20                  # ticks of the sharded per-tick step
+MD_WEAK = dict(worlds_per_device=64, steps=100)  # JAX's weak-scaling defaults
+MD_WEAK_VIRTUAL = (1, 2, 4)
+MD_OUT = Path(__file__).resolve().parent / "chiprun_out" / "multi_device"
+# kernel -> (filter, sharded wrapper, single rollout, keywords)
+MD_KERNELS = {
+    "fused_ekf_rollout": ("ekf_slam", fr.fused_ekf_rollout_sharded,
+                          fr.fused_ekf_rollout, {}),
+    "fused_ukf_rollout[slam]": ("ukf_slam", fu.fused_ukf_rollout_sharded,
+                                fu.fused_ukf_rollout, {"slam": True}),
+    "fused_ukf_rollout[loc]": ("ukf_loc", fu.fused_ukf_rollout_sharded,
+                               fu.fused_ukf_rollout, {"slam": False}),
+}
+
+
+def md_rollout_checks(kname: str, mesh, cfg, lms, cmds, seed: int,
+                      plain_worlds: int) -> dict:
+    """One rollout kernel sharded over ``mesh``: its launches counted (one a
+    shard, no other kernel), every shard bit for bit its slice's single
+    launch at ``shard_seed(seed, d)`` on the inputs' device, with injected
+    noise the sharded run bit for bit the unsharded one and, unless
+    ``plain_worlds`` is 0, shard 1 (shard 0 on a one-shard mesh) on its
+    first ``plain_worlds`` worlds within TOL_MAIN of the plain version and
+    bit for bit the -fmad=false build."""
+    filt, sharded, single, kw = MD_KERNELS[kname]
+    cfg = cfg.replace(filter=filt)
+    b, t_total, n_lm = lms.shape[0], cmds.shape[1], lms.shape[1]
+    k = b // mesh.size
+    zero_counts()
+    out = sharded(cfg, lms, cmds, seed, mesh, **kw)
+    torch.cuda.synchronize()
+    launches = counts()
+    want = {name: mesh.size * int(name == kname) for name in launches}
+    if launches != want:
+        raise AssertionError(f"{kname} sharded: launched {launches}, not "
+                             f"{mesh.size} x {kname}")
+    for d in range(mesh.size):
+        one = single(cfg, lms[d * k:(d + 1) * k].contiguous(),
+                     cmds[d * k:(d + 1) * k].contiguous(),
+                     pmesh.shard_seed(seed, d), **kw)
+        bitwise({n: v[d * k:(d + 1) * k] for n, v in out.items()}, one,
+                f"{kname} shard {d} against its single launch")
+    nz = philox.philox_noise(seed, t_total, n_lm, b, lms.device)
+    bitwise(sharded(cfg, lms, cmds, seed, mesh, noise=nz, **kw),
+            single(cfg, lms, cmds, seed, noise=nz, **kw),
+            f"{kname} sharded against unsharded with injected noise")
+    line = dict(kernel=kname, shards=mesh.size, launches=launches[kname],
+                shards_bitwise_single=True, injected_noise_bitwise_unsharded=True,
+                max_abs_err=None, no_fma_bitwise_equal=None)
+    if not plain_worlds:
+        return line
+    d = min(1, mesh.size - 1)
+    lw = lms[d * k:d * k + plain_worlds].contiguous()
+    cw = cmds[d * k:d * k + plain_worlds].contiguous()
+    seed_d = pmesh.shard_seed(seed, d)
+    noise = philox.philox_noise_reference(seed_d, t_total, n_lm, plain_worlds,
+                                          lms.device)
+    p, exempt = plain_run(cfg, lw, cw, noise, TOL_MAIN)
+    kd = {n: v[d * k:d * k + plain_worlds] for n, v in out.items()}
+    errs = compare(kd, p, TOL_MAIN, exempt)
+    with _build.without_fma():
+        same = bitwise(single(cfg, lw, cw, seed_d, **kw), p,
+                       f"{kname} shard {d} -fmad=false")
+    worst = max(TOL_MAIN, key=lambda o: errs[o]["max_abs_err"])
+    line.update(plain_shard=d, plain_seed=seed_d, plain_worlds=plain_worlds,
+                errors=errs, max_abs_err=errs[worst]["max_abs_err"],
+                max_abs_err_output=worst, no_fma_bitwise_equal=all(same.values()))
+    return line
+
+
+def md_per_tick(dev, mesh, lms, cmds, steps: int) -> dict:
+    """The per-tick EKF-SLAM step (``make_step``) through ``sharded_step``
+    on ``mesh`` against the unsharded step on the same worlds and Philox
+    draws, ``steps`` ticks each, host-clock timed from the second tick on
+    (the first warms both up): the largest gaps, the
+    average error held to PT_CARD_TOL per world and the alive masks equal
+    (batched products may take another cuBLAS algorithm at another batch
+    size)."""
+    n_lm = lms.shape[1]
+    cfg = Config(num_iterations=steps).replace(filter="ekf_slam")
+    cmds = cmds[:, :steps].contiguous()
+    noise = philox.philox_noise(0, steps, n_lm, lms.shape[0], dev)
+    step = make_step(cfg)
+    sstep = pmesh.sharded_step(step, mesh)
+    c_sh = pmesh.shard_batch(cmds, mesh)
+    n_sh = pmesh.shard_batch(noise, pmesh.world_sharding(mesh, 2))
+    carry, _ = step(init_carry(cfg, lms, n_lm), cmds[:, 0], noise[0].T, 0)
+    sh, _ = sstep(pmesh.shard_batch(init_carry(cfg, lms, n_lm), mesh),
+                  c_sh.map(lambda x: x[:, 0]), n_sh.map(lambda x: x[0].T), 0)
+    t0 = sync_clock(dev)  # each timed from its second tick on
+    for t in range(1, steps):
+        carry, _ = step(carry, cmds[:, t], noise[t].T, t)
+    t1 = sync_clock(dev)
+    for t in range(1, steps):
+        sh, _ = sstep(sh, c_sh.map(lambda x: x[:, t]),
+                      n_sh.map(lambda x: x[t].T), t)
+    fin = pmesh.gather(sh)
+    t3 = sync_clock(dev)
+    avg = lambda c: c.err_sum_primary / c.ticks_primary.clamp_min(1).float()
+    a, r = avg(fin), avg(carry)
+    atol, rtol = PT_CARD_TOL
+    bad = ~((a - r).abs() <= atol + rtol * r.abs())
+    same_alive = bool(torch.equal(fin.alive_primary, carry.alive_primary))
+    line = dict(shards=mesh.size, worlds=lms.shape[0], steps=steps,
+                bitwise_equal=all(torch.equal(x, y) for x, y in
+                                  zip(ckpt.leaves(fin), ckpt.leaves(carry))),
+                max_abs_diff_avg_err=float((a - r).abs().max()),
+                max_abs_diff_x=float((fin.primary.x - carry.primary.x).abs().max()),
+                max_abs_diff_P=float((fin.primary.P - carry.primary.P).abs().max()),
+                worlds_out_of_tol=int(bad.sum()), alive_equal=same_alive,
+                tolerance=list(PT_CARD_TOL),
+                unsharded_ms_a_tick=1e3 * (t1 - t0) / (steps - 1),
+                sharded_ms_a_tick=1e3 * (t3 - t1) / (steps - 1),
+                mean_err_m=float(pmesh.mean_over_worlds(
+                    pmesh.Shards([c.err_sum_primary for c in sh.parts],
+                                 sh.placement), mesh)) / steps)
+    if bad.any() or not same_alive or not np.isfinite(line["mean_err_m"]):
+        raise AssertionError(f"sharded per-tick step: {line}")
+    return line
+
+
+def md_checkpoint(mesh, carry, path: Path) -> dict:
+    """A sharded carry saved and restored (``save_sharded`` /
+    ``restore_sharded``), bit for bit and on its shards' devices."""
+    path.parent.mkdir(parents=True, exist_ok=True)
+    ckpt.save_sharded(str(path), carry)
+    back = ckpt.restore_sharded(str(path), carry)
+    same = all(torch.equal(x, y) and x.device == y.device
+               for p, q in zip(carry.join().parts, back.parts)
+               for x, y in zip(ckpt.leaves(p), ckpt.leaves(q)))
+    line = dict(shards=mesh.size, leaves=len(ckpt.leaves(back.parts[0])),
+                bytes=path.stat().st_size, bitwise_equal=same)
+    path.unlink()
+    if not same:
+        raise AssertionError(f"sharded checkpoint: {line}")
+    return line
+
+
+def md_timing(dev, base, lms, cmds) -> dict:
+    """Each sharded rollout on the virtual mesh against its one-device
+    launch at the main path's inputs, in turns: CUDA-event and host-clock
+    milliseconds (median of REPS after a warm-up; the sharded call includes
+    placing the inputs and gathering the outputs)."""
+    mesh = pmesh.virtual_mesh(MD_SHARDS, dev)
+    out = {}
+    for kname, (filt, sharded, single, kw) in MD_KERNELS.items():
+        cfg = base.replace(filter=filt)
+        calls = {"sharded": lambda: sharded(cfg, lms, cmds, 0, mesh, **kw),
+                 "single": lambda: single(cfg, lms, cmds, 0, **kw)}
+        ev, host = {}, {}
+        for name in ("single", "sharded", "sharded", "single"):
+            ev.setdefault(name, []).append(timed_ms(calls[name]))
+            hs = []
+            for _ in range(REPS):
+                t0 = sync_clock(dev)
+                calls[name]()
+                hs.append(1e3 * (sync_clock(dev) - t0))
+            host.setdefault(name, []).append(float(np.median(hs)))
+        out[kname] = {f"{name}_ms": ev[name] for name in ev}
+        out[kname].update({f"{name}_host_ms": host[name] for name in host})
+    return out
+
+
+def multi_device_checks(dev, n_lm: int):
+    """The multi-device phase's side check: K1 and K4 (SLAM and Loc)
+    sharded over the real mesh of every card at the main path's inputs,
+    the reduction on it and on the virtual mesh of MD_SHARDS shards on
+    cuda:0, the sharded per-tick step, a sharded checkpoint and the
+    weak-scaling rows (beside the other side processes); a
+    ``multi_device_side`` line that ``multi_device_path`` completes."""
+    t_start = time.perf_counter()
+    base = Config(num_iterations=MAIN["steps"])
+    lms, cmds = mc_inputs(base, MAIN["batch"], 0, dev, shared=True, relabel=True)
+    count = torch.cuda.device_count()
+    real = pmesh.make_mesh()
+    if count > 1 and real.virtual:
+        raise AssertionError(f"{count} cards but a virtual mesh: {real}")
+    virtual = pmesh.virtual_mesh(MD_SHARDS, dev)
+    seconds, t0 = {}, time.perf_counter()
+    lines = {}
+    for kname in MD_KERNELS:
+        line = md_rollout_checks(kname, real, base, lms, cmds, 0, 0)
+        emit("multi_device_rollout", mesh="real",
+             devices=[str(x) for x in real.devices], **line)
+        lines[kname] = line
+    seconds["real_mesh_rollouts"], t0 = time.perf_counter() - t0, time.perf_counter()
+    # the reduction: the EKF's per-world error sums on both meshes
+    err = fr.fused_ekf_rollout(base, lms, cmds, 0)["err_sum"]
+    mean_rel = {}
+    for mesh_name, mesh in (("real", real), ("virtual", virtual)):
+        m = pmesh.mean_over_worlds(pmesh.shard_batch(err, mesh), mesh)
+        mean_rel[mesh_name] = float(((m.to(dev) - err.mean()) / err.mean()).abs())
+        if not mean_rel[mesh_name] <= 1e-6:
+            raise AssertionError(f"mean_over_worlds on the {mesh_name} mesh: "
+                                 f"relative gap {mean_rel[mesh_name]}")
+    per_tick = md_per_tick(dev, virtual, lms, cmds, MD_PER_TICK_STEPS)
+    emit("multi_device_per_tick", **per_tick)
+    cfg = Config(num_iterations=2)
+    carry = pmesh.shard_batch(init_carry(cfg, lms, n_lm), virtual)
+    checkpoint = md_checkpoint(virtual, carry, MD_OUT / "sharded.npz")
+    seconds["reduction_per_tick_checkpoint"], t0 = (time.perf_counter() - t0,
+                                                    time.perf_counter())
+    rows = []
+    for n in MD_WEAK_VIRTUAL:
+        rows.append(weak_scaling.run_row(n, MD_WEAK["worlds_per_device"],
+                                         MD_WEAK["steps"], device=dev))
+    rows.append(weak_scaling.run_row(count, MD_WEAK["worlds_per_device"],
+                                     MD_WEAK["steps"], real=True))
+    for row in rows:
+        emit("weak_scaling", beside_other_processes=True, **row)
+        if not np.isfinite(row["mean_err"]):
+            raise AssertionError(f"weak scaling: {row}")
+    seconds["weak_scaling"] = time.perf_counter() - t0
+    emit("multi_device_side", device_count=count,
+         cross_device=len(real.distinct_devices) > 1,
+         real_devices=[str(x) for x in real.devices],
+         launches={f"real:{k}": v["launches"] for k, v in lines.items()},
+         shards_bitwise_single=all(v["shards_bitwise_single"] for v in lines.values()),
+         injected_noise_bitwise_unsharded=all(
+             v["injected_noise_bitwise_unsharded"] for v in lines.values()),
+         mean_over_worlds_rel_gap=mean_rel,
+         per_tick_max_abs_diff_avg_err=per_tick["max_abs_diff_avg_err"],
+         per_tick_max_abs_diff_x=per_tick["max_abs_diff_x"],
+         per_tick_bitwise_equal=per_tick["bitwise_equal"],
+         per_tick_ms_a_tick={"sharded": per_tick["sharded_ms_a_tick"],
+                             "unsharded": per_tick["unsharded_ms_a_tick"]},
+         checkpoint_bitwise_equal=checkpoint["bitwise_equal"],
+         weak_scaling_wall_s={f"{r['mode']}:{r['devices']}": r["wall_s"] for r in rows},
+         part_seconds=seconds, seconds=time.perf_counter() - t_start)
+
+
+def multi_device_path(dev, base, lms, cmds, smi: str) -> dict:
+    """The multi-device phase in the main process, alone on the card: K1
+    and K4 (SLAM and Loc) sharded over the virtual mesh of MD_SHARDS
+    shards, each with its launches counted, every shard against its single
+    launch, shard 1 against the plain version (host-bound: ~10x slower
+    beside the side processes, so here) and under -fmad=false, injected
+    noise; then the sharded calls timed (``md_timing``). Emits the
+    ``multi_device`` line with the side check's results; returns, by
+    kernel, the path's launches and largest error against the plain
+    version."""
+    side = next(line for line in LINES if line["phase"] == "multi_device_side")
+    virtual = pmesh.virtual_mesh(MD_SHARDS, dev)
+    lines = {}
+    for kname in MD_KERNELS:
+        line = md_rollout_checks(kname, virtual, base, lms, cmds, 0, PLAIN_WORLDS)
+        emit("multi_device_rollout", mesh="virtual",
+             devices=[str(x) for x in virtual.devices], **line)
+        lines[kname] = line
+    timing = md_timing(dev, base, lms, cmds)
+    emit("multi_device_timing", shards=MD_SHARDS, **MAIN, nvidia_smi=smi,
+         kernels=timing)
+    launches = dict(side["launches"])
+    launches.update({f"virtual:{k}": v["launches"] for k, v in lines.items()})
+    summary = {k: v for k, v in side.items() if k not in ("phase", "launches", "seconds")}
+    summary.update(
+        virtual_shards=MD_SHARDS, worlds=MAIN["batch"], steps=MAIN["steps"],
+        launches=launches,
+        max_abs_err={f"virtual:{k}": v["max_abs_err"] for k, v in lines.items()},
+        shards_bitwise_single=side["shards_bitwise_single"] and all(
+            v["shards_bitwise_single"] for v in lines.values()),
+        injected_noise_bitwise_unsharded=side["injected_noise_bitwise_unsharded"]
+        and all(v["injected_noise_bitwise_unsharded"] for v in lines.values()),
+        no_fma_bitwise_equal=all(v["no_fma_bitwise_equal"] for v in lines.values()),
+        sharded_ms={k: t["sharded_ms"] for k, t in timing.items()},
+        single_ms={k: t["single_ms"] for k, t in timing.items()},
+        side_seconds=side["seconds"])
+    emit("multi_device", **summary)
+    return {k: (launches[f"real:{k}"] + v["launches"], v["max_abs_err"])
+            for k, v in lines.items()}
+
+
 # The checks whose results nothing later reads, by name, and the processes
 # they run in: the plain versions they wait for are bound by the host (one
 # Python thread issuing small launches), so processes side by side shorten
@@ -2923,6 +3213,7 @@ SIDE_CHECKS = {
     "closed_loop": lambda dev, n_lm: closed_loop_checks(dev),
     "host_side": lambda dev, n_lm: host_side_checks(dev),
     "host_side_vs_cpu": lambda dev, n_lm: host_side_vs_cpu_checks(dev),
+    "multi_device": multi_device_checks,
     # beside the other side processes: two CPU threads
     **{f"per_tick_card_vs_cpu[{i}]":
        (lambda dev, n_lm, modes=modes: (torch.set_num_threads(2),
@@ -2941,6 +3232,7 @@ SIDE_GROUPS = (
     ("closed_loop",),
     ("host_side",),
     ("host_side_vs_cpu",),
+    ("multi_device",),
     ("fused_ukf_rollout[slam]",),
     ("fused_ukf_rollout[loc]",),
     ("fused_ekf_rollout", "pose_stream_main[ekf]"),
@@ -3140,6 +3432,14 @@ def main():
             "plain_worlds": plain_worlds, "plain_steps": MAIN["steps"],
         })
     emit("gate_counts", **MAIN, **gates)
+    # the multi-device path: the real mesh checked in its side process,
+    # the virtual mesh here; its launches and errors join K1's and K4's
+    # records
+    md = multi_device_path(dev, base, lms, cmds, smi)
+    for r in record:
+        if r["name"] in md:
+            r["launches_multi_device"], r["max_abs_err_multi_device"] = md[r["name"]]
+            r["max_abs_err"] = max(r["max_abs_err"], r["max_abs_err_multi_device"])
     kernel_ms = {KERNELS[r["name"]][0]: r["ms"] for r in record}
     phase_tick_clocks(lms, cmds, n_lm, kernel_ms)
 

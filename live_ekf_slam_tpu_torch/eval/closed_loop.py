@@ -12,6 +12,15 @@ here; its ``build_closed_loop_segmented`` (a cut of that scan into device
 calls short enough for a TPU watchdog) has no counterpart, since the host
 loop gives the same results.
 
+``run_closed_loop_sharded`` runs the blocks on a world mesh
+(``parallel/mesh``): ``BlockStep`` through ``sharded_step``, the occupancy
+grid replicated, the carry and the noise split over worlds. No step
+decides for the batch: the A* relaxation stops once every world of its
+batch has converged, a fixed point that more sweeps do not move. So a
+world's result does not depend on its shard, but for how a device rounds
+a value by its place in a tensor (on the CPU torch.atan2 does:
+``tests/test_torch_closed_loop_sharded.py``).
+
 The simulator's draws are the per-tick path's injected layout, (T, 2N+8, B)
 for the map's N landmarks, by default the Philox stream of ``seed``
 (``ops/philox.philox_noise``: the CUDA kernel on the card, its plain version
@@ -36,6 +45,7 @@ from live_ekf_slam_tpu_torch.eval.runner import (
 )
 from live_ekf_slam_tpu_torch.ops.philox import philox_noise
 from live_ekf_slam_tpu_torch.ops.precision import pin_fp32
+from live_ekf_slam_tpu_torch.parallel import mesh as pmesh
 from live_ekf_slam_tpu_torch.planning import astar as p_astar
 from live_ekf_slam_tpu_torch.planning import pure_pursuit as pp
 from live_ekf_slam_tpu_torch.sim import maps as sim_maps
@@ -214,3 +224,38 @@ def run_closed_loop(cfg, batch: int = 1, seed: int = 0, *, device=None,
         "final_true_pose": final.world.pose.cpu().numpy(),
     }
     return metrics, final, outs
+
+
+def run_closed_loop_sharded(cfg, mesh, batch: int = 1, seed: int = 0):
+    """``run_closed_loop`` with its worlds sharded over ``mesh``
+    (``parallel.mesh.Mesh``): the same worlds (the carry and the Philox
+    draws of ``seed`` made on the mesh's first device, then split), each
+    shard's blocks on its own device and stream. Returns (metrics, final
+    carry gathered on the mesh's first device)."""
+    pin_fp32()
+    device = mesh.devices[0]
+    period = cfg.path_planning.replan_period
+    t_total = (cfg.num_iterations // period) * period
+    carry = init_closed_loop(cfg, batch, device, seed)
+    noise = philox_noise(seed, t_total, carry.world.landmarks.shape[1], batch,
+                         device)
+    occ = pmesh.shard_batch(occupancy(cfg, device), pmesh.replicated(mesh))
+    noise = pmesh.shard_batch(noise, pmesh.world_sharding(mesh, 2))
+
+    def block(c, nz, grid, replan):
+        step = BlockStep(cfg, grid)
+        return step.ticks(step.replan(c) if replan else c, nz)[0]
+
+    run = pmesh.sharded_step(block, mesh)
+    state = pmesh.shard_batch(carry, mesh)
+    for i in range(t_total // period):
+        part = noise.map(lambda x, i=i: x[i * period:(i + 1) * period])
+        # every tick count is 0 before the first block: its replan would
+        # keep every pursuit state (BlockStep.replan), so it is skipped
+        state = run(state, part, occ, i > 0)
+    final = pmesh.gather(state)
+    metrics = {
+        "err_" + cfg.filter: final.err_sum.cpu().numpy() / t_total,
+        "final_true_pose": final.world.pose.cpu().numpy(),
+    }
+    return metrics, final

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -100,6 +101,10 @@ SIGNATURES = {
 }
 
 _libs: dict[tuple[Path, tuple[str, ...]], ctypes.CDLL] = {}
+_load_lock = threading.Lock()  # the mesh's device threads may load at once
+# the wrappers' launch counters are bumped from every thread that drives a
+# device (parallel/mesh.map_shards): a read-modify-write needs the lock
+COUNT_LOCK = threading.Lock()
 _extra: tuple[str, ...] = ()  # flags of the build the wrappers launch
 _csrc: Path = CSRC            # sources of the build the wrappers launch
 
@@ -178,16 +183,23 @@ def load() -> ctypes.CDLL:
     (another source tree's library, under ``sources``, may lack some
     entries)."""
     key = (_csrc, _extra)
-    if key not in _libs:
-        lib = ctypes.CDLL(str(build(_extra, _csrc)))
-        for name, (res, args) in SIGNATURES.items():
-            if _csrc != CSRC and not hasattr(lib, name):
-                continue
-            fn = getattr(lib, name)
-            fn.restype = res
-            fn.argtypes = args
-        _libs[key] = lib
-    return _libs[key]
+    with _load_lock:
+        if key not in _libs:
+            lib = ctypes.CDLL(str(build(_extra, _csrc)))
+            for name, (res, args) in SIGNATURES.items():
+                if _csrc != CSRC and not hasattr(lib, name):
+                    continue
+                fn = getattr(lib, name)
+                fn.restype = res
+                fn.argtypes = args
+            _libs[key] = lib
+        return _libs[key]
+
+
+def count(counter: dict, key: str) -> None:
+    """One launch more in ``counter[key]``, whatever thread launched it."""
+    with COUNT_LOCK:
+        counter[key] += 1
 
 
 @contextlib.contextmanager

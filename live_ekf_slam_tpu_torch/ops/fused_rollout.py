@@ -37,6 +37,7 @@ mode is its own instantiation of the kernel, counted under its own key of
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -45,6 +46,7 @@ from live_ekf_slam_tpu_torch.core.noise import _div, motion_moments
 from live_ekf_slam_tpu_torch.ops import _build
 from live_ekf_slam_tpu_torch.ops.kernel_math import atan2, wrap
 from live_ekf_slam_tpu_torch.ops.philox import MASK32, philox_noise_reference
+from live_ekf_slam_tpu_torch.parallel.mesh import sharded_rollout
 
 # Initial pose covariance diag (ekf.cpp:11-18).
 P0 = (0.01 * 0.01, 0.01 * 0.01, 0.005 * 0.005)
@@ -118,6 +120,24 @@ def fused_iekf_rollout(cfg, landmarks, cmds, seed, **kw) -> dict:
                              **kw)
 
 
+def fused_ekf_rollout_sharded(cfg, landmarks, cmds, seed: int, mesh, *,
+                              noise: torch.Tensor | None = None) -> dict:
+    """The fused EKF-SLAM rollout with its world batch sharded over a 1-D
+    mesh (``parallel/mesh``; JAX ``fused_ekf_rollout_sharded``).
+
+    Shard d runs ``fused_ekf_rollout`` (one launch on a card) on its
+    contiguous slice of the B worlds, on its own device and stream, with the
+    seed ``parallel.mesh.shard_seed(seed, d)`` = (seed + d * 1000003) mod
+    2^32; ``noise`` (T, 2N+8, B) is split on its world axis. Worlds are
+    independent, so there is no communication inside the rollout. Returns
+    ``fused_ekf_rollout``'s outputs concatenated over worlds on the mesh's
+    first device. ``ValueError`` unless the mesh size divides B. With
+    injected noise the result is the unsharded rollout's, bit for bit.
+    """
+    return sharded_rollout(functools.partial(fused_ekf_rollout, cfg), mesh,
+                           landmarks, cmds, seed, noise)
+
+
 def _check_input(name, t, shape, dev):
     if t.device != dev:
         raise ValueError(f"{name} is on {t.device}, landmarks on {dev}")
@@ -184,7 +204,7 @@ def _launch(cfg, landmarks, cmds, seed, noise, predicated, filter_kind,
             res["P"].data_ptr(), res["seen"].data_ptr(), *traj, stream,
         )
     _build.check(rc, f"fused {filter_kind} rollout kernel")
-    launches[launch_key(filter_kind, profile_mode, emit_traj)] += 1
+    _build.count(launches, launch_key(filter_kind, profile_mode, emit_traj))
     return res
 
 

@@ -22,6 +22,7 @@ gain; insertion (SLAM only) puts a fresh W block with zero cross terms.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -31,6 +32,7 @@ from live_ekf_slam_tpu_torch.ops import _build
 from live_ekf_slam_tpu_torch.ops.fused_rollout import check_inputs
 from live_ekf_slam_tpu_torch.ops.kernel_math import atan2, wrap
 from live_ekf_slam_tpu_torch.ops.philox import MASK32, philox_noise_reference
+from live_ekf_slam_tpu_torch.parallel.mesh import sharded_rollout
 
 # Initial covariance diag (ukf.cpp:9-18).
 P0_DIAG = (0.01 * 0.01, 0.01 * 0.01, 0.005 * 0.005, 0.005 * 0.005)
@@ -83,6 +85,18 @@ def fused_ukf_rollout(
     return _launch(cfg, landmarks, cmds, seed, noise, slam, predicated)
 
 
+def fused_ukf_rollout_sharded(cfg, landmarks, cmds, seed: int, mesh, *,
+                              slam: bool = True,
+                              noise: torch.Tensor | None = None) -> dict:
+    """The fused UKF rollout with its world batch sharded over a 1-D mesh
+    (JAX ``fused_ukf_rollout_sharded``), as
+    ``fused_rollout.fused_ekf_rollout_sharded`` shards the EKF: shard d
+    runs ``fused_ukf_rollout`` on its slice at ``shard_seed(seed, d)``, the
+    outputs, ``update_rejects`` included, concatenated over worlds."""
+    return sharded_rollout(functools.partial(fused_ukf_rollout, cfg, slam=slam),
+                           mesh, landmarks, cmds, seed, noise)
+
+
 def _launch(cfg, landmarks, cmds, seed, noise, slam, predicated):
     b, n, t_total = check_inputs(landmarks, cmds, noise)
     dev = landmarks.device
@@ -111,7 +125,7 @@ def _launch(cfg, landmarks, cmds, seed, noise, slam, predicated):
             stream,
         )
     _build.check(rc, "fused_ukf_rollout kernel")
-    launches["slam" if slam else "loc"] += 1
+    _build.count(launches, "slam" if slam else "loc")
     return res
 
 

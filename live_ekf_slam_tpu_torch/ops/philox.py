@@ -108,5 +108,6 @@ def philox_noise(seed: int, t_total: int, n_lm: int, batch: int,
         rc = lib.les_philox_noise(int(seed) & MASK32, t_total, n_lm, batch,
                                   world0, out.data_ptr(), stream)
     _build.check(rc, "philox_noise kernel")
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     return out

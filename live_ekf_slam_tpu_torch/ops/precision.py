@@ -34,7 +34,12 @@ def constant(value, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     copy from pageable host memory, which synchronises the stream: in a
     per-tick loop that is a wait on the card per call. Callers must not
     write to it."""
-    return torch.tensor(value, dtype=dtype, device=device)
+    t = torch.tensor(value, dtype=dtype, device=device)
+    if t.is_cuda:
+        # made on the current stream, then read on any (a world mesh's
+        # shards each have their own): complete its copy before it is handed out
+        torch.cuda.current_stream(t.device).synchronize()
+    return t
 
 
 def reciprocal(value: float, device: torch.device) -> torch.Tensor:

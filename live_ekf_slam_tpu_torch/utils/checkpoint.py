@@ -7,8 +7,11 @@ tree's order; ``restore`` reads them back into the structure of a template
 tree, each with its template's shape check, dtype and device, so that a
 state saved from the card restores on the CPU and the other way round. A
 tree is a tensor (or array), None, a dataclass (the ``StateFields``
-containers of ``core/types``), a tuple, a list or a dict of trees. JAX's
-orbax pair saves sharded JAX arrays and has no counterpart here.
+containers of ``core/types``), a tuple, a list or a dict of trees.
+``save_sharded`` and ``restore_sharded`` are the counterpart of JAX's orbax
+pair, which saves sharded arrays: a tree placed on a world mesh
+(``parallel/mesh.Shards``) goes to one ``.npz``, shard by shard, and comes
+back shard by shard, each on its template's device.
 """
 
 from __future__ import annotations
@@ -74,3 +77,49 @@ def restore(path: str, like):
         return arr.astype(template.dtype)
 
     return tree_map(like, one)
+
+
+def save_sharded(path: str, shards) -> None:
+    """Save a tree placed on a mesh (``parallel.mesh.Shards``) to an .npz:
+    shard d's leaves as ``shard{d}_leaf_{i}``, with the shard count and the
+    world axis (-1 for a replicated tree)."""
+    shards.join()  # read each shard after its stream has written it
+    arrays = {f"shard{d}_leaf_{i}": _numpy(leaf)
+              for d, part in enumerate(shards.parts)
+              for i, leaf in enumerate(leaves(part))}
+    axis = shards.placement.axis
+    arrays["n_shards"] = np.asarray(len(shards.parts))
+    arrays["axis"] = np.asarray(-1 if axis is None else axis)
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, **arrays)
+
+
+def restore_sharded(path: str, like):
+    """The sharded tree saved at ``path`` in the placement of ``like`` (a
+    ``Shards`` of the same mesh size and world axis): shard d's leaves with
+    the dtype and on the device of ``like``'s shard d."""
+    from live_ekf_slam_tpu_torch.parallel.mesh import Shards
+
+    data = np.load(path)
+    axis = like.placement.axis
+    saved = (int(data["n_shards"]), int(data["axis"]))
+    if saved != (len(like.parts), -1 if axis is None else axis):
+        raise ValueError(f"checkpoint of {saved[0]} shards on axis {saved[1]}, "
+                         f"template of {len(like.parts)} on axis {axis}")
+
+    def shard(d, template):
+        count = iter(range(len(data.files)))
+
+        def one(t):
+            i = next(count)
+            arr = data[f"shard{d}_leaf_{i}"]
+            if tuple(arr.shape) != tuple(t.shape):
+                raise ValueError(f"checkpoint shard {d} leaf {i} shape "
+                                 f"{tuple(arr.shape)} != template {tuple(t.shape)}")
+            if isinstance(t, torch.Tensor):
+                return torch.from_numpy(arr).to(device=t.device, dtype=t.dtype)
+            return arr.astype(t.dtype)
+        return tree_map(template, one)
+
+    return Shards([shard(d, p) for d, p in enumerate(like.parts)],
+                  like.placement)

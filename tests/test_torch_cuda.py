@@ -585,3 +585,59 @@ def test_checkpoint_saved_on_the_card_resumes_on_the_cpu(cuda_device, tmp_path):
         carry, _ = step(carry, cmds[:, t].to(cuda_device), noise[t].T.to(cuda_device), t)
         back, _ = step(back, cmds[:, t], noise[t].T, t)
     torch.testing.assert_close(back.primary.x, carry.primary.x.cpu(), rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("kname", list(chip_smoke.MD_KERNELS))
+@pytest.mark.parametrize("mesh_kind", ["real", "virtual"])
+def test_sharded_rollouts_on_the_card(kname, mesh_kind, cuda_device):
+    # chip_smoke's multi-device checks at B = 256, T = 200: one launch a
+    # shard, every shard its single launch at its seed bit for bit, shard 1
+    # within the T = 1000 tolerance of the plain version and bit for bit
+    # the -fmad=false build, injected noise sharded == unsharded
+    from live_ekf_slam_tpu_torch.parallel import mesh as pmesh
+
+    cfg = Config(num_iterations=T)
+    lms, cmds = mc_inputs(cfg, 256, 3, cuda_device)
+    mesh = pmesh.make_mesh() if mesh_kind == "real" else pmesh.virtual_mesh(4, cuda_device)
+    line = chip_smoke.md_rollout_checks(kname, mesh, cfg, lms, cmds, 5, 16)
+    assert line["launches"] == mesh.size and line["no_fma_bitwise_equal"]
+
+
+def test_sharded_per_tick_step_and_checkpoint_on_the_card(cuda_device, tmp_path):
+    from live_ekf_slam_tpu_torch.eval.runner import init_carry
+    from live_ekf_slam_tpu_torch.parallel import mesh as pmesh
+
+    cfg = Config(num_iterations=10)
+    lms, cmds = mc_inputs(cfg, 256, 3, cuda_device)
+    mesh = pmesh.virtual_mesh(4, cuda_device)
+    line = chip_smoke.md_per_tick(cuda_device, mesh, lms, cmds, 10)
+    assert line["worlds_out_of_tol"] == 0 and line["alive_equal"]
+    carry = pmesh.shard_batch(init_carry(cfg, lms, lms.shape[1]), mesh)
+    assert chip_smoke.md_checkpoint(mesh, carry, tmp_path / "s.npz")["bitwise_equal"]
+
+
+def test_weak_scaling_rows_on_the_card(cuda_device):
+    from live_ekf_slam_tpu_torch.tools import weak_scaling
+
+    for row in (weak_scaling.run_row(2, 8, 5, device=cuda_device),
+                weak_scaling.run_row(1, 8, 5, real=True)):
+        assert np.isfinite(row["mean_err"]) and row["device_kind"] != "cpu"
+
+
+def test_sharded_closed_loop_on_the_card_is_the_unsharded_one(cuda_device):
+    import dataclasses
+
+    from live_ekf_slam_tpu_torch.config import preset
+    from live_ekf_slam_tpu_torch.eval import closed_loop as cl
+    from live_ekf_slam_tpu_torch.parallel import mesh as pmesh
+    from live_ekf_slam_tpu_torch.utils.checkpoint import leaves
+
+    cfg = preset("igvc1", num_iterations=40).replace(num_landmark_slots=37,
+                                                     num_meas_slots=12)
+    cfg = cfg.replace(path_planning=dataclasses.replace(
+        cfg.path_planning, astar_max_iters=96, local_astar_max_iters=48,
+        path_capacity=128))
+    _, f1, _ = cl.run_closed_loop(cfg, 16, 11, device=cuda_device)
+    _, f2 = cl.run_closed_loop_sharded(cfg, pmesh.virtual_mesh(8, cuda_device), 16, 11)
+    for a, b in zip(leaves(f1), leaves(f2)):
+        assert torch.equal(a, b)

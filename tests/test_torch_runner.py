@@ -243,7 +243,8 @@ def test_bench_pose_graph_config_and_summary():
 
 
 def test_port_runs_its_slice_without_jax():
-    # every module of the port and chip_smoke (imported, not run), the three
+    # every module of the port and chip_smoke (imported, not run), the
+    # world mesh and the weak-scaling tool with a 2-shard sharded rollout, the three
     # microbenchmark tools on the CPU at a tiny size, then the
     # CPU slice of all four fused filters, the per-tick path of naive and
     # EKF-SLAM, the pose-graph streams path in both solve modes, the
@@ -342,6 +343,14 @@ def test_port_runs_its_slice_without_jax():
         "views = []\n"
         "cli.run_demo(cfg, device='cpu', viewer=FrameRecorder.into(views))\n"
         "assert views[0].frames[-1].timestep == 6\n"
+        "from live_ekf_slam_tpu_torch.parallel import mesh as pmesh\n"
+        "from live_ekf_slam_tpu_torch.tools import weak_scaling\n"
+        "from live_ekf_slam_tpu_torch.ops.fused_rollout import fused_ekf_rollout_sharded\n"
+        "from live_ekf_slam_tpu_torch.eval.runner import mc_inputs\n"
+        "cfg = Config(num_iterations=5)\n"
+        "lms, cmds = mc_inputs(cfg, 4, 0, 'cpu')\n"
+        "out = fused_ekf_rollout_sharded(cfg, lms, cmds, 0, pmesh.make_mesh(2, 'cpu'))\n"
+        "assert out['x'].shape == (4, 43) and out['err_sum'].shape == (4,)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in BLOCKED)\n"
         "assert not bad, bad\n"
         "print('ok')\n"
