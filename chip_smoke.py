@@ -77,7 +77,10 @@ against the EKF and UKF-SLAM kernels' measured times. Beside these, right
 after the build, every rollout kernel's occupancy (registers, spills,
 shared memory, resident worlds an SM; K1, K2 and K4 SLAM must keep 16
 without spilling) and the block-Thomas solve's and the Schur matvec's (no
-spills), and after
+spills), the register-tiled micro kernels' (rank_update, joseph: no spills,
+no local memory, 8 or 16 worlds an SM) and the float32 instructions of
+their pass loops in the SASS (``micro_sass``: no fewer than the expression
+needs, and the shared loads the design counts), and after
 the main paths the UKF, EKF and RI-EKF kernels' cycles by phase of the
 tick (``ukf_phase_clocks``, ``ekf_phase_clocks``), from a third build
 compiled with -DLES_PHASE_CLOCKS. Every phase prints one JSON line; any failure raises and the exit code is nonzero. The last three
@@ -94,6 +97,7 @@ import dataclasses
 import io
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -327,6 +331,63 @@ MICRO_KERNELS = {
     "micro_joseph": ("joseph", "scripts/micro_ukf.py:132", "prod9"),
     "micro_zstats": ("zstats", "scripts/micro_ukf.py:191", "zstats"),
 }
+# the families redesigned since their port, and in which change of the
+# port's record (PERF.md)
+MICRO_REDESIGNED = {"micro_rank_update": "PR 15", "micro_joseph": "PR 15"}
+
+
+# the register-tiled micro kernels (template arguments as mangled_args takes
+# them) and the float32 instructions an entry of one pass needs, as the plain
+# version spells it with FMA contraction: a rank-R entry R FFMA; prod9 a and b
+# (a product and an FFMA each), -a - b, s00 (k0 k0) (FMUL, FFMA), s01 (k0 k1 +
+# k1 k0) (FMUL, FFMA, FFMA), s11 (k1 k1) (FMUL, FFMA) and P + v; hoist g00,
+# g11, g01, s00 g00 and the two sums of the other terms, two subtractions and
+# P + v; the first n of the seven terms 1, 1, 1, 1, 2, 2, 3
+MICRO_SASS = {
+    **{f"rank_update[R={r}]": (str(r), {"FFMA": r}) for r in mo.RANKS},
+    "joseph[prod9]": ("0, 0", {"FFMA": 6, "FMUL": 5, "FADD": 2}),
+    "joseph[hoist]": ("1, 0", {"FFMA": 5, "FMUL": 6, "FADD": 3}),
+    **{f"joseph[terms={n}]": (f"2, {n}", want) for n, want in (
+        (1, {"FFMA": 1}), (2, {"FFMA": 2}), (3, {"FFMA": 3}), (4, {"FFMA": 4}),
+        (5, {"FFMA": 5, "FMUL": 1}), (6, {"FFMA": 6, "FMUL": 2}),
+        (7, {"FFMA": 8, "FMUL": 3}))},
+}
+MICRO_TILE_ENTRIES = 12 * 6  # a lane's tile of the 48 x 48 matrix
+MICRO_TILE = 48
+# rank_update keeps k and h in registers up to this R (csrc/micro_ops.cu
+# kRankInRegisters) and reads them from shared memory above it
+RANK_IN_REGISTERS = 4
+
+
+def tile_lds(op: str, variant: str) -> int:
+    """16-byte shared loads a lane makes in one pass of a register-tiled
+    kernel (``variant`` as MICRO_SASS names it: "R=8", "prod9", "terms=3"):
+    a term of rank_update read from shared memory is three words of k (the
+    lane's 12 rows) and two of h (its 6 columns at a two-word stride);
+    joseph reads five such words for the vectors of each of its first four
+    terms, and one for s from the fifth on."""
+    if op == "rank_update":
+        r = int(variant.split("=")[1])
+        return 0 if r <= RANK_IN_REGISTERS else 5 * r
+    n = int(variant.split("=")[1]) if "=" in variant else mo.JOSEPH_TERMS
+    return 5 * min(n, 4) + (n >= 5)
+
+
+def tile_smem_bytes(c: dict, b: int, d: int) -> float:
+    """Shared-memory bytes a launch of a register-tiled case moves, every
+    lane's access counted: each pass's 16-byte loads (``tile_lds``), and
+    once a world P staged in and out (each entry stored and loaded on the
+    way in and on the way out) and the rank vectors written in padded
+    layout (rows and column groups: 48 + 64 floats a vector; joseph's four
+    and s)."""
+    if c["op"] == "rank_update":
+        variant, vectors = f"R={c['rank']}", (c["rank"] if c["rank"] > RANK_IN_REGISTERS else 0)
+    else:
+        variant = c["spelling"] + (f"={c['n_terms']}" if c["spelling"] == "terms" else "")
+        vectors = 4
+    per_pass = 32 * 16.0 * tile_lds(c["op"], variant)
+    once = 4 * 4.0 * d * d + 4.0 * vectors * (MICRO_TILE + 64) + (16.0 if c["op"] == "joseph" else 0)
+    return b * (c["passes"] * per_pass + once)
 
 
 def counts() -> dict:
@@ -1089,13 +1150,15 @@ def micro_work(c: dict, b: int, d: int) -> tuple[float, float, float, float]:
     bound: every 4-byte access a lane makes to shared memory, and the flops
     this variant's loops execute, read off the kernel (the full-width and
     trailing-column Cholesky subtract zeros left of the pivot, the
-    select-and-sum gather multiplies whole rows by a one-hot)."""
+    select-and-sum gather multiplies whole rows by a one-hot). The
+    register-tiled rank_update and joseph count their shared bytes by
+    ``tile_smem_bytes``."""
     op, n = c["op"], float(c["passes"])
     mat = 4.0 * b * d * d
     if op == "rank_update":
         r = c["rank"]
         flops = n * b * 2.0 * r * d * d
-        return flops, 2 * mat + 2 * 4.0 * b * r * d, n * b * d * d * 4.0 * (2 + r), flops
+        return flops, 2 * mat + 2 * 4.0 * b * r * d, tile_smem_bytes(c, b, d), flops
     if op == "column_gather":
         sel = c["spelling"] == "select"
         return (n * b * d, mat + 4.0 * b + 4.0 * b * d,
@@ -1114,12 +1177,10 @@ def micro_work(c: dict, b: int, d: int) -> tuple[float, float, float, float]:
         return (flops, mat + 4.0 * b * d * (1 + c["args"][1].shape[1]),
                 n * b * 4.0 * (2.0 * d * d + 2 * d), flops)
     if op == "joseph":
-        if c["spelling"] == "terms":
-            per, loads = sum(JOSEPH_TERM_FLOPS[:c["n_terms"]]), 2 + min(c["n_terms"], 4)
-        else:
-            per, loads = JOSEPH_FLOPS[c["spelling"]], 6
+        per = (sum(JOSEPH_TERM_FLOPS[:c["n_terms"]]) if c["spelling"] == "terms"
+               else JOSEPH_FLOPS[c["spelling"]])
         flops = n * b * per * d * d
-        return flops, 2 * mat + 4.0 * b * (4 * d + 3), n * b * d * d * 4.0 * loads, flops
+        return flops, 2 * mat + 4.0 * b * (4 * d + 3), tile_smem_bytes(c, b, d), flops
     if op == "zstats":
         return (n * b * ZSTATS_FLOPS * d, 4.0 * b * (7 * d + 3), n * b * 4.0 * 14 * d,
                 n * b * ZSTATS_FLOPS_KERNEL * d)
@@ -1214,8 +1275,8 @@ def micro_compare(c: dict, worlds: int, short: dict | None = None) -> dict:
 def phase_micro_ops(dev) -> list:
     """The three tools at MAIN's batch and D = 48, through their ``run`` (the
     counts zeroed before, read after); then every case of theirs against its
-    plain version and beside its bounds and library call. Returns the six
-    families' records."""
+    plain version and beside its bounds and library call: a case faster
+    than its bound raises. Returns the six families' records."""
     b, d = MAIN["batch"], MICRO_DIM
     tools = {"micro_downdate": micro_downdate, "micro_ukf": micro_ukf,
              "micro_ukf_probe": micro_ukf_probe}
@@ -1248,6 +1309,10 @@ def phase_micro_ops(dev) -> list:
                  "smem_bytes": smem, "smem_ms": 1e3 * smem / PEAK_SMEM_BYTES,
                  "library_ms": library_ms(c)}
             emit("micro_ops", worlds=b, dim=d, **v)
+            if v["ms"] < v["bound_ms"]:
+                raise AssertionError(
+                    f"{c['name']}: {v['ms']} ms is under its bound of {v['bound_ms']} ms: "
+                    f"passes were folded or part of a pass hoisted out of the loop")
             families["micro_" + c["op"]].append(v)
     # linearity in the passes: a launch of the tool's passes takes twice the
     # time of one of half as many (within 5%), or the compiler folded passes
@@ -1289,6 +1354,8 @@ def phase_micro_ops(dev) -> list:
                 "bound_by", "flops", "flops_executed", "smem_ms", "library_ms")}
                 for v in vs],
         })
+        if name in MICRO_REDESIGNED:
+            record[-1]["redesigned_in"] = MICRO_REDESIGNED[name]
     return record
 
 
@@ -1297,7 +1364,11 @@ def phase_op_sum(dev, n_lm: int, gates: dict, times: dict, kernel_ms: dict):
     primitive's measured time per pass at the kernel's own dimension, against
     the kernel's measured time: for K1 (D = 43) and K4 SLAM (Du = 44). A pass
     is timed over the whole batch, so a count per world-tick times the
-    batch's time per pass is the batch's time."""
+    batch's time per pass is the batch's time. The rank-2 update and the
+    Joseph update are register-tiled kernels: their parts read what the
+    primitive costs at its best on this card, not a copy of the rollout's
+    loop, so the sum is a floor of those parts, not the kernel's own
+    split."""
     b, t_total = MAIN["batch"], MAIN["steps"]
     upd = gates["updates"] / gates["ticks"]  # updates per world and tick
 
@@ -1315,7 +1386,10 @@ def phase_op_sum(dev, n_lm: int, gates: dict, times: dict, kernel_ms: dict):
          updates_per_world_tick=upd, rank2_downdate_us_per_pass=dd,
          parts_ms=parts, op_sum_ms=total, kernel_ms=kernel_ms["ekf_slam"],
          explained_share=total / kernel_ms["ekf_slam"],
-         not_timed_alone="gain and H P vectors, state update, insertions")
+         not_timed_alone="gain and H P vectors, state update, insertions",
+         note="rank2_downdates reads the register-tiled rank-2 update, the "
+              "primitive's floor on this card, not K1's own loop; K1's own "
+              "split: ekf_phase_clocks")
 
     du = fu.state_dim(n_lm, True)
     per = {c["variant"]: us_per_pass(c)
@@ -1323,9 +1397,10 @@ def phase_op_sum(dev, n_lm: int, gates: dict, times: dict, kernel_ms: dict):
     # The micro kernels are the TPU scripts' loops at K4's counts, no longer
     # K4's own (which factors four pivots a pass and walks lines of two
     # rows; its split by phase is the ukf_phase_clocks line): the sum says
-    # what a tick would cost spelled as those loops. The rollout factors the
-    # active dimensions only (pivots past the highest seen slot are
-    # skipped): the mean of n_act^3 over Du^3; matvecs over the lower
+    # what a tick would cost spelled as those loops, its Joseph part as the
+    # register-tiled kernel, the primitive's floor on this card. The rollout
+    # factors the active dimensions only (pivots past the highest seen slot
+    # are skipped): the mean of n_act^3 over Du^3; matvecs over the lower
     # triangle (half of the rows' products); Joseph over one triangle,
     # timed here as the both-triangles spelling; z-stats by rotation algebra
     # in place of this block's atan2, sin and cos
@@ -1345,7 +1420,9 @@ def phase_op_sum(dev, n_lm: int, gates: dict, times: dict, kernel_ms: dict):
          kernel_ms=kernel_ms["ukf_slam"],
          explained_share=total / kernel_ms["ukf_slam"],
          not_timed_alone="sigma propagation, the 4x4 block, gain and gate, insertions",
-         note="the TPU scripts' loops at K4's counts; K4's own split: ukf_phase_clocks")
+         note="the TPU scripts' loops at K4's counts; update_joseph reads the "
+              "register-tiled Joseph update, the primitive's floor on this card, "
+              "not K4's own loop; K4's own split: ukf_phase_clocks")
 
 
 # the EKF kernels' instantiations: name -> (filter kind, profile mode,
@@ -1387,6 +1464,86 @@ def ptxas_report(src: str) -> dict:
     return out
 
 
+SASS_FP = ("FFMA", "FMUL", "FADD")
+
+
+def sass_pass_loops(sass: str, keep: tuple[str, ...] = ("",)) -> dict:
+    """Per function of ``cuobjdump -sass`` output (mangled name) whose name
+    holds one of ``keep``, the counts of each mnemonic in the body of its
+    loop with the most float32 arithmetic (FFMA, FMUL, FADD): the
+    instructions from a backward branch's target address to the branch, the
+    pass loop of a kernel whose inner loops are unrolled. Counts {} where no
+    loop holds float32 arithmetic."""
+    out, name, code = {}, None, []
+
+    def close():
+        best = {}
+        for i, (addr, op, target) in enumerate(code):
+            if op != "BRA" or target is None or target > addr:
+                continue
+            body = {}
+            for a, o, _ in code[:i + 1]:
+                if a >= target:
+                    body[o] = body.get(o, 0) + 1
+            if sum(body.get(k_, 0) for k_ in SASS_FP) > sum(best.get(k_, 0) for k_ in SASS_FP):
+                best = body
+        out[name] = best
+
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function\s*:\s*(\S+)", line)
+        if m:
+            if name is not None:
+                close()
+            name = m.group(1) if any(k_ in m.group(1) for k_ in keep) else None
+            code = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)(\.\S+)?\s*(.*)", line)
+        if not m or name is None:
+            continue
+        addr, op, rest = int(m.group(1), 16), m.group(2), m.group(4).split(";")[0]
+        t = re.search(r"0x[0-9a-f]+", rest) if op == "BRA" else None
+        code.append((addr, op, int(t.group(0), 16) if t else None))
+    if name is not None:
+        close()
+    return out
+
+
+def micro_sass(lib: Path) -> dict:
+    """The register-tiled kernels of the default build's library ``lib``
+    disassembled (``cuobjdump -sass``): for each kernel of MICRO_SASS the
+    float32 arithmetic and 16-byte shared loads of its pass loop a lane,
+    beside what the expression needs for the lane's MICRO_TILE_ENTRIES
+    entries and the loads the design makes (``tile_lds``, which
+    ``micro_work``'s shared-memory bytes count). Less arithmetic would mean
+    part of a pass was hoisted out of the loop, other loads that the bytes
+    are not the kernel's: raises. One ``micro_sass`` line."""
+    cuobjdump = str(Path(_build.find_nvcc()).with_name("cuobjdump"))
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)],
+                          check=True, capture_output=True, text=True).stdout
+    loops = sass_pass_loops(sass, keep=("rank_update_kernel", "joseph_kernel"))
+    rows = {}
+    for name, (targs, per_entry) in MICRO_SASS.items():
+        op, variant = name[:-1].split("[")
+        stem = op + "_kernel" + mangled_args(targs)
+        body = next(v for k_, v in loops.items() if stem in k_)
+        found = {k_: body.get(k_, 0) for k_ in SASS_FP}
+        want = {k_: MICRO_TILE_ENTRIES * per_entry.get(k_, 0) for k_ in SASS_FP}
+        rows[name] = {"per_pass": found, "expression": want,
+                      "lds": sum(v for k_, v in body.items() if k_.startswith("LDS")),
+                      "design_lds": tile_lds(op, variant),
+                      "matches_expression": found == want,
+                      "fp_share_of_expression": sum(found.values()) / sum(want.values())}
+    emit("micro_sass", tile_entries=MICRO_TILE_ENTRIES, kernels=rows)
+    short = {k_: r for k_, r in rows.items() if r["fp_share_of_expression"] < 1.0}
+    if short:
+        raise AssertionError(f"a pass loop holds less float32 arithmetic than its "
+                             f"expression needs (hoisted): {short}")
+    other = {k_: r for k_, r in rows.items() if r["lds"] != r["design_lds"]}
+    if other:
+        raise AssertionError(f"a pass loop makes other shared loads than its design: {other}")
+    return rows
+
+
 def mangled_args(args: str) -> str:
     """Template arguments as they are mangled: "true, false, 0" -> ILb1ELb0ELi0EE."""
     parts = {"true": "Lb1E", "false": "Lb0E"}
@@ -1406,9 +1563,11 @@ def phase_occupancy(n_lm: int, ptxas: dict) -> list:
     block, and resident blocks and worlds an SM
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor); beside them the stack
     and spill bytes ptxas reports (``ptxas``: ptxas_report of the rollout
-    sources, block_thomas.cu and schur_mv.cu). K1 and K2 must keep
-    EKF_RESIDENT worlds on an SM, K4 SLAM UKF_SLAM_RESIDENT, without
-    spilling; beside them P1's solve and P2, which must not spill either."""
+    sources, block_thomas.cu, schur_mv.cu and micro_ops.cu). K1 and K2
+    must keep EKF_RESIDENT worlds on an SM, K4 SLAM UKF_SLAM_RESIDENT,
+    without spilling; beside them P1's solve and P2, which must not spill
+    either, and the register-tiled micro kernels at D = 48, which must use
+    no local memory at all and hold 8 or 16 worlds an SM."""
     rows, args = [], {}
     for name, (kind, mode, traj, targs) in EKF_INSTANCES.items():
         rows.append({"kernel": name, **fr.occupancy(n_lm, kind, mode, traj)})
@@ -1442,6 +1601,25 @@ def phase_occupancy(n_lm: int, ptxas: dict) -> list:
                                     or r["spill_store_bytes"] or r["spill_load_bytes"]):
             raise AssertionError(f"{r['kernel']}: fewer than {need[r['kernel']]} "
                                  f"worlds an SM, or spills: {r}")
+    # the register-tiled micro kernels at D = 48 and 4096 worlds: P stays in
+    # registers, so no spills and no local memory; 8 or 16 worlds an SM, so
+    # that 4096 worlds take whole waves of at most 32 worlds an SM
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, (targs, _) in MICRO_SASS.items():
+        op, variant = name[:-1].split("[")
+        kw = ({"rank": int(variant[2:])} if op == "rank_update" else
+              {"spelling": variant.split("=")[0],
+               "n_terms": int(variant.split("=")[1]) if "=" in variant else mo.JOSEPH_TERMS})
+        r = {"kernel": "micro_" + name, "dim": MICRO_DIM, **mo.occupancy(op, MICRO_DIM, **kw),
+             **next(v for k_, v in ptxas.items()
+                    if op + "_kernel" + mangled_args(targs) in k_)}
+        r["waves_at_4096_worlds"] = MAIN["batch"] / (r["worlds_per_sm"] * n_sm)
+        emit("occupancy", **r)
+        rows.append(r)
+        if (r["local_bytes"] or r["spill_store_bytes"] or r["spill_load_bytes"]
+                or r["worlds_per_sm"] not in (8, 16)):
+            raise AssertionError(f"{r['kernel']}: local memory, spills, or not 8 or 16 "
+                                 f"worlds an SM: {r}")
     return rows
 
 
@@ -3310,15 +3488,22 @@ def main():
     t_start = time.perf_counter()
 
     # ---- 2. build every kernel from the checkout's sources: the default
-    # build the port runs and the -fmad=false build of the bitwise checks,
-    # one nvcc each, side by side
+    # build the port runs, the -fmad=false build of the bitwise checks and
+    # the phase-clocks build, one nvcc a source each, beside ptxas's reports
+    # and the micro kernels' SASS, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(5) as pool:
-        libs = list(pool.map(_build.build, [(), _build.NO_FMA, _build.PHASE_CLOCKS]))
+    with ThreadPoolExecutor(9) as pool:
+        builds = [pool.submit(_build.build, extra)
+                  for extra in ((), _build.NO_FMA, _build.PHASE_CLOCKS)]
+        sass = pool.submit(lambda: micro_sass(builds[0].result()))
+        reports = [pool.submit(ptxas_report, src) for src in (
+            "fused_ekf_rollout.cu", "fused_ukf_rollout.cu", "block_thomas.cu",
+            "schur_mv.cu", "micro_ops.cu")]
+        libs = [f.result() for f in builds]
         ptxas = {}
-        for rep in pool.map(ptxas_report, ["fused_ekf_rollout.cu", "fused_ukf_rollout.cu",
-                                           "block_thomas.cu", "schur_mv.cu"]):
-            ptxas.update(rep)
+        for f in reports:
+            ptxas.update(f.result())
+        sass.result()
     _build.load()
     emit("build", seconds=time.perf_counter() - t0,
          libraries=[str(lib.relative_to(_build.CSRC.parent.parent)) for lib in libs])

@@ -81,6 +81,9 @@ SIGNATURES = {
     "les_micro_joseph": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     # sp, sm (B,3,D), lm (B,2), wm (B,D) -> out (B,); B, D, n; stream
     "les_micro_zstats": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    # family (0 rank_update, 1 joseph), R or spelling, n_terms, D -> out[6],
+    # as les_ukf_occupancy's
+    "les_micro_occupancy": (_I, [_I, _I, _I, _I, _P]),
     "les_error_string": (ctypes.c_char_p, [_I]),
     # a kernel's host function, threads and dynamic shared bytes a block ->
     # out[4]: registers, local bytes, static shared bytes, blocks an SM
@@ -247,8 +250,8 @@ OCCUPANCY_KEYS = ("registers", "local_bytes", "static_smem_bytes",
 
 
 def occupancy(entry: str, *args: int) -> dict:
-    """A rollout kernel's launch as the card takes it, from its occupancy
-    entry point (``les_ekf_occupancy``, ``les_ukf_occupancy``) with
+    """A kernel's launch as the card takes it, from its occupancy entry
+    point (``les_ekf_occupancy``, ``les_ukf_occupancy``, ...) with
     ``args``: ``OCCUPANCY_KEYS`` and the worlds resident on one SM at once."""
     out = (ctypes.c_int * len(OCCUPANCY_KEYS))()
     check(getattr(load(), entry)(*args, out), entry)

@@ -38,6 +38,9 @@ CHOL_VARIANTS = ("full", "trail", "lower")
 MATVEC_ORDERS = ("row", "col", "unrolled")
 JOSEPH_SPELLINGS = ("prod9", "hoist", "terms")
 JOSEPH_TERMS = 7
+# the largest D that rank_update and joseph take on CUDA: their kernels hold
+# a world's matrix, padded to TILE x TILE, in one warp's registers
+TILE = 48
 
 
 def _code(name: str, value: str, choices: tuple) -> int:
@@ -79,6 +82,12 @@ def _passes(n: int) -> int:
     return int(n)
 
 
+def _fits_tile(family: str, d: int) -> None:
+    if d > TILE:
+        raise ValueError(f"{family} on CUDA serves D <= {TILE} (a world's matrix "
+                         f"in one warp's registers), got D = {d}")
+
+
 def _launch(family: str, entry: str, dev: torch.device, *args) -> None:
     lib = _build.load()
     with torch.cuda.device(dev):
@@ -94,7 +103,7 @@ def rank_update(p: torch.Tensor, k: torch.Tensor, h: torch.Tensor,
     """``passes`` passes of P <- P - sum_r k_r h_r^T over p (B, D, D), with
     k and h (B, R, D), R in 1, 2, 4, 8, 16 rank-1 terms a pass, subtracted
     from each entry one after the other (R = 2 is the rollouts' downdate).
-    Returns the new P."""
+    Returns the new P. On CUDA, D <= ``TILE``."""
     b, d = _matrix_dims("p", p)
     passes = _passes(passes)
     if k.dim() != 3 or k.shape[1] not in RANKS:
@@ -105,6 +114,7 @@ def rank_update(p: torch.Tensor, k: torch.Tensor, h: torch.Tensor,
     _check("h", h, (b, r, d), p.device)
     if _on_cpu(p, "rank_update"):
         return rank_update_reference(p, k, h, passes)
+    _fits_tile("rank_update", d)
     out = torch.empty_like(p)
     _launch("rank_update", "les_micro_rank_update", p.device, p.data_ptr(),
             k.data_ptr(), h.data_ptr(), out.data_ptr(), b, d, r, passes)
@@ -271,7 +281,7 @@ def joseph(p: torch.Tensor, k0: torch.Tensor, k1: torch.Tensor,
     """``n`` passes of the one-pass symmetric Joseph update of p (B, D, D)
     with gains k0, k1 and cross-covariances cr, cb (B, D) and s (B, 3) =
     (s00, s01, s11); returns the new P. Every entry of both triangles comes
-    from its own expression.
+    from its own expression. On CUDA, D <= ``TILE``.
 
     ``spelling="prod9"`` is the rollouts' expression, ``"hoist"`` builds the
     three symmetric gain products first, ``"terms"`` adds the first
@@ -288,6 +298,7 @@ def joseph(p: torch.Tensor, k0: torch.Tensor, k1: torch.Tensor,
     _check("s", s, (b, 3), p.device)
     if _on_cpu(p, "joseph"):
         return joseph_reference(p, k0, k1, cr, cb, s, n, spelling, n_terms)
+    _fits_tile("joseph", d)
     out = torch.empty_like(p)
     _launch("joseph", "les_micro_joseph", p.device, p.data_ptr(), k0.data_ptr(),
             k1.data_ptr(), cr.data_ptr(), cb.data_ptr(), s.data_ptr(),
@@ -332,6 +343,17 @@ def joseph_reference(p, k0, k1, cr, cb, s, n: int, spelling: str = "prod9",
             for t in terms[:n_terms]:
                 p = p + t
     return p
+
+
+def occupancy(op: str, d: int = TILE, rank: int = 2, spelling: str = "prod9",
+              n_terms: int = JOSEPH_TERMS) -> dict:
+    """The launch of ``rank_update`` (``op="rank_update"``, ``rank``) or
+    ``joseph`` (``spelling``, ``n_terms``) at D = d as the card takes it
+    (``_build.occupancy``)."""
+    if op == "rank_update":
+        return _build.occupancy("les_micro_occupancy", 0, rank, 0, d)
+    return _build.occupancy("les_micro_occupancy", 1,
+                            _code("spelling", spelling, JOSEPH_SPELLINGS), n_terms, d)
 
 
 # --------------------------------------------------------------------- zstats

@@ -26,7 +26,7 @@ def parse_args(prog: str, description: str, argv=None) -> argparse.Namespace:
                         "runs the plain versions")
     p.add_argument("--passes", type=int, default=None,
                    help="passes per launch for every row (default: per row, "
-                        "sized so that a launch takes 10-50 ms at 4096 worlds)")
+                        "sized so that a launch takes 1-50 ms at 4096 worlds)")
     return p.parse_args(argv)
 
 

@@ -6,6 +6,8 @@
     python3 -m live_ekf_slam_tpu_torch.tools.kernel_ab --against DIR \\
         --target block_thomas | block_thomas_factor | schur_mv \\
         [--worlds 1024] [--study] [--clocks]
+    python3 -m live_ekf_slam_tpu_torch.tools.kernel_ab --against DIR \\
+        --target micro_rank_update | micro_joseph [--worlds 4096] [--reps 5]
 
 DIR is another tree's ``csrc`` directory with the same C interface, for a
 commit: ``git archive COMMIT live_ekf_slam_tpu_torch/csrc | tar -x -C OUT``
@@ -48,6 +50,14 @@ turns, each in a process of its own run from that tree's root, so that
 each runs its own Python as well as its own kernels (DIR must be the
 ``live_ekf_slam_tpu_torch/csrc`` of a whole tree: ``git archive COMMIT |
 tar -x -C OUT``): wall and solve seconds, mean errors, diverged worlds.
+``--target micro_rank_update`` / ``micro_joseph``: every case of that
+family in the three microbenchmark tools (``micro_downdate``, ``micro_ukf``,
+``micro_ukf_probe``) at ``--worlds`` worlds, D = 48 and the tools' own pass
+counts, the other tree's ``micro_ops.cu`` against this tree's in turns:
+one JSON line a case with the median CUDA-event milliseconds of ``--reps``
+launches in each turn, microseconds a pass, the largest difference of this
+tree's result from the other's relative to its scale (not bitwise: FMA
+contraction may round apart), this tree's occupancy, and the card.
 A variant of this tree's kernel is timed the same way: a copy of ``csrc``
 with the change, given as ``--against``.
 """
@@ -80,10 +90,14 @@ from live_ekf_slam_tpu_torch.models import posegraph as pg
 from live_ekf_slam_tpu_torch.ops import _build
 from live_ekf_slam_tpu_torch.ops import fused_rollout as fr
 from live_ekf_slam_tpu_torch.ops import fused_ukf as fu
+from live_ekf_slam_tpu_torch.ops import micro_ops as mo
 from live_ekf_slam_tpu_torch.ops.precision import pin_fp32
+from live_ekf_slam_tpu_torch.tools import _common, micro_downdate, micro_ukf, micro_ukf_probe
 
 FILTERS = ("ekf_slam", "iekf_slam", "ukf_slam", "ukf_loc")
 PG_TARGETS = ("block_thomas", "block_thomas_factor", "schur_mv")
+# the register-tiled micro families: target -> the micro_ops function
+MICRO_TARGETS = {"micro_rank_update": "rank_update", "micro_joseph": "joseph"}
 PEAK_BYTES = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 
 
@@ -355,11 +369,47 @@ def schur_mv_ab(args, other: Path, dev):
     }), flush=True)
 
 
+def micro_ab(args, other: Path, dev):
+    """The tools' cases of one micro family, the other tree's kernel against
+    this tree's, in turns (other, this, this, other), one line a case."""
+    with ThreadPoolExecutor(2) as pool:  # every nvcc at once
+        list(pool.map(lambda c: _build.build((), c), [other, _build.CSRC]))
+    op = MICRO_TARGETS[args.target]
+    for tool in (micro_downdate, micro_ukf, micro_ukf_probe):
+        for c in tool.cases(args.worlds, dev):
+            if c["op"] != op:
+                continue
+            fn = getattr(mo, op)
+            turns, outs = [], {}
+            for tree in ("other", "this", "this", "other"):
+                with _build.sources(other if tree == "other" else _build.CSRC):
+                    turns.append((tree, 1e3 * _common.time_op(
+                        lambda: fn(*c["args"]), dev, args.reps)))
+                    outs.setdefault(tree, fn(*c["args"]))
+            torch.cuda.synchronize()
+            ms = {t: float(np.median([m for k, m in turns if k == t]))
+                  for t in ("other", "this")}
+            kw = ({"rank": c["rank"]} if op == "rank_update" else
+                  {"spelling": c["spelling"], "n_terms": c.get("n_terms", mo.JOSEPH_TERMS)})
+            print(json.dumps({
+                "target": args.target, "tool": tool.__name__.rsplit(".", 1)[1],
+                "case": c["name"], "variant": c["variant"], "worlds": args.worlds,
+                "dim": _common.DIM, "passes": c["passes"], "reps": args.reps,
+                "turns": turns, "median_ms": ms,
+                "us_per_pass": {t: 1e3 * m / c["passes"] for t, m in ms.items()},
+                "other_over_this": ms["other"] / ms["this"],
+                "rel_diff_to_other": rel_diff(outs["this"], outs["other"]),
+                "occupancy": mo.occupancy(op, _common.DIM, **kw),
+                "against": str(other), "card": card(),
+            }), flush=True)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="kernel_ab", description=__doc__.split("\n")[0])
     ap.add_argument("--against", required=True, type=Path,
                     help="the other tree's csrc directory")
-    ap.add_argument("--target", choices=("rollouts",) + PG_TARGETS, default="rollouts")
+    ap.add_argument("--target", choices=("rollouts",) + PG_TARGETS + tuple(MICRO_TARGETS),
+                    default="rollouts")
     ap.add_argument("--filters", default="ekf_slam,iekf_slam")
     ap.add_argument("--worlds", type=int, default=None,
                     help="default 4096, the pose-graph targets 1024")
@@ -384,6 +434,9 @@ def main(argv=None):
             study_ab(args, other)
         return
     args.worlds = args.worlds or 4096
+    if args.target in MICRO_TARGETS:
+        micro_ab(args, other, dev)
+        return
     filters = args.filters.split(",")
     if not set(filters) <= set(FILTERS):
         raise SystemExit(f"kernel_ab: filters must be among {FILTERS}")

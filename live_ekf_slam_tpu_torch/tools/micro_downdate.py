@@ -3,7 +3,8 @@
     python3 -m live_ekf_slam_tpu_torch.tools.micro_downdate [--worlds 4096] [--device cuda]
 
 Counterpart of ``scripts/micro_downdate.py``. It answers, for one warp per
-world walking a (D, D) covariance in shared memory:
+world holding a (D, D) covariance in its registers (the rank updates) or
+walking it in shared memory (the gathers):
 
 1. what back-to-back rank-2 downdates of every world's covariance cost, the
    dominant operation of the fused EKF and RI-EKF rollouts;

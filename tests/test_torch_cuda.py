@@ -30,6 +30,7 @@ from live_ekf_slam_tpu_torch.ops import fused_rollout as fr
 from live_ekf_slam_tpu_torch.ops import fused_ukf as fu
 from live_ekf_slam_tpu_torch.ops import micro_ops as mo
 from live_ekf_slam_tpu_torch.sim.streams import naive_deadreckon, sim_streams
+from live_ekf_slam_tpu_torch.tools import _common, micro_ukf_probe
 from port_harness import cuda_device, small_cfg  # noqa: F401  (fixture)
 
 pytestmark = pytest.mark.cuda
@@ -370,7 +371,9 @@ def test_micro_kernels_match_plain(tool, cuda_device):
     # the default build within chip_smoke.MICRO_RTOL of the output's scale,
     # the -fmad=false build bit for bit (micro_compare raises otherwise)
     mod = importlib.import_module(f"live_ekf_slam_tpu_torch.tools.{tool}")
-    for dim in (48, 43):  # 43: the EKF's own D, an odd row stride by itself
+    # 43: the EKF's own D, an odd row stride and 4-byte words by itself; 44:
+    # the UKF's; both leave rows and columns of the register tile padded
+    for dim in (48, 44, 43):
         for c in mod.cases(250, cuda_device, passes=3, dim=dim):
             res = chip_smoke.micro_compare(c, 250)
             assert res["no_fma_bitwise_equal"], c["name"]
@@ -380,6 +383,54 @@ def test_micro_kernels_match_plain(tool, cuda_device):
                 # off by roundings of the scale with it
                 assert res["asymmetry_no_fma"] == 0.0, c["name"]
                 assert 0.0 < res["asymmetry"] <= 1e-5 * res["scale"], c["name"]
+
+
+def test_micro_joseph_every_term_count_matches_plain(cuda_device):
+    # the tools time 1, 2, 4 and 7 terms; every count of the kernel's
+    # template against the plain version, at each D of the register tile
+    for dim in (48, 44, 43):
+        probe = micro_ukf_probe.cases(250, cuda_device, passes=3, dim=dim)
+        base = next(c for c in probe if c["op"] == "joseph")
+        for nt in range(1, mo.JOSEPH_TERMS + 1):
+            c = _common.case(f"joseph terms={nt}", "joseph", base["args"][:7] + ("terms", nt),
+                             3, 0, variant=f"terms={nt}", spelling="terms", n_terms=nt)
+            res = chip_smoke.micro_compare(c, 250)
+            assert res["no_fma_bitwise_equal"], (dim, nt)
+
+
+def test_register_micro_kernels_keep_p_in_registers(cuda_device):
+    # no local memory (an array not held in registers lives there) for any
+    # instantiation, and 8 or 16 worlds an SM: whole waves at 4096 worlds
+    for r in mo.RANKS:
+        occ = mo.occupancy("rank_update", mo.TILE, rank=r)
+        assert occ["local_bytes"] == 0 and occ["worlds_per_sm"] in (8, 16), (r, occ)
+    for sp in mo.JOSEPH_SPELLINGS:
+        for nt in range(1, mo.JOSEPH_TERMS + 1) if sp == "terms" else (mo.JOSEPH_TERMS,):
+            occ = mo.occupancy("joseph", mo.TILE, spelling=sp, n_terms=nt)
+            assert occ["local_bytes"] == 0 and occ["worlds_per_sm"] in (8, 16), (sp, nt, occ)
+
+
+def test_register_micro_kernels_refuse_d_past_the_tile(cuda_device):
+    d = mo.TILE + 1
+    p = torch.zeros(4, d, d, device=cuda_device)
+    v = torch.zeros(4, d, device=cuda_device)
+    s = torch.zeros(4, 3, device=cuda_device)
+    before = dict(mo.launches)
+    with pytest.raises(ValueError, match=f"D <= {mo.TILE}"):
+        mo.rank_update(p, v[:, None], v[:, None], 1)
+    with pytest.raises(ValueError, match=f"D <= {mo.TILE}"):
+        mo.joseph(p, v, v, v, v, s, 1)
+    assert mo.launches == before
+    # the C entry points refuse it as well, before any launch
+    lib = _build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    out = torch.empty_like(p)
+    assert lib.les_micro_rank_update(p.data_ptr(), v.data_ptr(), v.data_ptr(),
+                                     out.data_ptr(), 4, d, 1, 1, stream) != 0
+    assert lib.les_micro_joseph(p.data_ptr(), *(v.data_ptr(),) * 4, s.data_ptr(),
+                                out.data_ptr(), 4, d, 1, 0, 7, stream) != 0
+    # the plain versions serve any D
+    assert mo.rank_update(p.cpu(), v[:, None].cpu(), v[:, None].cpu(), 1).shape == (4, d, d)
 
 
 def test_micro_wrappers_reject_bad_inputs(cuda_device):
