@@ -51,8 +51,9 @@ inputs over a mesh of every card present (the side check
 for bit its single launch at its shard seed, injected noise sharded
 against unsharded bit for bit; ``mean_over_worlds``, the per-tick
 EKF-SLAM step through ``sharded_step`` against the unsharded step at 4096
-x 20, a sharded checkpoint round trip, the weak-scaling rows of
-``tools/weak_scaling``) and, after the main path, over a virtual mesh of
+x 20, a sharded checkpoint round trip, the igvc1 closed loop sharded over
+8 virtual shards against the unsharded run, every leaf equal, the
+weak-scaling rows of ``tools/weak_scaling``) and, after the main path, over a virtual mesh of
 4 shards on cuda:0, a stream each (the same checks, shard 1 also against
 the plain version and bit for bit under -fmad=false, and each sharded
 call timed against its one-device launch). Those checks feed nothing
@@ -77,8 +78,8 @@ against the EKF and UKF-SLAM kernels' measured times. Beside these, right
 after the build, every rollout kernel's occupancy (registers, spills,
 shared memory, resident worlds an SM; K1, K2 and K4 SLAM must keep 16
 without spilling) and the block-Thomas solve's and the Schur matvec's (no
-spills), the register-tiled micro kernels' (rank_update, joseph: no spills,
-no local memory, 8 or 16 worlds an SM) and the float32 instructions of
+spills), the register micro kernels' (rank_update, joseph, chol, matvec:
+no spills, no local memory, 8 or 16 worlds an SM) and the float32 instructions of
 their pass loops in the SASS (``micro_sass``: no fewer than the expression
 needs, and the shared loads the design counts), and after
 the main paths the UKF, EKF and RI-EKF kernels' cycles by phase of the
@@ -119,7 +120,7 @@ from live_ekf_slam_tpu_torch.bench import (
     schur_system,
     time_rollouts,
 )
-from live_ekf_slam_tpu_torch.config import CompatConfig, Config
+from live_ekf_slam_tpu_torch.config import CompatConfig, Config, preset
 from live_ekf_slam_tpu_torch.convert import kernel_params
 from live_ekf_slam_tpu_torch.eval import closed_loop as cl
 from live_ekf_slam_tpu_torch.eval.runner import (
@@ -333,59 +334,136 @@ MICRO_KERNELS = {
 }
 # the families redesigned since their port, and in which change of the
 # port's record (PERF.md)
-MICRO_REDESIGNED = {"micro_rank_update": "PR 15", "micro_joseph": "PR 15"}
+MICRO_REDESIGNED = {"micro_rank_update": "PR 15", "micro_joseph": "PR 15",
+                    "micro_chol": "PR 16", "micro_matvec": "PR 16"}
 
 
-# the register-tiled micro kernels (template arguments as mangled_args takes
-# them) and the float32 instructions an entry of one pass needs, as the plain
-# version spells it with FMA contraction: a rank-R entry R FFMA; prod9 a and b
-# (a product and an FFMA each), -a - b, s00 (k0 k0) (FMUL, FFMA), s01 (k0 k1 +
-# k1 k0) (FMUL, FFMA, FFMA), s11 (k1 k1) (FMUL, FFMA) and P + v; hoist g00,
-# g11, g01, s00 g00 and the two sums of the other terms, two subtractions and
-# P + v; the first n of the seven terms 1, 1, 1, 1, 2, 2, 3
-MICRO_SASS = {
-    **{f"rank_update[R={r}]": (str(r), {"FFMA": r}) for r in mo.RANKS},
-    "joseph[prod9]": ("0, 0", {"FFMA": 6, "FMUL": 5, "FADD": 2}),
-    "joseph[hoist]": ("1, 0", {"FFMA": 5, "FMUL": 6, "FADD": 3}),
-    **{f"joseph[terms={n}]": (f"2, {n}", want) for n, want in (
-        (1, {"FFMA": 1}), (2, {"FFMA": 2}), (3, {"FFMA": 3}), (4, {"FFMA": 4}),
-        (5, {"FFMA": 5, "FMUL": 1}), (6, {"FFMA": 6, "FMUL": 2}),
-        (7, {"FFMA": 8, "FMUL": 3}))},
-}
 MICRO_TILE_ENTRIES = 12 * 6  # a lane's tile of the 48 x 48 matrix
 MICRO_TILE = 48
 # rank_update keeps k and h in registers up to this R (csrc/micro_ops.cu
 # kRankInRegisters) and reads them from shared memory above it
 RANK_IN_REGISTERS = 4
+# chol's pivot loop: the loop over row groups, 12 pivots of the tile's rows
+# unrolled in it
+CHOL_BLOCK = 12
+# a chol pivot's 16-byte loads of its column: the lane's 12 rows, 6 columns
+CHOL_PIVOT_LOADS = 5
+# the float32 instructions of one chol pivot besides its 72 FFMA of the
+# trailing update and its 12 FMUL of the column's scaling, as ptxas spells
+# them for sm_90a: the IEEE square root's two FMUL and two FFMA after its
+# MUFU.RSQ, the IEEE division's five FFMA after its MUFU.RCP, and the sum
+# that max_nan returns for a NaN pivot
+CHOL_PIVOT_OPS = {"FFMA": 7, "FMUL": 2, "FADD": 1}
+# matvec: a lane's two lines of the matrix padded to MICRO_TILE, and the
+# butterfly's tree over the 32 lanes' partial sums in the column order
+MATVEC_LINE_PRODUCTS = 2 * MICRO_TILE
+MATVEC_TREE_ADDS = 2 * 31
+
+
+def tile_ops(per_entry: dict) -> dict:
+    """A tiled register pass's float32 instructions a lane: ``per_entry``
+    for each of the lane's MICRO_TILE_ENTRIES entries."""
+    return {k_: MICRO_TILE_ENTRIES * v for k_, v in per_entry.items()}
+
+
+def chol_ops() -> dict:
+    """The float32 instructions of chol's pivot loop a lane: CHOL_BLOCK
+    pivots of 72 FFMA (the tile's trailing update), 12 FMUL (its rows of the
+    pivot column scaled) and the pivot's own square root and division."""
+    per = {"FFMA": MICRO_TILE_ENTRIES, "FMUL": 12}
+    for k_, v in CHOL_PIVOT_OPS.items():
+        per[k_] = per.get(k_, 0) + v
+    return {k_: CHOL_BLOCK * v for k_, v in per.items()}
+
+
+# the register kernels (template arguments as mangled_args takes them) and
+# the float32 instructions of their pass loop a lane, as the plain version
+# spells them with FMA contraction: a rank-R entry R FFMA; prod9 a and b (a
+# product and an FFMA each), -a - b, s00 (k0 k0) (FMUL, FFMA), s01 (k0 k1 +
+# k1 k0) (FMUL, FFMA, FFMA), s11 (k1 k1) (FMUL, FFMA) and P + v; hoist g00,
+# g11, g01, s00 g00 and the two sums of the other terms, two subtractions and
+# P + v; the first n of the seven terms 1, 1, 1, 1, 2, 2, 3. chol: its pivot
+# loop (chol_ops), one code for every variant. matvec: a vector of a pass,
+# a product of the lane's two lines an FFMA (the first from zero), then the
+# row order's two sums added onto out, or the column order's two trees and
+# two sums added onto out
+MICRO_SASS = {
+    **{f"rank_update[R={r}]": (str(r), tile_ops({"FFMA": r})) for r in mo.RANKS},
+    "joseph[prod9]": ("0, 0", tile_ops({"FFMA": 6, "FMUL": 5, "FADD": 2})),
+    "joseph[hoist]": ("1, 0", tile_ops({"FFMA": 5, "FMUL": 6, "FADD": 3})),
+    **{f"joseph[terms={n}]": (f"2, {n}", tile_ops(want)) for n, want in (
+        (1, {"FFMA": 1}), (2, {"FFMA": 2}), (3, {"FFMA": 3}), (4, {"FFMA": 4}),
+        (5, {"FFMA": 5, "FMUL": 1}), (6, {"FFMA": 6, "FMUL": 2}),
+        (7, {"FFMA": 8, "FMUL": 3}))},
+    # full and trail launch one instantiation, kLower false
+    "chol[full]": ("false", chol_ops()),
+    "chol[lower]": ("true", chol_ops()),
+    "matvec[row]": ("0", {"FFMA": MATVEC_LINE_PRODUCTS, "FADD": 2}),
+    "matvec[col]": ("1", {"FFMA": MATVEC_LINE_PRODUCTS, "FADD": MATVEC_TREE_ADDS + 2}),
+    "matvec[unrolled]": ("2", {"FFMA": MATVEC_LINE_PRODUCTS}),
+}
 
 
 def tile_lds(op: str, variant: str) -> int:
-    """16-byte shared loads a lane makes in one pass of a register-tiled
-    kernel (``variant`` as MICRO_SASS names it: "R=8", "prod9", "terms=3"):
-    a term of rank_update read from shared memory is three words of k (the
-    lane's 12 rows) and two of h (its 6 columns at a two-word stride);
-    joseph reads five such words for the vectors of each of its first four
-    terms, and one for s from the fifth on."""
+    """16-byte shared loads a lane makes in the pass loop of a register
+    kernel (``variant`` as MICRO_SASS names it: "R=8", "prod9", "terms=3",
+    "lower", "row"): a term of rank_update read from shared memory is three
+    words of k (the lane's 12 rows) and two of h (its 6 columns at a
+    two-word stride); joseph reads five such words for the vectors of each
+    of its first four terms, and one for s from the fifth on; a chol pivot
+    reads five such words of the pivot column, CHOL_BLOCK pivots a loop; a
+    matvec vector is 12 words, every lane reading all of them."""
     if op == "rank_update":
         r = int(variant.split("=")[1])
         return 0 if r <= RANK_IN_REGISTERS else 5 * r
+    if op == "chol":
+        return CHOL_PIVOT_LOADS * CHOL_BLOCK
+    if op == "matvec":
+        return MICRO_TILE // 4
     n = int(variant.split("=")[1]) if "=" in variant else mo.JOSEPH_TERMS
     return 5 * min(n, 4) + (n >= 5)
 
 
+# The shared pipe serves a warp's access in 128-byte wavefronts, one at the
+# least. A warp-wide 16-byte load of the register kernels' pass loops reads
+# at most 8 distinct words (a broadcast 1, a row group's 4, a column group's
+# 8), so it takes one wavefront, not the 512 bytes of its 32 lanes; so does
+# a store by the four lanes of chol's pivot column. Accesses to distinct
+# words (P staged, the lanes' copies) take their bytes.
+WAVEFRONT = 128.0
+# the stores of chol's pivot column a pivot, by its four lanes: three
+# 16-byte words in row order, two 16- and two 8-byte words in column groups
+CHOL_PIVOT_STORES = 7
+
+
 def tile_smem_bytes(c: dict, b: int, d: int) -> float:
-    """Shared-memory bytes a launch of a register-tiled case moves, every
-    lane's access counted: each pass's 16-byte loads (``tile_lds``), and
+    """Shared-pipe bytes a launch of a register case takes: WAVEFRONT for
+    each warp-wide 16-byte load of a pass (``tile_lds``), the bytes of each
+    access to distinct words. rank_update and joseph: each pass's loads, and
     once a world P staged in and out (each entry stored and loaded on the
     way in and on the way out) and the rank vectors written in padded
     layout (rows and column groups: 48 + 64 floats a vector; joseph's four
-    and s)."""
+    and s). chol: P staged in and out, the lanes' copies of their tiles
+    written once and read by every factorisation, and at each of its du
+    pivots the column's CHOL_PIVOT_STORES and, but after the last pivot,
+    which updates nothing, five loads. matvec: L staged in and read into the
+    lanes once, the A vectors written padded, and every matvec (a vector of
+    a pass) read as 12 broadcasts."""
+    if c["op"] == "chol":
+        copies = 32 * 4.0 * MICRO_TILE_ENTRIES
+        per_pass = (copies + c["du"] * CHOL_PIVOT_STORES * WAVEFRONT
+                    + (c["du"] - 1) * CHOL_PIVOT_LOADS * WAVEFRONT)
+        return b * (4 * 4.0 * d * d + copies + c["passes"] * per_pass)
+    if c["op"] == "matvec":
+        a = c["args"][1].shape[1]
+        once = 2 * 4.0 * d * d + 4.0 * a * MICRO_TILE
+        return b * (once + c["passes"] * WAVEFRONT * tile_lds("matvec", c["order"]))
     if c["op"] == "rank_update":
         variant, vectors = f"R={c['rank']}", (c["rank"] if c["rank"] > RANK_IN_REGISTERS else 0)
     else:
         variant = c["spelling"] + (f"={c['n_terms']}" if c["spelling"] == "terms" else "")
         vectors = 4
-    per_pass = 32 * 16.0 * tile_lds(c["op"], variant)
+    per_pass = WAVEFRONT * tile_lds(c["op"], variant)
     once = 4 * 4.0 * d * d + 4.0 * vectors * (MICRO_TILE + 64) + (16.0 if c["op"] == "joseph" else 0)
     return b * (c["passes"] * per_pass + once)
 
@@ -1147,12 +1225,14 @@ def micro_work(c: dict, b: int, d: int) -> tuple[float, float, float, float]:
     Cholesky's trailing updates over the lower triangle, one add an entry of
     the gathered column. The bound comes from them and from the bytes, each
     input read and each output written once in device memory. Beside the
-    bound: every 4-byte access a lane makes to shared memory, and the flops
-    this variant's loops execute, read off the kernel (the full-width and
-    trailing-column Cholesky subtract zeros left of the pivot, the
-    select-and-sum gather multiplies whole rows by a one-hot). The
-    register-tiled rank_update and joseph count their shared bytes by
-    ``tile_smem_bytes``."""
+    bound: the shared pipe's bytes (the shared-memory families' lanes read
+    distinct words, 4 bytes an access; the register kernels' by
+    ``tile_smem_bytes``, in wavefronts), and the flops this variant's loops
+    execute, read off the kernel (the register Cholesky updates the whole
+    padded tile at every pivot but the last and scales 12 rows a lane; the
+    matvec's lanes multiply two padded lines each, and its column order adds
+    their trees; the select-and-sum gather multiplies whole rows by a
+    one-hot)."""
     op, n = c["op"], float(c["passes"])
     mat = 4.0 * b * d * d
     if op == "rank_update":
@@ -1166,16 +1246,18 @@ def micro_work(c: dict, b: int, d: int) -> tuple[float, float, float, float]:
                 n * b * (2.0 * d * d + d if sel else d))
     if op == "chol":
         du = c["du"]
-        e = c["per_pass_elems"] / b  # entries this variant's trailing updates walk
         e_low = micro_ukf.chol_elems("lower", d, du)
         scal = sum(d - j - 1 for j in range(du))
+        tile = MICRO_TILE * MICRO_TILE
         return (n * b * (2.0 * e_low + scal + 2.0 * du), 2 * mat,
-                n * b * 4.0 * (2.0 * d * d + 3.0 * e + 2.0 * scal),
-                n * b * (2.0 * e + scal + 2.0 * du))
+                tile_smem_bytes(c, b, d),
+                n * b * (2.0 * tile * (du - 1) + 32 * 12.0 * du + 2.0 * du))
     if op == "matvec":
         flops = n * b * 2.0 * d * d
+        adds = MATVEC_TREE_ADDS if c["order"] == "col" else 0
         return (flops, mat + 4.0 * b * d * (1 + c["args"][1].shape[1]),
-                n * b * 4.0 * (2.0 * d * d + 2 * d), flops)
+                tile_smem_bytes(c, b, d),
+                n * b * 32 * (2.0 * MATVEC_LINE_PRODUCTS + adds))
     if op == "joseph":
         per = (sum(JOSEPH_TERM_FLOPS[:c["n_terms"]]) if c["spelling"] == "terms"
                else JOSEPH_FLOPS[c["spelling"]])
@@ -1364,11 +1446,13 @@ def phase_op_sum(dev, n_lm: int, gates: dict, times: dict, kernel_ms: dict):
     primitive's measured time per pass at the kernel's own dimension, against
     the kernel's measured time: for K1 (D = 43) and K4 SLAM (Du = 44). A pass
     is timed over the whole batch, so a count per world-tick times the
-    batch's time per pass is the batch's time. The rank-2 update and the
-    Joseph update are register-tiled kernels: their parts read what the
-    primitive costs at its best on this card, not a copy of the rollout's
-    loop, so the sum is a floor of those parts, not the kernel's own
-    split."""
+    batch's time per pass is the batch's time. The rank-2 update, the
+    Cholesky, the matvec and the Joseph update are register kernels: their
+    parts read what those designs cost on this card, not a copy of the
+    rollout's loop, so the sum is a floor of those designs, not the kernel's
+    own split nor the primitives' least cost (the register Cholesky updates
+    the whole padded tile at every pivot, 5.7x the lower triangle's flops at
+    D = 48)."""
     b, t_total = MAIN["batch"], MAIN["steps"]
     upd = gates["updates"] / gates["ticks"]  # updates per world and tick
 
@@ -1394,14 +1478,16 @@ def phase_op_sum(dev, n_lm: int, gates: dict, times: dict, kernel_ms: dict):
     du = fu.state_dim(n_lm, True)
     per = {c["variant"]: us_per_pass(c)
            for c in micro_ukf.cases(b, dev, dim=du, du=du)}
-    # The micro kernels are the TPU scripts' loops at K4's counts, no longer
-    # K4's own (which factors four pivots a pass and walks lines of two
-    # rows; its split by phase is the ukf_phase_clocks line): the sum says
-    # what a tick would cost spelled as those loops, its Joseph part as the
-    # register-tiled kernel, the primitive's floor on this card. The rollout
-    # factors the active dimensions only (pivots past the highest seen slot
-    # are skipped): the mean of n_act^3 over Du^3; matvecs over the lower
-    # triangle (half of the rows' products); Joseph over one triangle,
+    # The micro kernels are the TPU scripts' functions at K4's counts, no
+    # longer K4's own loops (K4 factors four pivots a pass and walks lines of
+    # two rows; its split by phase is the ukf_phase_clocks line): the sum
+    # says what a tick would cost with its Cholesky, matvecs and Joseph
+    # update as the register kernels (the floors of these designs on this
+    # card: the Cholesky's tiles walk the whole padded width at every pivot,
+    # whatever the variant) and its z-stats as the TPU script's loop. The
+    # rollout factors the active dimensions only (pivots past the highest
+    # seen slot are skipped): the mean of n_act^3 over Du^3; matvecs over the
+    # lower triangle (half of the rows' products); Joseph over one triangle,
     # timed here as the both-triangles spelling; z-stats by rotation algebra
     # in place of this block's atan2, sin and cos
     f_chol = gates["act3"] / gates["ticks"] / du ** 3
@@ -1420,9 +1506,12 @@ def phase_op_sum(dev, n_lm: int, gates: dict, times: dict, kernel_ms: dict):
          kernel_ms=kernel_ms["ukf_slam"],
          explained_share=total / kernel_ms["ukf_slam"],
          not_timed_alone="sigma propagation, the 4x4 block, gain and gate, insertions",
-         note="the TPU scripts' loops at K4's counts; update_joseph reads the "
-              "register-tiled Joseph update, the primitive's floor on this card, "
-              "not K4's own loop; K4's own split: ukf_phase_clocks")
+         note="the TPU scripts' functions at K4's counts; chol_lower, the "
+              "matvecs and update_joseph read the register kernels, the "
+              "floors of these designs on this card (the Cholesky updates "
+              "the whole padded 48 x 48 tile at every pivot), not K4's own "
+              "loops; update_zstats the TPU script's loop; K4's own split: "
+              "ukf_phase_clocks")
 
 
 # the EKF kernels' instantiations: name -> (filter kind, profile mode,
@@ -1509,25 +1598,26 @@ def sass_pass_loops(sass: str, keep: tuple[str, ...] = ("",)) -> dict:
 
 
 def micro_sass(lib: Path) -> dict:
-    """The register-tiled kernels of the default build's library ``lib``
+    """The register kernels of the default build's library ``lib``
     disassembled (``cuobjdump -sass``): for each kernel of MICRO_SASS the
-    float32 arithmetic and 16-byte shared loads of its pass loop a lane,
-    beside what the expression needs for the lane's MICRO_TILE_ENTRIES
-    entries and the loads the design makes (``tile_lds``, which
-    ``micro_work``'s shared-memory bytes count). Less arithmetic would mean
-    part of a pass was hoisted out of the loop, other loads that the bytes
-    are not the kernel's: raises. One ``micro_sass`` line."""
+    float32 arithmetic and 16-byte shared loads of its pass loop a lane
+    (chol's: the loop over its pivots), beside what the expression needs
+    for the lane's entries and the loads the design makes (``tile_lds``,
+    which ``micro_work``'s shared-memory bytes count). Less arithmetic would
+    mean part of a pass was hoisted out of the loop, other loads that the
+    bytes are not the kernel's: raises. One ``micro_sass`` line."""
     cuobjdump = str(Path(_build.find_nvcc()).with_name("cuobjdump"))
     sass = subprocess.run([cuobjdump, "-sass", str(lib)],
                           check=True, capture_output=True, text=True).stdout
-    loops = sass_pass_loops(sass, keep=("rank_update_kernel", "joseph_kernel"))
+    loops = sass_pass_loops(sass, keep=("rank_update_kernel", "joseph_kernel",
+                                        "chol_kernel", "matvec_kernel"))
     rows = {}
-    for name, (targs, per_entry) in MICRO_SASS.items():
+    for name, (targs, expression) in MICRO_SASS.items():
         op, variant = name[:-1].split("[")
         stem = op + "_kernel" + mangled_args(targs)
         body = next(v for k_, v in loops.items() if stem in k_)
         found = {k_: body.get(k_, 0) for k_ in SASS_FP}
-        want = {k_: MICRO_TILE_ENTRIES * per_entry.get(k_, 0) for k_ in SASS_FP}
+        want = {k_: expression.get(k_, 0) for k_ in SASS_FP}
         rows[name] = {"per_pass": found, "expression": want,
                       "lds": sum(v for k_, v in body.items() if k_.startswith("LDS")),
                       "design_lds": tile_lds(op, variant),
@@ -1566,8 +1656,8 @@ def phase_occupancy(n_lm: int, ptxas: dict) -> list:
     sources, block_thomas.cu, schur_mv.cu and micro_ops.cu). K1 and K2
     must keep EKF_RESIDENT worlds on an SM, K4 SLAM UKF_SLAM_RESIDENT,
     without spilling; beside them P1's solve and P2, which must not spill
-    either, and the register-tiled micro kernels at D = 48, which must use
-    no local memory at all and hold 8 or 16 worlds an SM."""
+    either, and the register micro kernels at D = 48, which must use no
+    local memory at all and hold 8 or 16 worlds an SM."""
     rows, args = [], {}
     for name, (kind, mode, traj, targs) in EKF_INSTANCES.items():
         rows.append({"kernel": name, **fr.occupancy(n_lm, kind, mode, traj)})
@@ -1601,15 +1691,13 @@ def phase_occupancy(n_lm: int, ptxas: dict) -> list:
                                     or r["spill_store_bytes"] or r["spill_load_bytes"]):
             raise AssertionError(f"{r['kernel']}: fewer than {need[r['kernel']]} "
                                  f"worlds an SM, or spills: {r}")
-    # the register-tiled micro kernels at D = 48 and 4096 worlds: P stays in
-    # registers, so no spills and no local memory; 8 or 16 worlds an SM, so
-    # that 4096 worlds take whole waves of at most 32 worlds an SM
+    # the register micro kernels at D = 48 and 4096 worlds: the matrix stays
+    # in registers, so no spills and no local memory; 8 or 16 worlds an SM,
+    # so that 4096 worlds take whole waves of at most 32 worlds an SM
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     for name, (targs, _) in MICRO_SASS.items():
         op, variant = name[:-1].split("[")
-        kw = ({"rank": int(variant[2:])} if op == "rank_update" else
-              {"spelling": variant.split("=")[0],
-               "n_terms": int(variant.split("=")[1]) if "=" in variant else mo.JOSEPH_TERMS})
+        kw = mo.occupancy_kwargs(op, variant, micro_ukf.MATVEC_A)
         r = {"kernel": "micro_" + name, "dim": MICRO_DIM, **mo.occupancy(op, MICRO_DIM, **kw),
              **next(v for k_, v in ptxas.items()
                     if op + "_kernel" + mangled_args(targs) in k_)}
@@ -1758,8 +1846,10 @@ PT_RUN_GROUPS = (
 )
 PT_RUNS = {}  # mode -> the line of its full-size run, from its side process
 # The card against the CPU: every mode on these worlds and ticks, the same
-# inputs on both devices; all but PT_EIGH in two side processes.
-PT_SMALL = dict(batch=64, steps=200)
+# inputs on both devices; all but PT_EIGH in two side processes, whose
+# host-bound runs (the CPU's plain version on two threads) set the side
+# checks' pace at 200 ticks.
+PT_SMALL = dict(batch=64, steps=100)
 PT_CPU_GROUPS = (
     ("naive", "ekf_slam", "ekf_slam[unknown_ids]", "ukf_loc", "ukf_loc[chol]"),
     ("iekf_slam", "ukf_slam[chol]"),
@@ -2630,9 +2720,13 @@ def closed_loop_checks(dev):
 # ---- the host side (cli's single-world presets, clicked-goal pursuit, the
 # recorder, checkpoints, the AprilTag replay): a side check of its own, one
 # world through the entry points a user calls. filter -> ticks of its
-# filter_demo_results_only run: the preset's T = 1000 for EKF-SLAM and the
-# pose graph (naive secondary), T = 200 for the others
-HS_RESULTS = {"ekf_slam": 1000, "pose_graph": 1000, "naive": 200,
+# filter_demo_results_only run: 300 for EKF-SLAM and the pose graph (naive
+# secondary), whose preset runs HS_PRESET_T (a tick is one world's
+# host-bound step, 0.05-0.25 s beside the other side processes, so the
+# preset's length set the side checks' pace), 200 for the others. Philox at
+# one world and P1 and P2 on a one-world graph keep the preset's T.
+HS_PRESET_T = 1000
+HS_RESULTS = {"ekf_slam": 300, "pose_graph": 300, "naive": 200,
               "iekf_slam": 200, "ukf_slam": 200, "ukf_loc": 200}
 HS_LIVE = ("ekf_slam", "ukf_slam", "pose_graph")  # filter_demo_live, async_viz
 HS_LIVE_T = 100
@@ -2680,8 +2774,6 @@ def hs_viewer():
 def hs_config(preset_name: str, filt: str, steps: int, **kw) -> Config:
     """A preset at ``steps`` ticks whose viewer saves its final map and
     appends its average error under HS_OUT (``--base-dir``)."""
-    from live_ekf_slam_tpu_torch.config import preset
-
     cfg = preset(preset_name, Config(num_iterations=steps)).replace(
         filter=filt, num_iterations=steps, **kw)
     return cfg.replace(
@@ -2852,12 +2944,12 @@ def hs_card_vs_cpu(dev) -> dict:
 def hs_solve_single_world(dev) -> dict:
     """P1 and P2 at one world, a new edge of their layouts (half a warp a
     world for P1's factor, 256 threads a world for P2), at the pose-graph
-    demo's T: on a one-world graph's systems, at the first and the last
-    measurement scale and on chordal_init's, with both slot maps for P2,
-    against their plain versions as the side checks hold them at P1_WORLDS
-    worlds (``block_thomas_compare``, ``schur_mv_compare``). Returns the
-    largest error relative to scale of each kernel."""
-    steps = HS_RESULTS["pose_graph"]
+    preset's T (HS_PRESET_T): on a one-world graph's systems, at the first
+    and the last measurement scale and on chordal_init's, with both slot
+    maps for P2, against their plain versions as the side checks hold them
+    at P1_WORLDS worlds (``block_thomas_compare``, ``schur_mv_compare``).
+    Returns the largest error relative to scale of each kernel."""
+    steps = HS_PRESET_T
     cfg = pg_config(steps, "ekf_slam", False)
     graphs = pg_graphs(cfg, 1, dev, seed=1)[0]
     worst = dict.fromkeys(HS_SOLVE, 0.0)
@@ -2994,7 +3086,7 @@ def host_side_checks(dev):
     build_s = native.build_seconds
 
     # Philox at a demo's shape, one world: (1000, 48, 1)
-    shape = (1, HS_RESULTS["ekf_slam"], Config().map.num_landmarks, 1, dev)
+    shape = (1, HS_PRESET_T, Config().map.num_landmarks, 1, dev)
     nz, nz_ref = philox.philox_noise(*shape), philox.philox_noise_reference(*shape)
     ph = dict(shape=list(nz.shape), bitwise_equal=bool(torch.equal(nz, nz_ref)),
               max_abs_err=float((nz - nz_ref).abs().max()))
@@ -3231,6 +3323,40 @@ def md_checkpoint(mesh, carry, path: Path) -> dict:
     return line
 
 
+# the sharded closed loop against the unsharded one, as the card test holds
+# it: igvc1 with its 37 barrels, 16 worlds, 40 ticks, the planners cut to
+# 96 / 48 sweeps, on a virtual mesh of MD_CL_SHARDS shards (two worlds a
+# shard)
+MD_CL = dict(batch=16, steps=40, seed=11)
+MD_CL_SHARDS = 8
+
+
+def md_closed_loop(dev) -> dict:
+    """``run_closed_loop_sharded`` on the virtual mesh of MD_CL_SHARDS
+    shards on ``dev`` against ``run_closed_loop`` on the same worlds and
+    Philox draws: every leaf of the final carry equal (``torch.equal``);
+    raises on any difference."""
+    cfg = preset("igvc1", num_iterations=MD_CL["steps"]).replace(
+        num_landmark_slots=37, num_meas_slots=12)
+    cfg = cfg.replace(path_planning=dataclasses.replace(
+        cfg.path_planning, astar_max_iters=96, local_astar_max_iters=48,
+        path_capacity=128))
+    t0 = time.perf_counter()
+    _, one, _ = cl.run_closed_loop(cfg, MD_CL["batch"], MD_CL["seed"], device=dev)
+    t1 = time.perf_counter()
+    _, sharded = cl.run_closed_loop_sharded(cfg, pmesh.virtual_mesh(MD_CL_SHARDS, dev),
+                                            MD_CL["batch"], MD_CL["seed"])
+    t2 = time.perf_counter()
+    pairs = list(zip(ckpt.leaves(one), ckpt.leaves(sharded)))
+    unequal = [i for i, (a, b) in enumerate(pairs) if not torch.equal(a, b)]
+    line = dict(shards=MD_CL_SHARDS, **MD_CL, leaves=len(pairs),
+                unequal_leaves=unequal, bitwise_equal=not unequal,
+                unsharded_s=t1 - t0, sharded_s=t2 - t1)
+    if unequal or not pairs:
+        raise AssertionError(f"sharded closed loop differs from the unsharded one: {line}")
+    return line
+
+
 def md_timing(dev, base, lms, cmds) -> dict:
     """Each sharded rollout on the virtual mesh against its one-device
     launch at the main path's inputs, in turns: CUDA-event and host-clock
@@ -3260,7 +3386,8 @@ def multi_device_checks(dev, n_lm: int):
     """The multi-device phase's side check: K1 and K4 (SLAM and Loc)
     sharded over the real mesh of every card at the main path's inputs,
     the reduction on it and on the virtual mesh of MD_SHARDS shards on
-    cuda:0, the sharded per-tick step, a sharded checkpoint and the
+    cuda:0, the sharded per-tick step, a sharded checkpoint, the sharded
+    closed loop against the unsharded one (``md_closed_loop``) and the
     weak-scaling rows (beside the other side processes); a
     ``multi_device_side`` line that ``multi_device_path`` completes."""
     t_start = time.perf_counter()
@@ -3295,6 +3422,8 @@ def multi_device_checks(dev, n_lm: int):
     checkpoint = md_checkpoint(virtual, carry, MD_OUT / "sharded.npz")
     seconds["reduction_per_tick_checkpoint"], t0 = (time.perf_counter() - t0,
                                                     time.perf_counter())
+    closed_loop = md_closed_loop(dev)
+    seconds["closed_loop"], t0 = time.perf_counter() - t0, time.perf_counter()
     rows = []
     for n in MD_WEAK_VIRTUAL:
         rows.append(weak_scaling.run_row(n, MD_WEAK["worlds_per_device"],
@@ -3320,6 +3449,7 @@ def multi_device_checks(dev, n_lm: int):
          per_tick_ms_a_tick={"sharded": per_tick["sharded_ms_a_tick"],
                              "unsharded": per_tick["unsharded_ms_a_tick"]},
          checkpoint_bitwise_equal=checkpoint["bitwise_equal"],
+         closed_loop_sharded=closed_loop,
          weak_scaling_wall_s={f"{r['mode']}:{r['devices']}": r["wall_s"] for r in rows},
          part_seconds=seconds, seconds=time.perf_counter() - t_start)
 

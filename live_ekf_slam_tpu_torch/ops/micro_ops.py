@@ -38,8 +38,9 @@ CHOL_VARIANTS = ("full", "trail", "lower")
 MATVEC_ORDERS = ("row", "col", "unrolled")
 JOSEPH_SPELLINGS = ("prod9", "hoist", "terms")
 JOSEPH_TERMS = 7
-# the largest D that rank_update and joseph take on CUDA: their kernels hold
-# a world's matrix, padded to TILE x TILE, in one warp's registers
+# the largest D that rank_update, joseph, chol and matvec take on CUDA: their
+# kernels hold a world's matrix, padded to TILE x TILE, in one warp's
+# registers
 TILE = 48
 
 
@@ -190,7 +191,7 @@ def chol(p: torch.Tensor, n: int = 1, variant: str = "full",
     same lower triangle. ``"full"`` and ``"trail"`` start from the whole of
     p: past column du they leave the symmetric trailing update, before it
     zeros above the diagonal; ``"lower"`` starts from p's lower triangle and
-    leaves zeros above the diagonal throughout."""
+    leaves zeros above the diagonal throughout. On CUDA, D <= ``TILE``."""
     b, d = _matrix_dims("p", p)
     n = _passes(n)
     code = _code("variant", variant, CHOL_VARIANTS)
@@ -199,6 +200,7 @@ def chol(p: torch.Tensor, n: int = 1, variant: str = "full",
         raise ValueError(f"du must lie in [1, {d}], got {du}")
     if _on_cpu(p, "chol"):
         return chol_reference(p, n, variant, du)
+    _fits_tile("chol", d)
     out = torch.empty_like(p)
     _launch("chol", "les_micro_chol", p.device, p.data_ptr(), out.data_ptr(),
             b, d, du, n, code)
@@ -241,7 +243,7 @@ def matvec(l: torch.Tensor, g: torch.Tensor, n: int,
     sum then added to out (the rollout kernel's matvec). ``"col"``: M = L^T,
     each output summed over the rows in the warp's order (``lane_sum``).
     ``"unrolled"``: M = L, the D products of a row added onto out one after
-    the other."""
+    the other. On CUDA, D <= ``TILE``."""
     b, d = _matrix_dims("l", l)
     n = _passes(n)
     code = _code("order", order, MATVEC_ORDERS)
@@ -251,6 +253,7 @@ def matvec(l: torch.Tensor, g: torch.Tensor, n: int,
     _check("g", g, (b, a, d), l.device)
     if _on_cpu(l, "matvec"):
         return matvec_reference(l, g, n, order)
+    _fits_tile("matvec", d)
     out = torch.empty((b, d), dtype=torch.float32, device=l.device)
     _launch("matvec", "les_micro_matvec", l.device, l.data_ptr(), g.data_ptr(),
             out.data_ptr(), b, d, a, n, code)
@@ -346,14 +349,41 @@ def joseph_reference(p, k0, k1, cr, cb, s, n: int, spelling: str = "prod9",
 
 
 def occupancy(op: str, d: int = TILE, rank: int = 2, spelling: str = "prod9",
-              n_terms: int = JOSEPH_TERMS) -> dict:
-    """The launch of ``rank_update`` (``op="rank_update"``, ``rank``) or
-    ``joseph`` (``spelling``, ``n_terms``) at D = d as the card takes it
-    (``_build.occupancy``)."""
+              n_terms: int = JOSEPH_TERMS, variant: str = "lower",
+              order: str = "row", vectors: int = 4) -> dict:
+    """The launch at D = d as the card takes it (``_build.occupancy``) of
+    ``rank_update`` (``op="rank_update"``, ``rank``), ``joseph``
+    (``spelling``, ``n_terms``), ``chol`` (``variant``) or ``matvec``
+    (``order``, ``vectors`` a pass)."""
     if op == "rank_update":
         return _build.occupancy("les_micro_occupancy", 0, rank, 0, d)
-    return _build.occupancy("les_micro_occupancy", 1,
-                            _code("spelling", spelling, JOSEPH_SPELLINGS), n_terms, d)
+    if op == "joseph":
+        return _build.occupancy("les_micro_occupancy", 1,
+                                _code("spelling", spelling, JOSEPH_SPELLINGS), n_terms, d)
+    if op == "chol":
+        return _build.occupancy("les_micro_occupancy", 2,
+                                _code("variant", variant, CHOL_VARIANTS), 0, d)
+    if op == "matvec":
+        return _build.occupancy("les_micro_occupancy", 3,
+                                _code("order", order, MATVEC_ORDERS), vectors, d)
+    raise ValueError(f"no occupancy entry for {op!r}")
+
+
+def occupancy_kwargs(op: str, variant: str, vectors: int = 4) -> dict:
+    """The keywords of ``occupancy`` for a register kernel's variant as the
+    tools and chip_smoke.py name it ("R=2", "R=2 (probe)", "prod9",
+    "terms=3", "lower", "row", "row x4"); matvec with ``vectors`` a pass."""
+    v = variant.split(" ")[0]
+    if op == "rank_update":
+        return {"rank": int(v.split("=")[1])}
+    if op == "joseph":
+        spelling, _, n = v.partition("=")
+        return {"spelling": spelling, "n_terms": int(n) if n else JOSEPH_TERMS}
+    if op == "chol":
+        return {"variant": v}
+    if op == "matvec":
+        return {"order": v, "vectors": vectors}
+    raise ValueError(f"no register family: {op!r}")
 
 
 # --------------------------------------------------------------------- zstats

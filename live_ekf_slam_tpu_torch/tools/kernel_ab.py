@@ -7,7 +7,8 @@
         --target block_thomas | block_thomas_factor | schur_mv \\
         [--worlds 1024] [--study] [--clocks]
     python3 -m live_ekf_slam_tpu_torch.tools.kernel_ab --against DIR \\
-        --target micro_rank_update | micro_joseph [--worlds 4096] [--reps 5]
+        --target micro_rank_update | micro_joseph | micro_chol | micro_matvec \\
+        [--worlds 4096] [--reps 5]
 
 DIR is another tree's ``csrc`` directory with the same C interface, for a
 commit: ``git archive COMMIT live_ekf_slam_tpu_torch/csrc | tar -x -C OUT``
@@ -50,7 +51,8 @@ turns, each in a process of its own run from that tree's root, so that
 each runs its own Python as well as its own kernels (DIR must be the
 ``live_ekf_slam_tpu_torch/csrc`` of a whole tree: ``git archive COMMIT |
 tar -x -C OUT``): wall and solve seconds, mean errors, diverged worlds.
-``--target micro_rank_update`` / ``micro_joseph``: every case of that
+``--target micro_rank_update`` / ``micro_joseph`` / ``micro_chol`` /
+``micro_matvec``: every case of that
 family in the three microbenchmark tools (``micro_downdate``, ``micro_ukf``,
 ``micro_ukf_probe``) at ``--worlds`` worlds, D = 48 and the tools' own pass
 counts, the other tree's ``micro_ops.cu`` against this tree's in turns:
@@ -96,8 +98,9 @@ from live_ekf_slam_tpu_torch.tools import _common, micro_downdate, micro_ukf, mi
 
 FILTERS = ("ekf_slam", "iekf_slam", "ukf_slam", "ukf_loc")
 PG_TARGETS = ("block_thomas", "block_thomas_factor", "schur_mv")
-# the register-tiled micro families: target -> the micro_ops function
-MICRO_TARGETS = {"micro_rank_update": "rank_update", "micro_joseph": "joseph"}
+# the register micro families: target -> the micro_ops function
+MICRO_TARGETS = {"micro_rank_update": "rank_update", "micro_joseph": "joseph",
+                 "micro_chol": "chol", "micro_matvec": "matvec"}
 PEAK_BYTES = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 
 
@@ -389,8 +392,6 @@ def micro_ab(args, other: Path, dev):
             torch.cuda.synchronize()
             ms = {t: float(np.median([m for k, m in turns if k == t]))
                   for t in ("other", "this")}
-            kw = ({"rank": c["rank"]} if op == "rank_update" else
-                  {"spelling": c["spelling"], "n_terms": c.get("n_terms", mo.JOSEPH_TERMS)})
             print(json.dumps({
                 "target": args.target, "tool": tool.__name__.rsplit(".", 1)[1],
                 "case": c["name"], "variant": c["variant"], "worlds": args.worlds,
@@ -399,7 +400,8 @@ def micro_ab(args, other: Path, dev):
                 "us_per_pass": {t: 1e3 * m / c["passes"] for t, m in ms.items()},
                 "other_over_this": ms["other"] / ms["this"],
                 "rel_diff_to_other": rel_diff(outs["this"], outs["other"]),
-                "occupancy": mo.occupancy(op, _common.DIM, **kw),
+                "occupancy": mo.occupancy(op, _common.DIM, **mo.occupancy_kwargs(
+                    op, c["variant"], c["args"][1].shape[1] if op == "matvec" else 4)),
                 "against": str(other), "card": card(),
             }), flush=True)
 

@@ -408,6 +408,13 @@ def test_register_micro_kernels_keep_p_in_registers(cuda_device):
         for nt in range(1, mo.JOSEPH_TERMS + 1) if sp == "terms" else (mo.JOSEPH_TERMS,):
             occ = mo.occupancy("joseph", mo.TILE, spelling=sp, n_terms=nt)
             assert occ["local_bytes"] == 0 and occ["worlds_per_sm"] in (8, 16), (sp, nt, occ)
+    for variant in mo.CHOL_VARIANTS:
+        occ = mo.occupancy("chol", mo.TILE, variant=variant)
+        assert occ["local_bytes"] == 0 and occ["worlds_per_sm"] in (8, 16), (variant, occ)
+    for order in mo.MATVEC_ORDERS:
+        for vectors in (1, 4):
+            occ = mo.occupancy("matvec", mo.TILE, order=order, vectors=vectors)
+            assert occ["local_bytes"] == 0 and occ["worlds_per_sm"] in (8, 16), (order, occ)
 
 
 def test_register_micro_kernels_refuse_d_past_the_tile(cuda_device):
@@ -420,6 +427,10 @@ def test_register_micro_kernels_refuse_d_past_the_tile(cuda_device):
         mo.rank_update(p, v[:, None], v[:, None], 1)
     with pytest.raises(ValueError, match=f"D <= {mo.TILE}"):
         mo.joseph(p, v, v, v, v, s, 1)
+    with pytest.raises(ValueError, match=f"D <= {mo.TILE}"):
+        mo.chol(p + torch.eye(d, device=cuda_device), 1, "lower")
+    with pytest.raises(ValueError, match=f"D <= {mo.TILE}"):
+        mo.matvec(p, v[:, None], 1, "col")
     assert mo.launches == before
     # the C entry points refuse it as well, before any launch
     lib = _build.load()
@@ -429,8 +440,63 @@ def test_register_micro_kernels_refuse_d_past_the_tile(cuda_device):
                                      out.data_ptr(), 4, d, 1, 1, stream) != 0
     assert lib.les_micro_joseph(p.data_ptr(), *(v.data_ptr(),) * 4, s.data_ptr(),
                                 out.data_ptr(), 4, d, 1, 0, 7, stream) != 0
+    assert lib.les_micro_chol(p.data_ptr(), out.data_ptr(), 4, d, d, 1, 2, stream) != 0
+    assert lib.les_micro_matvec(p.data_ptr(), v.data_ptr(), out.data_ptr(), 4, d, 1, 1, 0,
+                                stream) != 0
     # the plain versions serve any D
     assert mo.rank_update(p.cpu(), v[:, None].cpu(), v[:, None].cpu(), 1).shape == (4, d, d)
+    assert mo.matvec(p.cpu(), v[:, None].cpu(), 1, "row").shape == (4, d)
+
+
+def _spd_with_clamped_pivots(dim, dev):
+    # as test_torch_micro_ops's clamped-pivot case, world-major: eight SPD
+    # worlds, two with a dead direction (row and column 5 zero), two with a
+    # tiny pivot 9
+    rng = np.random.default_rng(3)
+    a = rng.standard_normal((8, dim, dim), dtype=np.float32)
+    p = np.matmul(a, a.transpose(0, 2, 1)) / np.float32(dim) + np.eye(dim, dtype=np.float32)
+    p[:2, 5, :] = 0.0
+    p[:2, :, 5] = 0.0
+    p[2:4, 9, 9] = 1e-9
+    return torch.as_tensor(p.astype(np.float32), device=dev)
+
+
+@pytest.mark.parametrize("dim", [48, 44, 43])
+def test_chol_without_fma_equals_plain_at_clamped_pivots(dim, cuda_device):
+    # the register Cholesky's -fmad=false build against the plain version,
+    # value for value, on worlds whose pivots clamp, at du = 1, 44 and D,
+    # for every variant; the default build within MICRO_RTOL of the scale
+    p = _spd_with_clamped_pivots(dim, cuda_device)
+    for variant in mo.CHOL_VARIANTS:
+        for du in sorted({1, min(44, dim), dim}):
+            c = _common.case(f"chol {variant} du={du}", "chol", (p, 3, variant, du), 3, 0,
+                             variant=variant, du=du)
+            res = chip_smoke.micro_compare(c, 8)
+            assert res["no_fma_bitwise_equal"] and res["rel_to_scale"] <= chip_smoke.MICRO_RTOL
+            out = mo.chol(p, 1, variant, du)
+            assert torch.isfinite(out).all(), (variant, du)
+            if du > 5:
+                # the dead direction: column 5 zero below the pivot, whose
+                # diagonal is sqrt(CHOL_EPS)
+                assert torch.equal(out[:2, 6:, 5], torch.zeros_like(out[:2, 6:, 5]))
+                assert out[0, 5, 5].item() == pytest.approx(float(np.sqrt(np.float32(mo.CHOL_EPS))))
+
+
+@pytest.mark.parametrize("vectors", [1, 4])
+def test_matvec_without_fma_equals_plain_for_one_and_four_vectors(vectors, cuda_device):
+    # every order with one and four vectors a pass, at each D of the
+    # register lines, 250 worlds (a ragged last block of eight)
+    rng = np.random.default_rng(5)
+    for dim in (48, 44, 43):
+        l0 = torch.as_tensor(rng.standard_normal((250, dim, dim), dtype=np.float32),
+                             device=cuda_device)
+        g = torch.as_tensor(rng.standard_normal((250, vectors, dim), dtype=np.float32),
+                            device=cuda_device)
+        for order in mo.MATVEC_ORDERS:
+            c = _common.case(f"matvec {order}", "matvec", (l0, g, 5, order), 5 * vectors, 0,
+                             variant=order, order=order)
+            res = chip_smoke.micro_compare(c, 250)
+            assert res["no_fma_bitwise_equal"], (dim, order)
 
 
 def test_micro_wrappers_reject_bad_inputs(cuda_device):
@@ -676,19 +742,7 @@ def test_weak_scaling_rows_on_the_card(cuda_device):
 
 
 def test_sharded_closed_loop_on_the_card_is_the_unsharded_one(cuda_device):
-    import dataclasses
-
-    from live_ekf_slam_tpu_torch.config import preset
-    from live_ekf_slam_tpu_torch.eval import closed_loop as cl
-    from live_ekf_slam_tpu_torch.parallel import mesh as pmesh
-    from live_ekf_slam_tpu_torch.utils.checkpoint import leaves
-
-    cfg = preset("igvc1", num_iterations=40).replace(num_landmark_slots=37,
-                                                     num_meas_slots=12)
-    cfg = cfg.replace(path_planning=dataclasses.replace(
-        cfg.path_planning, astar_max_iters=96, local_astar_max_iters=48,
-        path_capacity=128))
-    _, f1, _ = cl.run_closed_loop(cfg, 16, 11, device=cuda_device)
-    _, f2 = cl.run_closed_loop_sharded(cfg, pmesh.virtual_mesh(8, cuda_device), 16, 11)
-    for a, b in zip(leaves(f1), leaves(f2)):
-        assert torch.equal(a, b)
+    # igvc1, 16 worlds, 40 ticks on 8 virtual shards: every leaf of the
+    # final carry equal to the unsharded run's (chip_smoke's multi_device
+    # group runs the same check)
+    assert chip_smoke.md_closed_loop(cuda_device)["bitwise_equal"]

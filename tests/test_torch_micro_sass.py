@@ -1,8 +1,8 @@
-"""The checks chip_smoke.py makes of the register-tiled micro kernels
-(``csrc/micro_ops.cu`` rank_update and joseph) that need no card: how it
-finds a kernel's pass loop in ``cuobjdump -sass`` output and counts its
-float32 arithmetic, what each kernel's expression needs, and the wrappers'
-refusal of D past the register tile before anything launches."""
+"""The checks chip_smoke.py makes of the register micro kernels
+(``csrc/micro_ops.cu`` rank_update, joseph, chol and matvec) that need no
+card: how it finds a kernel's pass loop in ``cuobjdump -sass`` output and
+counts its float32 arithmetic, what each kernel's expression needs, and the
+wrappers' refusal of D past the register tile before anything launches."""
 
 import pytest
 import torch
@@ -60,9 +60,14 @@ def test_sass_names_match_every_register_kernel_instantiation():
     # entries find the same one
     stems = {name.split("[")[0] + "_kernel" + chip_smoke.mangled_args(targs)
              for name, (targs, _) in chip_smoke.MICRO_SASS.items()}
-    assert len(stems) == len(chip_smoke.MICRO_SASS) == len(mo.RANKS) + 2 + mo.JOSEPH_TERMS
+    # chol's full and trail variants launch one instantiation
+    assert len(stems) == len(chip_smoke.MICRO_SASS) == (
+        len(mo.RANKS) + 2 + mo.JOSEPH_TERMS + 2 + len(mo.MATVEC_ORDERS))
     assert "rank_update_kernelILi16EE" in stems and "joseph_kernelILi2ELi7EE" in stems
-    assert all(s_.startswith(("rank_update_kernelI", "joseph_kernelI")) for s_ in stems)
+    assert "chol_kernelILb0EE" in stems and "chol_kernelILb1EE" in stems
+    assert "matvec_kernelILi1EE" in stems
+    assert all(s_.startswith(("rank_update_kernelI", "joseph_kernelI", "chol_kernelI",
+                              "matvec_kernelI")) for s_ in stems)
 
 
 @pytest.mark.parametrize("n_terms", range(1, mo.JOSEPH_TERMS + 1))
@@ -72,20 +77,22 @@ def test_sass_expression_of_terms_is_their_flops(n_terms):
     # say, so that spelling's bound is its issue floor
     want = chip_smoke.MICRO_SASS[f"joseph[terms={n_terms}]"][1]
     flops = 2 * want.get("FFMA", 0) + want.get("FMUL", 0) + want.get("FADD", 0)
-    assert flops == sum(chip_smoke.JOSEPH_TERM_FLOPS[:n_terms])
+    assert flops == chip_smoke.MICRO_TILE_ENTRIES * sum(chip_smoke.JOSEPH_TERM_FLOPS[:n_terms])
 
 
 def test_sass_expression_of_the_full_spellings():
     # prod9 and hoist: 11 products, 8 sums and a negation by the bound's
     # count; the negation folds into an operand, 6 or 5 products into FFMA
+    entries = chip_smoke.MICRO_TILE_ENTRIES
     for sp in ("prod9", "hoist"):
         want = chip_smoke.MICRO_SASS[f"joseph[{sp}]"][1]
-        assert 2 * want["FFMA"] + want["FMUL"] + want["FADD"] == chip_smoke.JOSEPH_FLOPS[sp] - 1
+        assert (2 * want["FFMA"] + want["FMUL"] + want["FADD"]
+                == entries * (chip_smoke.JOSEPH_FLOPS[sp] - 1))
     for r in mo.RANKS:
-        assert chip_smoke.MICRO_SASS[f"rank_update[R={r}]"][1] == {"FFMA": r}
+        assert chip_smoke.MICRO_SASS[f"rank_update[R={r}]"][1] == {"FFMA": entries * r}
 
 
-@pytest.mark.parametrize("op", ["rank_update", "joseph"])
+@pytest.mark.parametrize("op", ["rank_update", "joseph", "chol", "matvec"])
 def test_register_kernels_refuse_d_past_the_tile_before_launching(op, monkeypatch):
     # a CUDA tensor takes the kernel's path; here the path is forced on CPU
     # tensors, which must raise before anything is built or launched
@@ -96,8 +103,12 @@ def test_register_kernels_refuse_d_past_the_tile_before_launching(op, monkeypatc
     with pytest.raises(ValueError, match=f"D <= {mo.TILE}.*D = {d}"):
         if op == "rank_update":
             mo.rank_update(p, v[:, None], v[:, None], 1)
-        else:
+        elif op == "joseph":
             mo.joseph(p, v, v, v, v, torch.zeros(2, 3), 1)
+        elif op == "chol":
+            mo.chol(p, 1, "lower")
+        else:
+            mo.matvec(p, v[:, None], 1, "row")
 
 
 def test_sass_pass_loops_keeps_only_the_named_functions():
@@ -109,7 +120,8 @@ def test_sass_pass_loops_keeps_only_the_named_functions():
 def test_design_shared_loads_of_a_pass():
     # the 16-byte loads chip_smoke holds each pass loop's LDS count to: none
     # where rank_update keeps k and h in registers, five a term above; five
-    # for each of joseph's first four terms and one for s
+    # for each of joseph's first four terms and one for s; five for each of
+    # the 12 pivots of chol's loop; twelve, a whole vector, for a matvec
     loads = {name: chip_smoke.tile_lds(*name[:-1].split("["))
              for name in chip_smoke.MICRO_SASS}
     assert loads == {"rank_update[R=1]": 0, "rank_update[R=2]": 0, "rank_update[R=4]": 0,
@@ -117,7 +129,8 @@ def test_design_shared_loads_of_a_pass():
                      "joseph[prod9]": 21, "joseph[hoist]": 21,
                      "joseph[terms=1]": 5, "joseph[terms=2]": 10, "joseph[terms=3]": 15,
                      "joseph[terms=4]": 20, "joseph[terms=5]": 21, "joseph[terms=6]": 21,
-                     "joseph[terms=7]": 21}
+                     "joseph[terms=7]": 21, "chol[full]": 60, "chol[lower]": 60,
+                     "matvec[row]": 12, "matvec[col]": 12, "matvec[unrolled]": 12}
 
 
 @pytest.mark.parametrize("case", [{"op": "rank_update", "rank": 2, "passes": 4096},
@@ -126,8 +139,9 @@ def test_design_shared_loads_of_a_pass():
                                   {"op": "joseph", "spelling": "terms", "n_terms": 3,
                                    "passes": 2000}])
 def test_shared_bytes_of_a_register_case_follow_its_design(case):
-    # every lane's loads of a pass (16 bytes each), and once a world P in
-    # and out of the staging area (four 4-byte accesses an entry) and the
+    # a pass's warp-wide 16-byte loads, one 128-byte wavefront each (a
+    # row group's, a column group's or a broadcast word), and once a world P
+    # in and out of the staging area (four 4-byte accesses an entry) and the
     # vectors written in their padded layout
     b, d = 4096, 48
     passes, loads = case["passes"], {2: 0, 16: 80}.get(case.get("rank"))
@@ -135,20 +149,23 @@ def test_shared_bytes_of_a_register_case_follow_its_design(case):
         loads = 21 if case["spelling"] == "prod9" else 15
     vectors = {2: 0, 16: 16}.get(case.get("rank"), 4)
     once = 16.0 * d * d + 4.0 * vectors * 112 + 16.0 * (case["op"] == "joseph")
-    want = b * (passes * 32 * 16.0 * loads + once)
+    want = b * (passes * 128.0 * loads + once)
     assert chip_smoke.micro_work({**case, "args": ()}, b, d)[2] == want
     assert chip_smoke.tile_smem_bytes(case, b, d) == want
 
 
-def _dump(lds_extra: int = 0) -> str:
+def _dump(lds_extra: int = 0, hoisted: str = "") -> str:
     # a canned disassembly of every register kernel: its pass loop holds
-    # exactly its expression and the design's shared loads (plus lds_extra)
+    # exactly its expression and the design's shared loads (plus lds_extra),
+    # but the kernel named ``hoisted``, whose loop lacks one FFMA
     out = ["\tcode for sm_90a"]
-    for name, (targs, per_entry) in chip_smoke.MICRO_SASS.items():
+    for name, (targs, expression) in chip_smoke.MICRO_SASS.items():
         op, variant = name[:-1].split("[")
         out.append(f"\t\tFunction : _ZN12_GLOBAL__N_1{op}_kernel"
                    f"{chip_smoke.mangled_args(targs)}Pfiiii")
-        ops = [o for o, k in per_entry.items() for _ in range(k * chip_smoke.MICRO_TILE_ENTRIES)]
+        ops = [o for o, k in expression.items() for _ in range(k)]
+        if name == hoisted:
+            ops.remove("FFMA")
         ops += ["LDS.128"] * (chip_smoke.tile_lds(op, variant) + lds_extra)
         for i, o in enumerate(ops + ["BRA"]):
             rest = " 0x0 ;" if o == "BRA" else " R1, R2 ;"
@@ -176,3 +193,106 @@ def test_micro_sass_holds_each_loop_to_its_designs_shared_loads(lds_extra, monke
         assert all(r["matches_expression"] and r["lds"] == r["design_lds"]
                    for r in rows.values())
         assert rows["rank_update[R=16]"]["lds"] == 80
+
+
+NEW_KERNELS = [name for name in chip_smoke.MICRO_SASS if name.startswith(("chol", "matvec"))]
+
+
+@pytest.mark.parametrize("hoisted", NEW_KERNELS)
+def test_micro_sass_raises_on_a_hoisted_chol_or_matvec_loop(hoisted, monkeypatch, tmp_path):
+    # the design's loads but one FFMA fewer than the expression in one
+    # kernel's loop: part of a pass or a pivot moved out of it
+    monkeypatch.setattr(chip_smoke._build, "find_nvcc", lambda: str(tmp_path / "nvcc"))
+    monkeypatch.setattr(chip_smoke, "emit", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke.subprocess, "run",
+                        lambda cmd, **kw: type("Done", (), {"stdout": _dump(hoisted=hoisted)})())
+    with pytest.raises(AssertionError, match=r"hoisted\).*" + hoisted.replace("[", r"\["),):
+        chip_smoke.micro_sass(tmp_path / "lib.so")
+
+
+@pytest.mark.parametrize("order", mo.MATVEC_ORDERS)
+def test_sass_expression_of_matvec_is_two_lines_of_products(order):
+    # a lane multiplies its two lines of the padded matrix by the vector,
+    # one FFMA a product: the warp's 32 x 96 cover the matrix's D x D
+    # products (the second line idles on lanes 16-31); the row order adds
+    # its two sums onto out, the column order first sums its two lines over
+    # the butterfly's tree of the 32 lanes' partial sums
+    want = chip_smoke.MICRO_SASS[f"matvec[{order}]"][1]
+    tile = chip_smoke.MICRO_TILE
+    assert want["FFMA"] == 2 * tile and 32 * want["FFMA"] >= tile * tile
+    assert want.get("FADD", 0) == {"row": 2, "col": 2 * 31 + 2, "unrolled": 0}[order]
+    assert "FMUL" not in want
+
+
+@pytest.mark.parametrize("variant", ["full", "lower"])
+def test_sass_expression_of_chol_is_its_pivots_updates(variant):
+    # each of the loop's 12 pivots: the warp's 32 x 72 FFMA are the trailing
+    # update of the whole padded tile, its 12 FMUL a lane scale the column
+    # (every lane executes them), and the pivot's own square root and
+    # division come on top
+    want = chip_smoke.MICRO_SASS[f"chol[{variant}]"][1]
+    block, tile = chip_smoke.CHOL_BLOCK, chip_smoke.MICRO_TILE
+    pivot = chip_smoke.CHOL_PIVOT_OPS
+    assert 32 * (want["FFMA"] - block * pivot.get("FFMA", 0)) == block * tile * tile
+    assert want["FMUL"] - block * pivot.get("FMUL", 0) == block * 12
+    assert want.get("FADD", 0) == block * pivot.get("FADD", 0)
+    assert want == chip_smoke.MICRO_SASS["chol[full]"][1]  # one code for every variant
+
+
+@pytest.mark.parametrize("case", [
+    {"op": "chol", "variant": "lower", "du": 44, "passes": 100},
+    {"op": "chol", "variant": "full", "du": 1, "passes": 3},
+    {"op": "matvec", "order": "row", "passes": 4000, "vectors": 4},
+    {"op": "matvec", "order": "col", "passes": 2000, "vectors": 1}])
+def test_work_of_chol_and_matvec_follows_their_design(case):
+    # chol: P staged in and out, the lanes' copies written once and read by
+    # every factorisation, each pivot's column stored by four lanes (seven
+    # stores) and read by all 32 in five loads (none after the last pivot),
+    # a wavefront each; matvec: L staged and read once, the vectors written
+    # padded, every matvec read as 12 broadcast wavefronts. The flops
+    # executed are the SASS expression's over the warp
+    b, d = 4096, 48
+    n = case["passes"]
+    c = {**case, "args": (None, torch.zeros(1, case.get("vectors", 1), d))}
+    flops, nbytes, smem, executed = chip_smoke.micro_work(c, b, d)
+    if case["op"] == "chol":
+        du = case["du"]
+        copies = 32 * 4.0 * 72
+        want = b * (16.0 * d * d + copies + n * (copies + du * 7 * 128.0 + (du - 1) * 5 * 128.0))
+        assert executed == n * b * (32 * (2.0 * 72 * (du - 1) + 12 * du) + 2.0 * du)
+        assert nbytes == 2 * 4.0 * b * d * d
+    else:
+        a = case["vectors"]
+        want = b * (8.0 * d * d + 4.0 * a * d + n * 128.0 * 12)
+        expr = chip_smoke.MICRO_SASS[f"matvec[{case['order']}]"][1]
+        adds = expr.get("FADD", 0) - 2  # the two sums onto out are not counted
+        assert executed == n * b * 32 * (2.0 * expr["FFMA"] + adds)
+        assert flops == n * b * 2.0 * d * d
+    assert smem == want == chip_smoke.tile_smem_bytes(c, b, d)
+    assert executed >= flops
+
+
+@pytest.mark.parametrize("tool,op", [("micro_downdate", "rank_update"),
+                                     ("micro_ukf_probe", "rank_update"),
+                                     ("micro_ukf", "joseph"),
+                                     ("micro_ukf_probe", "joseph"),
+                                     ("micro_ukf", "chol"),
+                                     ("micro_ukf", "matvec"),
+                                     ("micro_ukf_probe", "matvec")])
+def test_occupancy_kwargs_of_a_tool_case_are_the_case_own(tool, op):
+    # chip_smoke.py and tools.kernel_ab ask micro_ops.occupancy for a
+    # variant by its name; the keywords must be those the case launches with
+    import importlib
+
+    mod = importlib.import_module(f"live_ekf_slam_tpu_torch.tools.{tool}")
+    cases = [c for c in mod.cases(2, "cpu", passes=1) if c["op"] == op]
+    assert cases
+    for c in cases:
+        vectors = c["args"][1].shape[1] if op == "matvec" else 4
+        kw = mo.occupancy_kwargs(op, c["variant"], vectors)
+        want = {"rank_update": lambda: {"rank": c["rank"]},
+                "joseph": lambda: {"spelling": c["spelling"],
+                                   "n_terms": c.get("n_terms", mo.JOSEPH_TERMS)},
+                "chol": lambda: {"variant": c["variant"]},
+                "matvec": lambda: {"order": c["order"], "vectors": vectors}}[op]()
+        assert kw == want, (c["name"], kw)
