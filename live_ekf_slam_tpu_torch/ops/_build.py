@@ -81,6 +81,8 @@ SIGNATURES = {
     "les_micro_joseph": (_I, [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     # sp, sm (B,3,D), lm (B,2), wm (B,D) -> out (B,); B, D, n; stream
     "les_micro_zstats": (_I, [_P, _P, _P, _P, _P, _I, _I, _I, _P]),
+    # x, sc (n, 2), n, stream
+    "les_micro_zstats_sincos": (_I, [_P, _P, _I, _P]),
     # family (0 rank_update, 1 joseph), R or spelling, n_terms, D -> out[6],
     # as les_ukf_occupancy's
     "les_micro_occupancy": (_I, [_I, _I, _I, _I, _P]),

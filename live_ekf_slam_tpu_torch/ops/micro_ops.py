@@ -30,7 +30,7 @@ from live_ekf_slam_tpu_torch.ops.kernel_math import atan2, wrap
 
 # launches of each kernel family (not of the plain versions)
 launches = {"rank_update": 0, "column_gather": 0, "chol": 0, "matvec": 0,
-            "joseph": 0, "zstats": 0}
+            "joseph": 0, "zstats": 0, "zstats_sincos": 0}
 
 RANKS = (1, 2, 4, 8, 16)
 GATHER_SPELLINGS = ("select", "take")
@@ -38,9 +38,10 @@ CHOL_VARIANTS = ("full", "trail", "lower")
 MATVEC_ORDERS = ("row", "col", "unrolled")
 JOSEPH_SPELLINGS = ("prod9", "hoist", "terms")
 JOSEPH_TERMS = 7
-# the largest D that rank_update, joseph, chol and matvec take on CUDA: their
-# kernels hold a world's matrix, padded to TILE x TILE, in one warp's
-# registers
+# the largest D that rank_update, joseph, chol, matvec and the select gather
+# take on CUDA: their kernels hold a world's matrix, padded to TILE x TILE,
+# in one warp's registers (take and zstats serve any D whose inputs fit
+# shared memory)
 TILE = 48
 
 
@@ -136,15 +137,20 @@ def column_gather(p: torch.Tensor, idx: torch.Tensor, n: int,
     """out[b, a] = P[b, a, idx[b]] added ``n`` times onto zero: p (B, D, D),
     idx (B,) int32 in [0, D), one column a world. ``spelling="select"``
     multiplies each row by the one-hot of idx and sums it in index order;
-    ``"take"`` reads the one entry. Both give the same (B, D) values. The
-    range of idx is the caller's to ensure (``check_index``, once, where idx
-    is made): reading it back here would stall the host in every launch."""
+    ``"take"`` reads the one entry. Both give the same (B, D) values where
+    the rows are finite; a row holding an infinity or a NaN off idx gives
+    NaN by select (a product by zero, as the TPU script's one-hot) and the
+    entry by take. The range of idx is the caller's to ensure
+    (``check_index``, once, where idx is made): reading it back here would
+    stall the host in every launch. On CUDA, select serves D <= ``TILE``."""
     b, d = _matrix_dims("p", p)
     n = _passes(n)
     code = _code("spelling", spelling, GATHER_SPELLINGS)
     _check("idx", idx, (b,), p.device, torch.int32)
     if _on_cpu(p, "column_gather"):
         return column_gather_reference(p, idx, n, spelling)
+    if spelling == "select":
+        _fits_tile("column_gather select", d)
     out = torch.empty((b, d), dtype=torch.float32, device=p.device)
     _launch("column_gather", "les_micro_column_gather", p.device, p.data_ptr(),
             idx.data_ptr(), out.data_ptr(), b, d, n, code)
@@ -353,8 +359,9 @@ def occupancy(op: str, d: int = TILE, rank: int = 2, spelling: str = "prod9",
               order: str = "row", vectors: int = 4) -> dict:
     """The launch at D = d as the card takes it (``_build.occupancy``) of
     ``rank_update`` (``op="rank_update"``, ``rank``), ``joseph``
-    (``spelling``, ``n_terms``), ``chol`` (``variant``) or ``matvec``
-    (``order``, ``vectors`` a pass)."""
+    (``spelling``, ``n_terms``), ``chol`` (``variant``), ``matvec``
+    (``order``, ``vectors`` a pass), ``column_gather`` (``spelling``
+    "select" or "take") or ``zstats``."""
     if op == "rank_update":
         return _build.occupancy("les_micro_occupancy", 0, rank, 0, d)
     if op == "joseph":
@@ -366,13 +373,19 @@ def occupancy(op: str, d: int = TILE, rank: int = 2, spelling: str = "prod9",
     if op == "matvec":
         return _build.occupancy("les_micro_occupancy", 3,
                                 _code("order", order, MATVEC_ORDERS), vectors, d)
+    if op == "column_gather":
+        return _build.occupancy("les_micro_occupancy", 4,
+                                _code("spelling", spelling, GATHER_SPELLINGS), 0, d)
+    if op == "zstats":
+        return _build.occupancy("les_micro_occupancy", 5, 0, 0, d)
     raise ValueError(f"no occupancy entry for {op!r}")
 
 
 def occupancy_kwargs(op: str, variant: str, vectors: int = 4) -> dict:
-    """The keywords of ``occupancy`` for a register kernel's variant as the
-    tools and chip_smoke.py name it ("R=2", "R=2 (probe)", "prod9",
-    "terms=3", "lower", "row", "row x4"); matvec with ``vectors`` a pass."""
+    """The keywords of ``occupancy`` for a kernel's variant as the tools and
+    chip_smoke.py name it ("R=2", "R=2 (probe)", "prod9", "terms=3",
+    "lower", "row", "row x4", "take", "zstats"); matvec with ``vectors`` a
+    pass."""
     v = variant.split(" ")[0]
     if op == "rank_update":
         return {"rank": int(v.split("=")[1])}
@@ -383,7 +396,11 @@ def occupancy_kwargs(op: str, variant: str, vectors: int = 4) -> dict:
         return {"variant": v}
     if op == "matvec":
         return {"order": v, "vectors": vectors}
-    raise ValueError(f"no register family: {op!r}")
+    if op == "column_gather":
+        return {"spelling": v}
+    if op == "zstats":
+        return {}
+    raise ValueError(f"no micro family: {op!r}")
 
 
 # --------------------------------------------------------------------- zstats
@@ -395,7 +412,8 @@ def zstats(sp: torch.Tensor, sm: torch.Tensor, lm: torch.Tensor,
     bearing of the landmark from every sigma point (polynomial ``atan2``,
     ``wrap``), the weighted range mean and circular bearing mean, the
     deviations, and adds s00 + s01 + s11 to the world's output (B,). Sums
-    over the columns run in the warp's order (``lane_sum``)."""
+    over the columns run in the warp's order (``lane_sum``), which the
+    kernel keeps though it deals the sigma points over the lanes otherwise."""
     if sp.dim() != 3 or sp.shape[1] != 3 or 0 in sp.shape:
         raise ValueError(f"sp must be (B, 3, D), got {tuple(sp.shape)}")
     b, _, d = sp.shape
@@ -410,6 +428,24 @@ def zstats(sp: torch.Tensor, sm: torch.Tensor, lm: torch.Tensor,
     out = torch.empty(b, dtype=torch.float32, device=dev)
     _launch("zstats", "les_micro_zstats", dev, sp.data_ptr(), sm.data_ptr(),
             lm.data_ptr(), wm.data_ptr(), out.data_ptr(), b, d, n)
+    return out
+
+
+def zstats_sincos(x: torch.Tensor) -> torch.Tensor:
+    """(n, 2): the sine and cosine of each of x (n,) as the zstats kernel
+    computes them, a check of its bits: on CUDA its own function (the CUDA
+    library's sinf and cosf without their path for |x| >= 105615, which
+    zstats' wrapped bearings never take), on the CPU ``torch.sin`` and
+    ``torch.cos``, which it must equal bit for bit on the card wherever the
+    bearing lies."""
+    if x.dim() != 1 or x.shape[0] == 0:
+        raise ValueError(f"x must be (n,), n >= 1, got {tuple(x.shape)}")
+    _check("x", x, tuple(x.shape), x.device)
+    if _on_cpu(x, "zstats_sincos"):
+        return torch.stack([torch.sin(x), torch.cos(x)], dim=1)
+    out = torch.empty((x.shape[0], 2), dtype=torch.float32, device=x.device)
+    _launch("zstats_sincos", "les_micro_zstats_sincos", x.device, x.data_ptr(),
+            out.data_ptr(), x.shape[0])
     return out
 
 

@@ -8,7 +8,7 @@
         [--worlds 1024] [--study] [--clocks]
     python3 -m live_ekf_slam_tpu_torch.tools.kernel_ab --against DIR \\
         --target micro_rank_update | micro_joseph | micro_chol | micro_matvec \\
-        [--worlds 4096] [--reps 5]
+                 | micro_column_gather | micro_zstats [--worlds 4096] [--reps 5]
 
 DIR is another tree's ``csrc`` directory with the same C interface, for a
 commit: ``git archive COMMIT live_ekf_slam_tpu_torch/csrc | tar -x -C OUT``
@@ -52,7 +52,7 @@ each runs its own Python as well as its own kernels (DIR must be the
 ``live_ekf_slam_tpu_torch/csrc`` of a whole tree: ``git archive COMMIT |
 tar -x -C OUT``): wall and solve seconds, mean errors, diverged worlds.
 ``--target micro_rank_update`` / ``micro_joseph`` / ``micro_chol`` /
-``micro_matvec``: every case of that
+``micro_matvec`` / ``micro_column_gather`` / ``micro_zstats``: every case of that
 family in the three microbenchmark tools (``micro_downdate``, ``micro_ukf``,
 ``micro_ukf_probe``) at ``--worlds`` worlds, D = 48 and the tools' own pass
 counts, the other tree's ``micro_ops.cu`` against this tree's in turns:
@@ -98,9 +98,10 @@ from live_ekf_slam_tpu_torch.tools import _common, micro_downdate, micro_ukf, mi
 
 FILTERS = ("ekf_slam", "iekf_slam", "ukf_slam", "ukf_loc")
 PG_TARGETS = ("block_thomas", "block_thomas_factor", "schur_mv")
-# the register micro families: target -> the micro_ops function
+# the micro families: target -> the micro_ops function
 MICRO_TARGETS = {"micro_rank_update": "rank_update", "micro_joseph": "joseph",
-                 "micro_chol": "chol", "micro_matvec": "matvec"}
+                 "micro_chol": "chol", "micro_matvec": "matvec",
+                 "micro_column_gather": "column_gather", "micro_zstats": "zstats"}
 PEAK_BYTES = 3.35e12  # H100 SXM device memory (NVIDIA data sheet)
 
 

@@ -164,6 +164,52 @@ def test_column_gather_matches_pallas_kernel_from_zeroed_memory(spelling, maker)
                                rtol=1e-4, atol=1e-6)
 
 
+def _non_finite_gather_inputs(bl):
+    """The gather inputs with an infinity or a NaN in every fifth world, in a
+    row and a column away from the world's idx: (p, idx, {world: row})."""
+    p, idx = _gather_inputs(bl)
+    bad = {}
+    for w in range(0, bl, 5):
+        a, c = (7 * w) % DP, (int(idx[0, w]) + 1 + w % (DP - 1)) % DP
+        p[a, c, w] = (np.inf, -np.inf, np.nan)[w % 3]
+        bad[w] = a
+    return p, idx, bad
+
+
+def test_column_gather_parts_on_a_non_finite_entry():
+    # take reads the entry, as the script's take kernel does; select
+    # multiplies the row by the one-hot, and inf * 0 or NaN * 0 turns the
+    # whole row NaN: the script's select expression evaluated op by op in
+    # JAX does so too, but its Pallas kernel in interpret mode gives the
+    # entry, since XLA rewrites a product by a converted comparison into a
+    # select. Every other value is equal bit for bit (one nonzero term).
+    md = load_script("micro_downdate",
+                     pltpu.InterpretParams(uninitialized_memory="zero"))
+    p, idx, bad = _non_finite_gather_inputs(md.BL)
+    want = {}
+    for maker in ("make_gather_kernel", "make_take_kernel"):
+        with jax.disable_jit():
+            getattr(md, maker)(PASSES)(jnp.asarray(p), jnp.asarray(idx))
+        want[maker] = np.asarray(md.pl.outputs[-1])
+    pt, it = micro_inputs_from_numpy(p, idx)
+    got = {sp: micro_output_to_numpy(mo.column_gather(pt, it, PASSES, sp))
+           for sp in mo.GATHER_SPELLINGS}
+    nan_rows = np.zeros_like(got["take"], bool)
+    for w, a in bad.items():
+        nan_rows[a, w] = True
+    np.testing.assert_array_equal(got["take"], want["make_take_kernel"])
+    assert np.isfinite(got["take"]).all()
+    np.testing.assert_array_equal(np.isnan(got["select"]), nan_rows)
+    np.testing.assert_array_equal(got["select"][~nan_rows], want["make_gather_kernel"][~nan_rows])
+    # the Pallas select kernel under XLA: the entry, the take kernel's value
+    np.testing.assert_array_equal(want["make_gather_kernel"], want["make_take_kernel"])
+    # the script's select expression, op by op: NaN in exactly those rows
+    iota = jax.lax.broadcasted_iota(jnp.int32, p.shape, 1)
+    sel = (iota == jnp.asarray(idx)[0][None, None, :]).astype(jnp.float32)
+    eager = np.asarray(jnp.sum(jnp.asarray(p) * sel, axis=1))
+    np.testing.assert_array_equal(np.isnan(eager), nan_rows)
+
+
 def test_pallas_gather_kernels_never_initialise_their_output():
     # the reference finding itself: in plain interpret mode both return NaN
     md = load_script("micro_downdate")

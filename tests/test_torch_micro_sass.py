@@ -1,5 +1,5 @@
-"""The checks chip_smoke.py makes of the register micro kernels
-(``csrc/micro_ops.cu`` rank_update, joseph, chol and matvec) that need no
+"""The checks chip_smoke.py makes of the micro kernels (``csrc/micro_ops.cu``
+rank_update, joseph, chol, matvec, column_gather and zstats) that need no
 card: how it finds a kernel's pass loop in ``cuobjdump -sass`` output and
 counts its float32 arithmetic, what each kernel's expression needs, and the
 wrappers' refusal of D past the register tile before anything launches."""
@@ -58,16 +58,23 @@ def test_sass_pass_loop_is_the_backward_branch_with_the_most_arithmetic():
 def test_sass_names_match_every_register_kernel_instantiation():
     # each entry's mangled template arguments find its kernel, and no two
     # entries find the same one
-    stems = {name.split("[")[0] + "_kernel" + chip_smoke.mangled_args(targs)
-             for name, (targs, _) in chip_smoke.MICRO_SASS.items()}
-    # chol's full and trail variants launch one instantiation
+    stems = {chip_smoke.sass_stem(name) for name in chip_smoke.MICRO_SASS}
+    # chol's full and trail variants launch one instantiation; the gathers
+    # and zstats at D = 48
     assert len(stems) == len(chip_smoke.MICRO_SASS) == (
-        len(mo.RANKS) + 2 + mo.JOSEPH_TERMS + 2 + len(mo.MATVEC_ORDERS))
+        len(mo.RANKS) + 2 + mo.JOSEPH_TERMS + 2 + len(mo.MATVEC_ORDERS)
+        + len(mo.GATHER_SPELLINGS) + 1)
     assert "rank_update_kernelILi16EE" in stems and "joseph_kernelILi2ELi7EE" in stems
     assert "chol_kernelILb0EE" in stems and "chol_kernelILb1EE" in stems
     assert "matvec_kernelILi1EE" in stems
+    # select is the matvec's row order by a one-hot (kMatvecSelect = 3);
+    # take reads two rows a lane at D = 48, zstats three sigma points
+    assert chip_smoke.sass_stem("column_gather[select]") == "matvec_kernelILi3EE"
+    assert chip_smoke.sass_stem("column_gather[take]") == "column_gather_kernelILi2EE"
+    assert chip_smoke.sass_stem("zstats[zstats]") == "zstats_kernelILi3EE"
     assert all(s_.startswith(("rank_update_kernelI", "joseph_kernelI", "chol_kernelI",
-                              "matvec_kernelI")) for s_ in stems)
+                              "matvec_kernelI", "column_gather_kernelI", "zstats_kernelI"))
+               for s_ in stems)
 
 
 @pytest.mark.parametrize("n_terms", range(1, mo.JOSEPH_TERMS + 1))
@@ -92,7 +99,7 @@ def test_sass_expression_of_the_full_spellings():
         assert chip_smoke.MICRO_SASS[f"rank_update[R={r}]"][1] == {"FFMA": entries * r}
 
 
-@pytest.mark.parametrize("op", ["rank_update", "joseph", "chol", "matvec"])
+@pytest.mark.parametrize("op", ["rank_update", "joseph", "chol", "matvec", "select"])
 def test_register_kernels_refuse_d_past_the_tile_before_launching(op, monkeypatch):
     # a CUDA tensor takes the kernel's path; here the path is forced on CPU
     # tensors, which must raise before anything is built or launched
@@ -107,8 +114,26 @@ def test_register_kernels_refuse_d_past_the_tile_before_launching(op, monkeypatc
             mo.joseph(p, v, v, v, v, torch.zeros(2, 3), 1)
         elif op == "chol":
             mo.chol(p, 1, "lower")
+        elif op == "select":
+            mo.column_gather(p, torch.zeros(2, dtype=torch.int32), 1, "select")
         else:
             mo.matvec(p, v[:, None], 1, "row")
+
+
+@pytest.mark.parametrize("op", ["take", "zstats"])
+def test_take_and_zstats_launch_past_the_tile(op, monkeypatch):
+    # they keep their inputs in shared memory and serve any D that fits it:
+    # the wrapper launches at D = 49 as at 48
+    monkeypatch.setattr(mo, "_on_cpu", lambda t, what: False)
+    launched = []
+    monkeypatch.setattr(mo, "_launch", lambda family, entry, dev, *a: launched.append(entry))
+    d = mo.TILE + 1
+    if op == "take":
+        mo.column_gather(torch.zeros(2, d, d), torch.zeros(2, dtype=torch.int32), 1, "take")
+    else:
+        mo.zstats(torch.zeros(2, 3, d), torch.zeros(2, 3, d), torch.zeros(2, 2),
+                  torch.zeros(2, d), 1)
+    assert launched == ["les_micro_" + ("column_gather" if op == "take" else op)]
 
 
 def test_sass_pass_loops_keeps_only_the_named_functions():
@@ -122,6 +147,9 @@ def test_design_shared_loads_of_a_pass():
     # where rank_update keeps k and h in registers, five a term above; five
     # for each of joseph's first four terms and one for s; five for each of
     # the 12 pivots of chol's loop; twelve, a whole vector, for a matvec
+    # and the redesigned gathers and zstats: select a matvec's 12, take a
+    # 4-byte load for each of its two rows a lane, zstats four 4-byte loads
+    # (x, y, yaw, the column's weight) for each of its three sigma points
     loads = {name: chip_smoke.tile_lds(*name[:-1].split("["))
              for name in chip_smoke.MICRO_SASS}
     assert loads == {"rank_update[R=1]": 0, "rank_update[R=2]": 0, "rank_update[R=4]": 0,
@@ -130,7 +158,9 @@ def test_design_shared_loads_of_a_pass():
                      "joseph[terms=1]": 5, "joseph[terms=2]": 10, "joseph[terms=3]": 15,
                      "joseph[terms=4]": 20, "joseph[terms=5]": 21, "joseph[terms=6]": 21,
                      "joseph[terms=7]": 21, "chol[full]": 60, "chol[lower]": 60,
-                     "matvec[row]": 12, "matvec[col]": 12, "matvec[unrolled]": 12}
+                     "matvec[row]": 12, "matvec[col]": 12, "matvec[unrolled]": 12,
+                     "column_gather[select]": 12, "column_gather[take]": 2,
+                     "zstats[zstats]": 12}
 
 
 @pytest.mark.parametrize("case", [{"op": "rank_update", "rank": 2, "passes": 4096},
@@ -154,18 +184,22 @@ def test_shared_bytes_of_a_register_case_follow_its_design(case):
     assert chip_smoke.tile_smem_bytes(case, b, d) == want
 
 
-def _dump(lds_extra: int = 0, hoisted: str = "") -> str:
-    # a canned disassembly of every register kernel: its pass loop holds
+def _dump(lds_extra: int = 0, hoisted: str = "", extra: tuple = ()) -> str:
+    # a canned disassembly of every micro kernel: its pass loop holds
     # exactly its expression and the design's shared loads (plus lds_extra),
-    # but the kernel named ``hoisted``, whose loop lacks one FFMA
+    # but the kernel named ``hoisted``, whose loop lacks the first
+    # instruction of its expression; ``extra`` = (name, op) adds op to one
     out = ["\tcode for sm_90a"]
     for name, (targs, expression) in chip_smoke.MICRO_SASS.items():
         op, variant = name[:-1].split("[")
-        out.append(f"\t\tFunction : _ZN12_GLOBAL__N_1{op}_kernel"
-                   f"{chip_smoke.mangled_args(targs)}Pfiiii")
+        out.append(f"\t\tFunction : _ZN12_GLOBAL__N_1{chip_smoke.sass_stem(name)}Pfiiii")
         ops = [o for o, k in expression.items() for _ in range(k)]
         if name == hoisted:
-            ops.remove("FFMA")
+            ops.remove(ops[0])
+        if extra and name == extra[0]:
+            ops.append(extra[1])
+        if "FFMA" not in ops and "FADD" not in ops:
+            ops.append("FFMA")  # zstats' polynomials: float32 arithmetic in its loop
         ops += ["LDS.128"] * (chip_smoke.tile_lds(op, variant) + lds_extra)
         for i, o in enumerate(ops + ["BRA"]):
             rest = " 0x0 ;" if o == "BRA" else " R1, R2 ;"
@@ -198,7 +232,7 @@ def test_micro_sass_holds_each_loop_to_its_designs_shared_loads(lds_extra, monke
 NEW_KERNELS = [name for name in chip_smoke.MICRO_SASS if name.startswith(("chol", "matvec"))]
 
 
-@pytest.mark.parametrize("hoisted", NEW_KERNELS)
+@pytest.mark.parametrize("hoisted", NEW_KERNELS + list(chip_smoke.MICRO_SASS_EXACT))
 def test_micro_sass_raises_on_a_hoisted_chol_or_matvec_loop(hoisted, monkeypatch, tmp_path):
     # the design's loads but one FFMA fewer than the expression in one
     # kernel's loop: part of a pass or a pivot moved out of it
@@ -208,6 +242,35 @@ def test_micro_sass_raises_on_a_hoisted_chol_or_matvec_loop(hoisted, monkeypatch
                         lambda cmd, **kw: type("Done", (), {"stdout": _dump(hoisted=hoisted)})())
     with pytest.raises(AssertionError, match=r"hoisted\).*" + hoisted.replace("[", r"\["),):
         chip_smoke.micro_sass(tmp_path / "lib.so")
+
+
+@pytest.mark.parametrize("name,op", [("zstats[zstats]", "MUFU.RSQ"),
+                                     ("column_gather[take]", "FADD"),
+                                     ("column_gather[select]", "FFMA")])
+def test_micro_sass_holds_the_redesigned_loops_exactly(name, op, monkeypatch, tmp_path):
+    # one instruction more than the design in a redesigned loop raises: a
+    # second square root a sigma point (z evaluated again), a second add a
+    # row, a product more than the matvec's
+    monkeypatch.setattr(chip_smoke._build, "find_nvcc", lambda: str(tmp_path / "nvcc"))
+    monkeypatch.setattr(chip_smoke, "emit", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke.subprocess, "run",
+                        lambda cmd, **kw: type("Done", (), {"stdout": _dump(extra=(name, op))})())
+    with pytest.raises(AssertionError, match=r"other operations than its design.*"
+                       + name.replace("[", r"\[")):
+        chip_smoke.micro_sass(tmp_path / "lib.so")
+
+
+def test_sass_counts_mufu_by_its_function():
+    # zstats' entry counts its IEEE square roots: MUFU.RSQ apart from the
+    # division's MUFU.RCP
+    sass = ("\t\tFunction : _ZN12_GLOBAL__N_113zstats_kernelILi3EEEvPKfS2_S2_S2_Pfiiii\n"
+            "        /*0000*/                   MUFU.RSQ R3, R2 ;\n"
+            "        /*0010*/                   MUFU.RCP R4, R2 ;\n"
+            "        /*0020*/                   FFMA R5, R4, R3, R2 ;\n"
+            "        /*0030*/              @P0 BRA 0x0 ;\n")
+    loop = chip_smoke.sass_pass_loops(sass)["_ZN12_GLOBAL__N_113zstats_kernelILi3EEEvPKfS2_S2_S2_Pfiiii"]
+    assert loop == {"MUFU.RSQ": 1, "MUFU.RCP": 1, "FFMA": 1, "BRA": 1}
+    assert chip_smoke.MICRO_SASS["zstats[zstats]"][1] == {"MUFU.RSQ": chip_smoke.ZSTATS_ROUNDS}
 
 
 @pytest.mark.parametrize("order", mo.MATVEC_ORDERS)
@@ -272,13 +335,44 @@ def test_work_of_chol_and_matvec_follows_their_design(case):
     assert executed >= flops
 
 
+@pytest.mark.parametrize("case", [
+    {"op": "column_gather", "spelling": "take", "passes": 60000},
+    {"op": "column_gather", "spelling": "select", "passes": 6000},
+    {"op": "zstats", "passes": 4000}])
+def test_work_of_the_gathers_and_zstats_follows_their_design(case):
+    # take: P staged once (4 bytes an entry), each pass two rounds of the
+    # lanes' rows (one wavefront each), one add a lane a row; select: the
+    # matvec's row order, L staged in and read once, the one-hot padded to 48,
+    # 12 broadcasts a pass, 96 FFMA a lane; zstats: 7 floats a column staged,
+    # three rounds of four loads a pass, each sigma point once and each
+    # column's six terms on both its lanes
+    b, d = 4096, 48
+    n = case["passes"]
+    flops, nbytes, smem, executed = chip_smoke.micro_work(case, b, d)
+    if case["op"] == "zstats":
+        assert flops == n * b * chip_smoke.ZSTATS_FLOPS * d
+        assert smem == b * (4.0 * 7 * d + n * 128.0 * 12)
+        assert executed == n * b * d * (chip_smoke.ZSTATS_FLOPS + 18.0)
+        assert executed < n * b * d * (chip_smoke.ZSTATS_FLOPS + 80.0)  # not z twice
+        return
+    assert flops == n * b * d and nbytes == 4.0 * b * (d * d + 1 + d)
+    if case["spelling"] == "take":
+        assert smem == b * (4.0 * d * d + n * 128.0 * 2)
+        assert executed == n * b * 32 * 2.0
+    else:
+        assert smem == b * (8.0 * d * d + 4.0 * 48 + n * 128.0 * 12)
+        assert executed == n * b * 32 * 2.0 * 96
+
+
 @pytest.mark.parametrize("tool,op", [("micro_downdate", "rank_update"),
                                      ("micro_ukf_probe", "rank_update"),
                                      ("micro_ukf", "joseph"),
                                      ("micro_ukf_probe", "joseph"),
                                      ("micro_ukf", "chol"),
                                      ("micro_ukf", "matvec"),
-                                     ("micro_ukf_probe", "matvec")])
+                                     ("micro_ukf_probe", "matvec"),
+                                     ("micro_downdate", "column_gather"),
+                                     ("micro_ukf", "zstats")])
 def test_occupancy_kwargs_of_a_tool_case_are_the_case_own(tool, op):
     # chip_smoke.py and tools.kernel_ab ask micro_ops.occupancy for a
     # variant by its name; the keywords must be those the case launches with
@@ -294,5 +388,7 @@ def test_occupancy_kwargs_of_a_tool_case_are_the_case_own(tool, op):
                 "joseph": lambda: {"spelling": c["spelling"],
                                    "n_terms": c.get("n_terms", mo.JOSEPH_TERMS)},
                 "chol": lambda: {"variant": c["variant"]},
-                "matvec": lambda: {"order": c["order"], "vectors": vectors}}[op]()
+                "matvec": lambda: {"order": c["order"], "vectors": vectors},
+                "column_gather": lambda: {"spelling": c["spelling"]},
+                "zstats": lambda: {}}[op]()
         assert kw == want, (c["name"], kw)
