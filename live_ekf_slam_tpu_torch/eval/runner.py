@@ -27,6 +27,7 @@ solve).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
@@ -49,6 +50,7 @@ from live_ekf_slam_tpu_torch.sim import maps as sim_maps
 from live_ekf_slam_tpu_torch.sim.streams import naive_deadreckon, sim_streams
 from live_ekf_slam_tpu_torch.sim.trajectory import generate_trajectory
 from live_ekf_slam_tpu_torch.sim.world import init_world, sim_step
+from live_ekf_slam_tpu_torch.utils.profiling import span
 
 # a pose estimate farther than this from truth marks the world diverged
 # (the map spans ~2*bound = 20 m; 50 m means the filter is unrecoverable)
@@ -163,19 +165,21 @@ def mc_inputs(cfg, batch: int, seed: int, device, *, shared: bool = False,
     n_maps = max(batch // SHARED_BLOCK, 1) if shared else batch
     if shared and batch % n_maps:
         raise ValueError(f"shared protocol needs batch % {n_maps} == 0")
-    cfg, lms = _gen_maps(cfg, np.random.default_rng(seed), n_maps)
-    lms = torch.as_tensor(lms, device=device)
-    gen = torch.Generator().manual_seed(seed + 1)
-    cmds, tour = generate_trajectory(
-        cfg, lms, lms.shape[1], generator=gen, u=traj_u, return_tour=True
-    )
-    if relabel:
-        lms = torch.gather(lms, 1, tour[:, :, None].expand(-1, -1, 2))
-    if shared:
-        rep = batch // n_maps
-        lms = lms.repeat_interleave(rep, dim=0)
-        cmds = cmds.repeat_interleave(rep, dim=0)
-    return lms.contiguous(), cmds.contiguous()
+    with span("les.inputs.maps"):
+        cfg, lms = _gen_maps(cfg, np.random.default_rng(seed), n_maps)
+        lms = torch.as_tensor(lms, device=device)
+    with span("les.inputs.trajectory"):
+        gen = torch.Generator().manual_seed(seed + 1)
+        cmds, tour = generate_trajectory(
+            cfg, lms, lms.shape[1], generator=gen, u=traj_u, return_tour=True
+        )
+        if relabel:
+            lms = torch.gather(lms, 1, tour[:, :, None].expand(-1, -1, 2))
+        if shared:
+            rep = batch // n_maps
+            lms = lms.repeat_interleave(rep, dim=0)
+            cmds = cmds.repeat_interleave(rep, dim=0)
+        return lms.contiguous(), cmds.contiguous()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -457,7 +461,12 @@ def run_monte_carlo(cfg, batch: int, seed: int = 0, impl: str = "fused",
 
 class _Clock:
     """Adds the seconds since its last mark to ``seconds[name]`` at each
-    ``mark(name)``, after a device synchronise; without a dict, nothing."""
+    ``mark(name)``, after a device synchronise; without a dict, nothing.
+    ``with clock.phase(name):`` is the span ``les.pg.<name>``
+    (``utils/profiling.span``); its seconds run from the host clock at the
+    span's start, the device idle after the previous phase's synchronise, to
+    ``mark(name)`` inside the span, so the host's moments between phases
+    count in no phase. ``sync()`` waits for the device and marks nothing."""
 
     def __init__(self, device, seconds: dict | None):
         self.device, self.seconds = device, seconds
@@ -467,6 +476,17 @@ class _Clock:
         if self.seconds is not None:
             t, self.t = self.t, sync_clock(self.device)
             self.seconds[name] = self.seconds.get(name, 0.0) + self.t - t
+
+    def sync(self):
+        if self.seconds is not None:
+            sync_clock(self.device)
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        with span(f"les.pg.{name}"):
+            self.t = time.perf_counter()
+            yield
+            self.mark(name)
 
 
 def _run_per_tick(cfg, lms, cmds, seed, collect, noise, clock=None):
@@ -644,7 +664,10 @@ def run_monte_carlo_pg_streams(cfg, batch: int, seed: int = 0,
     ``err_<secondary>``, ``diverged_<secondary>``, ``err_pose_graph_result``,
     ``err_pose_graph_initial``, ``err_pose_graph`` and
     ``diverged_pose_graph``; ``info["seconds"]`` the host-clock seconds of
-    each phase, summed over chunks, each ended by a device synchronise.
+    each phase, summed over chunks, each ended by a device synchronise; each
+    phase is the span ``les.pg.<phase>`` (``_Clock.phase``), and the host's
+    moments between phases fall in none, so the phases sum to a little less
+    than the study.
     ``lms`` (B, N, 2), ``cmds`` (B, T, 2) and ``noise`` (T, 2N+8, B) are
     test hooks that replace the maps, the command streams and the draws.
     ``device`` defaults to the card and raises when there is none.
@@ -666,69 +689,66 @@ def run_monte_carlo_pg_streams(cfg, batch: int, seed: int = 0,
     t_total = cfg.num_iterations
     seconds = dict.fromkeys(
         ("inputs", "streams", "secondary", "assemble", "replay", "solve"), 0.0)
-    t0 = sync_clock(device)
-    if (lms is None) != (cmds is None):
-        raise ValueError("give both lms and cmds, or neither")
-    if lms is None:
-        lms, cmds = mc_inputs(cfg, batch, seed, device)
-    if not cfg.precompute_trajectory:
-        cmds = torch.zeros((batch, t_total, 2), dtype=torch.float32,
-                           device=device)
-    n_lm = lms.shape[1]
-    if tuple(lms.shape) != (batch, n_lm, 2) or tuple(cmds.shape) != (batch, t_total, 2):
-        raise ValueError(
-            f"lms {tuple(lms.shape)} and cmds {tuple(cmds.shape)} do not fit "
-            f"batch {batch}, T {t_total}")
-    seconds["inputs"] = sync_clock(device) - t0
+    clock = _Clock(device, seconds)
+    with clock.phase("inputs"):
+        if (lms is None) != (cmds is None):
+            raise ValueError("give both lms and cmds, or neither")
+        if lms is None:
+            lms, cmds = mc_inputs(cfg, batch, seed, device)
+        if not cfg.precompute_trajectory:
+            cmds = torch.zeros((batch, t_total, 2), dtype=torch.float32,
+                               device=device)
+        n_lm = lms.shape[1]
+        if tuple(lms.shape) != (batch, n_lm, 2) or tuple(cmds.shape) != (batch, t_total, 2):
+            raise ValueError(
+                f"lms {tuple(lms.shape)} and cmds {tuple(cmds.shape)} do not fit "
+                f"batch {batch}, T {t_total}")
 
     parts = {k: [] for k in ("err_sec", "max_sec", "err_pg", "err_pgi")}
     tidx = torch.arange(t_total, device=device)
     for i in range(0, batch, world_chunk):
-        t0 = sync_clock(device)
-        lms_c = lms[i:i + world_chunk].contiguous()
-        cmds_c = cmds[i:i + world_chunk].contiguous()
-        b_c = lms_c.shape[0]
-        if noise is None:
-            noise_c = philox_noise(seed, t_total, n_lm, b_c, device, world0=i)
-        else:
-            noise_c = noise[:, :, i:i + world_chunk].contiguous()
-        st = sim_streams(cfg, lms_c, n_lm, cmds_c, noise_c)
-        t1 = sync_clock(device)
-        if secondary == "naive":
-            est = naive_deadreckon(cfg, cmds_c)
-        else:
-            est = fused_ekf_rollout(
-                cfg, lms_c, cmds_c, seed, noise=noise_c, emit_traj=True,
-                filter_kind="iekf" if secondary == "iekf_slam" else "ekf",
-            )["est_traj"]
-        t2 = sync_clock(device)
-        graphs = posegraph.assemble_streams(
-            cfg, est, st["r"], st["b"], st["vis"], cmds_c)
-        # the secondary's metric and what its divergence latch reads
-        d_sec = torch.linalg.vector_norm(
-            est[:, :, :2] - st["poses_true"][:, :, :2], dim=-1)
-        parts["err_sec"].append(d_sec.mean(dim=1).cpu().numpy())
-        parts["max_sec"].append(d_sec.amax(dim=1).cpu().numpy())
-        t3 = sync_clock(device)
-        if cfg.pose_graph.solve_graph_every_iteration:
-            # landmark counts at the end of each tick, for the replay:
-            # m_at[t] = #{first sightings <= t}, on live ticks only
-            vis_live = st["vis"] & (tidx < t_total - 1)[None, :, None]
-            first_t = torch.where(vis_live, tidx[None, :, None], t_total).amin(dim=1)
-            m_at = (first_t[:, None, :] <= tidx[None, :, None]).sum(
-                dim=2, dtype=torch.int32)
-            graphs = replay_chunk(cfg, graphs, m_at)
-        t4 = sync_clock(device)
-        # solved while the chunk's graph tensors are on the device; only the
-        # per-world metric vectors come back
-        err_pg_c, err_pgi_c = _pg_bulk_solve(
-            cfg, graphs, st["poses_true"], b_c, solve_chunk)
-        parts["err_pg"].append(err_pg_c)
-        parts["err_pgi"].append(err_pgi_c)
-        t5 = sync_clock(device)
-        for key, dt in zip(("streams", "secondary", "assemble", "replay", "solve"),
-                           (t1 - t0, t2 - t1, t3 - t2, t4 - t3, t5 - t4)):
-            seconds[key] += dt
+        clock.sync()
+        with clock.phase("streams"):
+            lms_c = lms[i:i + world_chunk].contiguous()
+            cmds_c = cmds[i:i + world_chunk].contiguous()
+            b_c = lms_c.shape[0]
+            if noise is None:
+                noise_c = philox_noise(seed, t_total, n_lm, b_c, device, world0=i)
+            else:
+                noise_c = noise[:, :, i:i + world_chunk].contiguous()
+            st = sim_streams(cfg, lms_c, n_lm, cmds_c, noise_c)
+        with clock.phase("secondary"):
+            if secondary == "naive":
+                est = naive_deadreckon(cfg, cmds_c)
+            else:
+                est = fused_ekf_rollout(
+                    cfg, lms_c, cmds_c, seed, noise=noise_c, emit_traj=True,
+                    filter_kind="iekf" if secondary == "iekf_slam" else "ekf",
+                )["est_traj"]
+        with clock.phase("assemble"):
+            graphs = posegraph.assemble_streams(
+                cfg, est, st["r"], st["b"], st["vis"], cmds_c)
+            # the secondary's metric and what its divergence latch reads
+            d_sec = torch.linalg.vector_norm(
+                est[:, :, :2] - st["poses_true"][:, :, :2], dim=-1)
+            parts["err_sec"].append(d_sec.mean(dim=1).cpu().numpy())
+            parts["max_sec"].append(d_sec.amax(dim=1).cpu().numpy())
+        with clock.phase("replay"):
+            if cfg.pose_graph.solve_graph_every_iteration:
+                # landmark counts at the end of each tick, for the replay:
+                # m_at[t] = #{first sightings <= t}, on live ticks only
+                vis_live = st["vis"] & (tidx < t_total - 1)[None, :, None]
+                first_t = torch.where(vis_live, tidx[None, :, None], t_total).amin(dim=1)
+                m_at = (first_t[:, None, :] <= tidx[None, :, None]).sum(
+                    dim=2, dtype=torch.int32)
+                graphs = replay_chunk(cfg, graphs, m_at)
+        with clock.phase("solve"):
+            # solved while the chunk's graph tensors are on the device; only
+            # the per-world metric vectors come back
+            err_pg_c, err_pgi_c = _pg_bulk_solve(
+                cfg, graphs, st["poses_true"], b_c, solve_chunk)
+            parts["err_pg"].append(err_pg_c)
+            parts["err_pgi"].append(err_pgi_c)
 
     err_sec = np.concatenate(parts["err_sec"])
     max_sec = np.concatenate(parts["max_sec"])

@@ -62,6 +62,7 @@ from live_ekf_slam_tpu_torch.core.noise import S3, _div, clip_uniform_moments
 from live_ekf_slam_tpu_torch.core.types import Measurements, PoseGraphState
 from live_ekf_slam_tpu_torch.ops import _build
 from live_ekf_slam_tpu_torch.ops.precision import first_match, pin_fp32
+from live_ekf_slam_tpu_torch.utils import profiling
 from live_ekf_slam_tpu_torch.utils.geometry import wrap_angle
 
 # launches of the block-Thomas kernels and of the Schur matvec (not of their
@@ -1215,60 +1216,76 @@ def solve_schur_pcg(
     GN iteration: a rejected step raises it, an accepted one lowers it. Each
     call starts at ``damping`` again. ``fix_theta``: headings frozen (see
     ``_schur_system``). Returns (poses, lms, err (B,)).
+
+    While a profiler records (``utils/profiling``), each GN step is the span
+    ``les.pg.gn`` around ``les.pg.gn.system`` (the system, its factor and
+    the reduced rhs), ``les.pg.gn.cg`` (the CG loop) and
+    ``les.pg.gn.line_search`` (the back-substitution, both trial points, the
+    accept and the damping update); the counters ``pg.gn_world_steps`` and
+    ``pg.gn_accepted`` count the worlds' steps and the accepted ones.
     """
     slots = LmSlots(s)
     err = graph_error(cfg, s, poses, lms, meas_scale, slots)
     lam = torch.full_like(err, damping)
 
     for _ in range(n_gn):
-        sy = _schur_system(cfg, s, poses, lms, meas_scale, lam, slots, fix_theta)
-        d, u, hll_inv, coeffs = sy["d"], sy["u"], sy["hll_inv"], sy["coeffs"]
-        fac = _tridiag_factor(d, u)
-        l_active = sy["l_active"]
-        p_mask = sy["p_active"][:, :, None]
-        gp = sy["gp"] * p_mask
-        gl = sy["gl"] * l_active[:, :, None]
+        with profiling.span("les.pg.gn"):
+            with profiling.span("les.pg.gn.system"):
+                sy = _schur_system(cfg, s, poses, lms, meas_scale, lam, slots,
+                                   fix_theta)
+                d, u, hll_inv, coeffs = sy["d"], sy["u"], sy["hll_inv"], sy["coeffs"]
+                fac = _tridiag_factor(d, u)
+                l_active = sy["l_active"]
+                p_mask = sy["p_active"][:, :, None]
+                gp = sy["gp"] * p_mask
+                gl = sy["gl"] * l_active[:, :, None]
+                # reduced rhs: g_p - H_pl H_ll^-1 g_l
+                rhs = gp - _hpl_apply(s, coeffs, _hll_inv_apply(hll_inv, gl), slots)
 
-        # reduced rhs: g_p - H_pl H_ll^-1 g_l
-        rhs = gp - _hpl_apply(s, coeffs, _hll_inv_apply(hll_inv, gl), slots)
+            with profiling.span("les.pg.gn.cg"):
+                xp = torch.zeros_like(rhs)
+                r = rhs
+                z = _tridiag_solve(fac, r)
+                p = z
+                rz = _dot(r, z)
+                for _ in range(n_cg):
+                    # S p: the chain part is exactly the preconditioner's matrix
+                    sp = _schur_mv(d, u, hll_inv, coeffs, slots, p)
+                    alpha = (rz / torch.clamp_min(_dot(p, sp), 1e-30))[:, None, None]
+                    xp = xp + alpha * p
+                    r = r - alpha * sp
+                    z = _tridiag_solve(fac, r)
+                    rz_new = _dot(r, z)
+                    beta = rz_new / torch.where(rz.abs() > 1e-30, rz, 1.0)
+                    p = z + beta[:, None, None] * p
+                    rz = rz_new
 
-        xp = torch.zeros_like(rhs)
-        r = rhs
-        z = _tridiag_solve(fac, r)
-        p = z
-        rz = _dot(r, z)
-        for _ in range(n_cg):
-            # S p: the chain part is exactly the preconditioner's matrix
-            sp = _schur_mv(d, u, hll_inv, coeffs, slots, p)
-            alpha = (rz / torch.clamp_min(_dot(p, sp), 1e-30))[:, None, None]
-            xp = xp + alpha * p
-            r = r - alpha * sp
-            z = _tridiag_solve(fac, r)
-            rz_new = _dot(r, z)
-            beta = rz_new / torch.where(rz.abs() > 1e-30, rz, 1.0)
-            p = z + beta[:, None, None] * p
-            rz = rz_new
-        xp = xp * p_mask
-        # landmark back-substitution
-        xl = _hll_inv_apply(hll_inv, gl - _hpl_t_apply(s, coeffs, xp, slots))
-        xl = xl * l_active[:, :, None]
+            with profiling.span("les.pg.gn.line_search"):
+                xp = xp * p_mask
+                # landmark back-substitution
+                xl = _hll_inv_apply(hll_inv, gl - _hpl_t_apply(s, coeffs, xp, slots))
+                xl = xl * l_active[:, :, None]
 
-        # halving line search, accept only what improves
-        p1, l1 = _retract(poses, lms, xp, xl, 1.0)
-        e1 = graph_error(cfg, s, p1, l1, meas_scale, slots)
-        p2, l2 = _retract(poses, lms, xp, xl, 0.5)
-        e2 = graph_error(cfg, s, p2, l2, meas_scale, slots)
-        half = (e2 < e1)[:, None, None]
-        e_new = torch.minimum(e1, e2)
-        ok = (e_new < err) & torch.isfinite(e_new)
-        okb = ok[:, None, None]
-        poses = torch.where(okb, torch.where(half, p2, p1), poses)
-        lms = torch.where(okb, torch.where(half, l2, l1), lms)
-        err = torch.where(ok, e_new, err)
-        lam = torch.where(
-            ok, torch.clamp_min(_div(lam, 3.0), 1e-6),
-            torch.clamp_max(lam * 8.0, 1e4),
-        )
+                # halving line search, accept only what improves
+                p1, l1 = _retract(poses, lms, xp, xl, 1.0)
+                e1 = graph_error(cfg, s, p1, l1, meas_scale, slots)
+                p2, l2 = _retract(poses, lms, xp, xl, 0.5)
+                e2 = graph_error(cfg, s, p2, l2, meas_scale, slots)
+                half = (e2 < e1)[:, None, None]
+                e_new = torch.minimum(e1, e2)
+                ok = (e_new < err) & torch.isfinite(e_new)
+                okb = ok[:, None, None]
+                poses = torch.where(okb, torch.where(half, p2, p1), poses)
+                lms = torch.where(okb, torch.where(half, l2, l1), lms)
+                err = torch.where(ok, e_new, err)
+                lam = torch.where(
+                    ok, torch.clamp_min(_div(lam, 3.0), 1e-6),
+                    torch.clamp_max(lam * 8.0, 1e4),
+                )
+            if profiling.tracing():
+                # a rejected step is a GN step spent for nothing on its world
+                profiling.count("pg.gn_world_steps", ok.numel())
+                profiling.count("pg.gn_accepted", ok.sum())
     return poses, lms, err
 
 

@@ -47,6 +47,7 @@ from live_ekf_slam_tpu_torch.ops import _build
 from live_ekf_slam_tpu_torch.ops.kernel_math import atan2, wrap
 from live_ekf_slam_tpu_torch.ops.philox import MASK32, philox_noise_reference
 from live_ekf_slam_tpu_torch.parallel.mesh import sharded_rollout
+from live_ekf_slam_tpu_torch.utils.profiling import span
 
 # Initial pose covariance diag (ekf.cpp:11-18).
 P0 = (0.01 * 0.01, 0.01 * 0.01, 0.005 * 0.005)
@@ -98,19 +99,22 @@ def fused_ekf_rollout(
     world, with the gain masked to zero; the result is the same, bit for bit.
     The TPU version's ``block_worlds`` and ``t_chunk`` cut its grid and have
     no meaning here: the kernel runs one warp per world and loops over T.
+    The whole call is the span ``les.fused_rollout`` while a profiler
+    records (``utils/profiling``).
     """
-    _check_scope(cfg, filter_kind, profile_mode, emit_traj)
-    dev = landmarks.device
-    if dev.type == "cpu":
-        return fused_ekf_rollout_reference(
-            cfg, landmarks, cmds, seed, noise=noise, predicated=predicated,
-            filter_kind=filter_kind, profile_mode=profile_mode,
-            emit_traj=emit_traj,
-        )
-    if dev.type != "cuda":
-        raise ValueError(f"fused_ekf_rollout runs on cpu or cuda, not {dev}")
-    return _launch(cfg, landmarks, cmds, seed, noise, predicated, filter_kind,
-                   profile_mode, emit_traj)
+    with span("les.fused_rollout"):
+        _check_scope(cfg, filter_kind, profile_mode, emit_traj)
+        dev = landmarks.device
+        if dev.type == "cpu":
+            return fused_ekf_rollout_reference(
+                cfg, landmarks, cmds, seed, noise=noise, predicated=predicated,
+                filter_kind=filter_kind, profile_mode=profile_mode,
+                emit_traj=emit_traj,
+            )
+        if dev.type != "cuda":
+            raise ValueError(f"fused_ekf_rollout runs on cpu or cuda, not {dev}")
+        return _launch(cfg, landmarks, cmds, seed, noise, predicated,
+                       filter_kind, profile_mode, emit_traj)
 
 
 def fused_iekf_rollout(cfg, landmarks, cmds, seed, **kw) -> dict:

@@ -1,21 +1,65 @@
-"""Tracing and throughput utilities of the port.
+"""Tracing of the port: spans and counters on the profiler's clock, and the
+Chrome-trace exporter.
 
-Counterpart of ``live_ekf_slam_tpu/utils/profiling.py``:
-
+- ``span(name)``: a context around one layer's work. While a
+  ``torch.profiler`` is recording it is ``record_function(name)``, so the
+  span lands in the profiler's trace beside the device activity and on its
+  clock; otherwise it is one shared no-op context and creates nothing. The
+  port's spans are named ``les.<layer>`` (the library's C prefix), apart
+  from a caller's own.
+- ``count(name, value)``: adds ``value``, a Python int or a 0-d tensor, to a
+  counter while a profiler is recording (a tensor is summed on its device
+  and not read back); ``counters()`` reads them as host ints after the
+  traced window. ``tracing()`` says whether a profiler is recording, for a
+  caller whose value costs work to compute.
 - ``trace(log_dir)``: context manager around any region; writes a Chrome
-  trace of the CPU and, on a card, the CUDA activity into ``log_dir``.
-- ``Throughput``: steps/sec(/world) counter for run loops.
+  trace of the CPU and, on a card, the CUDA activity into ``log_dir``, the
+  ``les.*`` spans among them.
 - The fused EKF and RI-EKF rollouts' ``profile_mode`` ("sim", "nolm", "full")
   attributes a rollout's time to the simulator, the predict and the landmark
   loop (``ops/fused_rollout.py``); ``live_ekf_slam_tpu_torch/tools`` times the
   primitives of a tick one by one.
+
+torch is imported inside the functions that need it: with torch not loaded,
+no profiler can be recording.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
+import sys
+
+_OFF = contextlib.nullcontext()
+# counter name -> its sum (a Python int, or a tensor on the device it counts)
+_COUNTERS: dict = {}
+
+
+def tracing() -> bool:
+    """Whether a torch profiler is recording in this process."""
+    prof = sys.modules.get("torch.autograd.profiler")
+    return prof is not None and prof._is_profiler_enabled
+
+
+def span(name: str):
+    """``with span("les.<layer>"):`` records the block as a span while a
+    profiler is recording; otherwise a shared no-op context."""
+    if not tracing():
+        return _OFF
+    return sys.modules["torch.autograd.profiler"].record_function(name)
+
+
+def count(name: str, value) -> None:
+    """Adds ``value`` (an int or a 0-d tensor) to the counter ``name`` while
+    a profiler is recording; nothing otherwise."""
+    if tracing():
+        _COUNTERS[name] = _COUNTERS.get(name, 0) + value
+
+
+def counters() -> dict[str, int]:
+    """Every counter as a host int (reading a device counter synchronises).
+    The counters only grow: a caller compares readings or takes ratios."""
+    return {name: int(v) for name, v in _COUNTERS.items()}
 
 
 @contextlib.contextmanager
@@ -36,34 +80,3 @@ def trace(log_dir: str):
         yield prof
     n = sum(f.startswith("trace_") for f in os.listdir(log_dir))
     prof.export_chrome_trace(os.path.join(log_dir, f"trace_{n}.json"))
-
-
-class Throughput:
-    """Steps/sec(/world) counter with exponential smoothing."""
-
-    def __init__(self, n_worlds: int = 1, alpha: float = 0.2):
-        self.n_worlds = n_worlds
-        self.alpha = alpha
-        self.rate = None
-        self._t = None
-        self._steps = 0
-
-    def tick(self, steps: int = 1):
-        now = time.perf_counter()
-        if self._t is not None:
-            inst = steps / max(now - self._t, 1e-9)
-            self.rate = (
-                inst if self.rate is None
-                else self.alpha * inst + (1 - self.alpha) * self.rate
-            )
-        self._t = now
-        self._steps += steps
-        return self.rate
-
-    @property
-    def steps_per_sec_per_world(self):
-        return self.rate
-
-    @property
-    def aggregate_steps_per_sec(self):
-        return None if self.rate is None else self.rate * self.n_worlds
