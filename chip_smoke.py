@@ -13,7 +13,10 @@ solve, a segment scan, also within tolerance of the sequential loop it
 replaced) and for the Schur matvec of the bulk solve (P2, also within
 tolerance of the torch spelling it replaced, with both forms of the slot
 map, and two launches equal bit for bit; both also on chordal_init's
-fixed-heading systems). The per-tick pose graph
+fixed-heading systems) and for the Gauss-Newton system of the bulk solve
+(P3, the -fmad=false build bit for bit against its plain version, the
+default build within tolerance of it, two launches equal, with both forms
+of the slot map and on chordal_init's systems). The per-tick pose graph
 (``run_monte_carlo(impl="per_tick", collect="poses")`` with
 ``filter="pose_graph"``) runs the study's default pose-graph config at 1024
 worlds x 1000 ticks and the EKF-SLAM secondary in bulk mode at 256 worlds,
@@ -34,13 +37,13 @@ card; one batched replan is held against its CPU run, and the igvc1 grid is
 read from its PNG without Pillow. The host side (``host_side``) runs the
 single-world demo presets through ``cli.run_demo`` and ``cli.run_sim_base``
 on the card, each timed with its launches counted (Philox once a run, the
-pose graph's final solve P1 and P2): filter_demo_results_only for every
+pose graph's final solve P1, P2 and P3): filter_demo_results_only for every
 filter (EKF-SLAM and the pose graph at the preset's 1000 ticks, EKF-SLAM on
 the CPU too), filter_demo_live with the async frame feed, sim_base in both
 trajectory modes, goal pursuit with async replans on building1, the
 EKF-SLAM and pose-graph demos card against CPU (the pose graph's final
-solve at one world; the clicked-goal run under F15) and P1 and P2 against
-their plain versions at one world (these two in ``host_side_vs_cpu``, a
+solve at one world; the clicked-goal run under F15) and P1, P2 and P3
+against their plain versions at one world (these two in ``host_side_vs_cpu``, a
 process of their own), Philox bit for bit at one world, the AprilTag
 replay, a checkpoint saved on the card
 and resumed on the CPU, and a pose-graph study's CSVs with the bar charts
@@ -219,6 +222,17 @@ P1_RTOL = 2e-3
 # the worst world, 1.4e-5 of the whole array; 3e-6 at most on 8 worlds).
 # The torch spelling, which sums in yet another order, is held to the same.
 SCHUR_RTOL = 2e-3
+# The Gauss-Newton system (P3) against its plain version
+# (``_schur_system_reference``), default build: |kernel - plain| <=
+# GN_SYSTEM_RTOL * max|plain| over the batch, output by output. Each output
+# is a short sum of float32 terms, so FMA contraction moves it by a few ulps
+# of the terms' scale; a wrong term, sign or slot moves it by the term's own
+# size. The scale is the batch's, not each world's: a gradient sums terms
+# that cancel, and in a world that saw nothing the pose gradient at
+# chordal_init's seed is the integrated chain's rounding alone (measured on
+# an H100, 8 worlds x T = 37: 1.3e-2 of that world's own scale, 2.3e-6 of
+# the batch's; the per-world figure is reported beside).
+GN_SYSTEM_RTOL = 1e-4
 # Two runs of the pose-graph main path must agree to this (metres): nothing
 # on the path adds with atomics, so they are expected to be equal.
 PG_REPEAT_ATOL = 1e-4
@@ -311,6 +325,9 @@ PG_KERNELS = {
     "schur_mv": (
         pg.launches, "schur_mv", SRC + "schur_mv.cu",
         "live_ekf_slam_tpu/models/posegraph.py:1267"),
+    "gn_system": (
+        pg.launches, "system", SRC + "gn_system.cu",
+        "live_ekf_slam_tpu/models/posegraph.py:1242"),
 }
 
 
@@ -921,18 +938,129 @@ def schur_mv_checks(dev):
                      meas_scale=sc, chordal=chordal, rtol_of_scale=SCHUR_RTOL, **res)
 
 
+GN_OUTPUTS = ("d", "u", "hll_inv", "gp", "gl", "rhs", "p_active", "l_active",
+              "ab", "bb", "cb", "ar", "br")
+
+
+def gn_system_args(cfg, s, meas_scale: float, slots=None, chordal: bool = False):
+    """The arguments of the first system ``solve_schur_pcg`` sets up on the
+    graphs ``s`` (``bench.schur_system``'s: at the seeds, damping 1e-4; with
+    ``chordal`` chordal_init's fixed-heading system at its seed)."""
+    slots = slots or pg.LmSlots(s)
+    poses, lms = pg.chordal_seed(cfg, s, slots) if chordal else (s.poses_init, s.lms_init)
+    return (cfg, s, poses, lms, meas_scale, 1e-4, slots, chordal)
+
+
+def gn_outputs(sy: dict) -> dict:
+    """A system's outputs by name, each (B, rows, columns) for
+    ``world_rel``."""
+    out = dict({k: sy[k] for k in GN_OUTPUTS[:8]}, **dict(zip(GN_OUTPUTS[8:], sy["coeffs"])))
+    return {k: a.flatten(2) if a.dim() > 2 else a[..., None] for k, a in out.items()}
+
+
+def gn_system_compare(args: tuple, what: str) -> dict:
+    """P3 against its plain version (``_schur_system_reference``) on one
+    system (``gn_system_args``): every output of the default build within
+    GN_SYSTEM_RTOL of the plain version's scale in every world, a second
+    launch equal bit for bit, the -fmad=false build equal to the plain
+    version bit for bit. Also the torch passes P3 replaced
+    (``_schur_system_torch``), held to the plain version within
+    GN_SYSTEM_RTOL. Returns the errors (each output's largest beside the
+    batch's scale, and beside each world's own) and the plain versions'
+    milliseconds."""
+    before = pg.launches["system"]
+    sy = gn_outputs(pg._schur_system(*args))
+    again = gn_outputs(pg._schur_system(*args))
+    torch.cuda.synchronize()
+    if pg.launches["system"] != before + 2:
+        raise AssertionError(f"{what}: the system wrapper did not launch its kernel")
+    t0 = time.perf_counter()
+    ref = gn_outputs(pg._schur_system_reference(*args))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tor = gn_outputs(pg._schur_system_torch(*args))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    with _build.without_fma():
+        same = bitwise(gn_outputs(pg._schur_system(*args)), ref, f"{what} -fmad=false")
+    bitwise(sy, again, f"{what}: two launches")
+    def batch_rel(a, want):
+        return float((a - want).abs().max() / want.abs().max().clamp_min(1e-30))
+
+    rel = {k: batch_rel(sy[k], ref[k]) for k in GN_OUTPUTS}
+    rel_torch = {k: batch_rel(tor[k], ref[k]) for k in GN_OUTPUTS}
+    worst = max(rel, key=rel.get)
+    out = {"no_fma_bitwise_equal": all(same.values()), "repeat_bitwise_equal": True,
+           "by_column": args[6].by_column, "plain_ms": 1e3 * (t1 - t0),
+           "torch_ms": 1e3 * (t2 - t1),
+           "vs_reference": {"max_abs_err": max(float((sy[k] - ref[k]).abs().max())
+                                               for k in GN_OUTPUTS),
+                            "max_rel_to_scale": rel[worst], "worst_output": worst,
+                            "by_output": rel,
+                            "by_output_of_world_scale": {
+                                k: world_rel(sy[k], ref[k]) for k in GN_OUTPUTS}},
+           "torch_vs_reference_rel": max(rel_torch.values())}
+    if not rel[worst] <= GN_SYSTEM_RTOL:
+        raise AssertionError(f"{what}: {worst} out of tolerance: {rel}")
+    if not out["torch_vs_reference_rel"] <= GN_SYSTEM_RTOL:
+        raise AssertionError(f"{what}: the torch system against the plain version: {rel_torch}")
+    return out
+
+
+def gn_system_checks(dev):
+    """P3 on real graphs: a few worlds at T = 37, 200 and 1000, at the first
+    and the last measurement scale, with the by-column slot map and the
+    general one (the per-tick graphs'), and on chordal_init's fixed-heading
+    system."""
+    for steps in (37, SMALL["steps"], PG_MAIN["steps"]):
+        cfg = pg_config(steps, "ekf_slam", False)
+        graphs = pg_graphs(cfg, P1_WORLDS, dev, seed=1)[0]
+        for sc, chordal in ((16.0, False), (1.0, False), (1.0, True)):
+            for slots in (pg.LmSlots(graphs), pg.LmSlots(graphs, detect=False)):
+                res = gn_system_compare(
+                    gn_system_args(cfg, graphs, sc, slots, chordal),
+                    f"Gauss-Newton system T={steps} scale={sc} chordal={chordal}")
+                emit("gn_system_vs_plain", worlds=P1_WORLDS, steps=steps,
+                     meas_scale=sc, chordal=chordal, rtol_of_scale=GN_SYSTEM_RTOL, **res)
+
+
+def gn_system_bytes(b: int, t: int, k: int, n: int, n_valid: int, by_column: bool) -> float:
+    """P3's least device traffic a launch: each input read once (the
+    iterate, the prior's row, the odometry moments and validity, the
+    measurement validity, the valid measurements and their slots), each
+    output written once (d, u, gp, rhs, p_active, the landmark outputs, the
+    valid slots' five coefficients)."""
+    reads = (4.0 * b * (t + 1) * 3 + 4.0 * b * n * 2 + 12.0 * b
+             + 4.0 * b * t * 5 + 1.0 * b * t + 1.0 * b * t * k
+             + 8.0 * n_valid + (4.0 * b * k if by_column else 4.0 * n_valid)
+             + 12.0 * b)
+    writes = (4.0 * b * (t + 1) * (9 + 3 + 3 + 1) + 4.0 * b * t * 9
+              + 4.0 * b * n * (3 + 2 + 1) + 20.0 * n_valid)
+    return reads + writes
+
+
+def gn_system_flops(b: int, t: int, n_valid: int, walks: int) -> float:
+    """P3's float operations a launch, counted from the source: a pose row
+    evaluates two odometry factors (~60 each: rotation, residual, whitened
+    Jacobians) and adds their products (2 x 45 + 2 x 15), the prior and the
+    damping (~20); a valid measurement its coefficients and residual (~35),
+    the unary block and gradient (~25), the landmark partials (5) in each
+    walk, and the rhs terms (~17); each landmark its inverse (~15)."""
+    return b * (t + 1) * 260.0 + n_valid * (60.0 * walks + 17.0)
+
+
 def pg_bulk_launches(cfg) -> dict:
-    """The P1 and P2 launches of one bulk solve of a world chunk: the
+    """The P1, P2 and P3 launches of one bulk solve of a world chunk: the
     graduated schedule, 16 + 16 + 50 Gauss-Newton steps from the seeds, in
     iterative mode 50 more from the replayed or per-tick solution; each
-    factors once, solves once per CG step and once before them, and applies
-    the Schur matvec once per CG step."""
+    sets up its system once, factors once, solves once per CG step and once
+    before them, and applies the Schur matvec once per CG step."""
     pgc = cfg.pose_graph
     n_gn = (max(8, pgc.bulk_gn_iters // 3) * 2 + pgc.bulk_gn_iters
             + (pgc.bulk_gn_iters if pgc.solve_graph_every_iteration else 0))
     return dict(block_thomas_factor=n_gn,
                 block_thomas_solve=n_gn * (pgc.bulk_cg_iters + 1),
-                schur_mv=n_gn * pgc.bulk_cg_iters)
+                schur_mv=n_gn * pgc.bulk_cg_iters, gn_system=n_gn)
 
 
 def pg_run(secondary: str, iterative: bool, batch: int, dev) -> tuple[dict, dict]:
@@ -1048,7 +1176,7 @@ def pose_graph_paths(dev, n_lm: int) -> tuple[list, int]:
             "plain_steps": chk["steps"], "plain_timed": "beside the other side checks",
         })
 
-    # ---- P1 and P2 on the main path's own graphs
+    # ---- P1, P2 and P3 on the main path's own graphs
     cfg = pg_config(PG_MAIN["steps"], "ekf_slam", False)
     graphs = pg_graphs(cfg, PG_MAIN["batch"], dev)[0]
     sy = schur_system(cfg, graphs, 1.0)
@@ -1085,6 +1213,23 @@ def pose_graph_paths(dev, n_lm: int) -> tuple[list, int]:
          bound_with_coefficients_read_twice_ms=1e3 * (
              schur_mv_bytes(*mv) + 4.0 * sum(c.numel() for c in sy["coeffs"])) / PEAK_BYTES,
          l2_hit_rate="not measured", **res_m)
+    # ---- P3 on the same graphs: the study's first system, at scale 1 (and
+    # its coefficient buffers made once, as solve_schur_pcg makes them)
+    gargs = gn_system_args(cfg, graphs, 1.0, sy["slots"])
+    res_g = gn_system_compare(gargs, "Gauss-Newton system main shape")
+    moments = pg._odom_moments(cfg, graphs.odom)
+    gwork = pg._system_work(graphs, moments)
+    ms_g = timed_ms(lambda: pg._schur_system(*gargs, moments=moments, work=gwork))
+    k_cap, n_cap = sy["slots"].shape[2], sy["slots"].n
+    n_valid = int(graphs.meas_valid.sum())
+    bytes_g = gn_system_bytes(d.shape[0], d.shape[1] - 1, k_cap, n_cap, n_valid,
+                              sy["slots"].by_column)
+    flops_g = gn_system_flops(d.shape[0], d.shape[1] - 1, n_valid, -(-n_cap // 20))
+    emit("gn_system_main_shape", **PG_MAIN, ms=ms_g,
+         torch_system_ms=timed_ms(lambda: pg._schur_system_torch(*gargs, moments=moments)),
+         occupancy=pg.system_occupancy(k_cap, n_cap), valid_measurements=n_valid,
+         valid_share=n_valid / graphs.meas_valid.numel(), bytes=bytes_g,
+         bytes_per_s=bytes_g / (ms_g * 1e-3), **res_g)
     # the study's solve by part: 82 Gauss-Newton steps, 40 CG steps each
     split = solve_split(cfg, graphs)
     n_gn = launches["block_thomas_factor"]
@@ -1124,17 +1269,24 @@ def pose_graph_paths(dev, n_lm: int) -> tuple[list, int]:
             {"vs_reference": {"max_abs_err": res_m["vs_reference"]["max_abs_err"],
                               "rel_to_scale": res_m["vs_reference"]["max_world_rel_to_scale"]}},
             {"kernel_ms": alone_m, "torch_spelling_plain_ms": res_m["torch_ms"]}),
+        "gn_system": (
+            flops_g, bytes_g, ms_g, res_g["plain_ms"], ("vs_reference",),
+            {"vs_reference": {"max_abs_err": res_g["vs_reference"]["max_abs_err"],
+                              "rel_to_scale": res_g["vs_reference"]["max_rel_to_scale"]}},
+            {"torch_system_plain_ms": res_g["torch_ms"],
+             "no_fma_bitwise_equal": res_g["no_fma_bitwise_equal"]}),
     }
     # the per-tick pose graph's launches (its side process's counted run) and
     # the chordal systems' checks (the side checks' lines)
     ptpg = {d["run"]: d["launches"] for d in LINES if d["phase"] == "per_tick_pose_graph"}
     # the host side's demos (their side process's counted runs) and its
-    # one-world checks of P1 and P2
+    # one-world checks of P1, P2 and P3
     hs = next(d for d in LINES if d["phase"] == "host_side")
     hs_one = next(d for d in LINES if d["phase"] == "host_side_solve_vs_plain")
     chordal = {"block_thomas_factor": ("block_thomas_vs_plain", ("sinv", "l", "u", "dsc")),
                "block_thomas_solve": ("block_thomas_vs_plain", ("x",)),
-               "schur_mv": ("schur_mv_vs_plain", ("vs_reference",))}
+               "schur_mv": ("schur_mv_vs_plain", ("vs_reference",)),
+               "gn_system": ("gn_system_vs_plain", ("vs_reference",))}
     for name, (flops, nbytes, ms, p_ms, outs, errs, extra) in work_p1.items():
         t_ops, t_bytes = flops / PEAK_FLOPS, nbytes / PEAK_BYTES
         phase, keys = chordal[name]
@@ -1144,8 +1296,9 @@ def pose_graph_paths(dev, n_lm: int) -> tuple[list, int]:
             "host_side": hs["solve_launches"][name]},
             single_world_max_rel_to_scale=hs_one["max_rel_to_scale"][name],
             chordal_max_rel_to_scale=max(
-                d[k]["rel_to_scale" if phase == "block_thomas_vs_plain"
-                     else "max_world_rel_to_scale"]
+                d[k][{"block_thomas_vs_plain": "rel_to_scale",
+                      "schur_mv_vs_plain": "max_world_rel_to_scale",
+                      "gn_system_vs_plain": "max_rel_to_scale"}[phase]]
                 for d in LINES if d["phase"] == phase and d.get("chordal") for k in keys))
         record.append({
             "name": name, "route": "cuda", "source": PG_KERNELS[name][2],
@@ -1759,10 +1912,12 @@ def phase_occupancy(n_lm: int, ptxas: dict) -> list:
     block, and resident blocks and worlds an SM
     (cudaOccupancyMaxActiveBlocksPerMultiprocessor); beside them the stack
     and spill bytes ptxas reports (``ptxas``: ptxas_report of the rollout
-    sources, block_thomas.cu, schur_mv.cu and micro_ops.cu). K1 and K2
-    must keep EKF_RESIDENT worlds on an SM, K4 SLAM UKF_SLAM_RESIDENT,
-    without spilling; beside them P1's solve and P2, which must not spill
-    either, and the register micro kernels at D = 48, which must use no
+    sources, block_thomas.cu, schur_mv.cu, gn_system.cu and micro_ops.cu).
+    K1 and K2 must keep EKF_RESIDENT worlds on an SM, K4 SLAM
+    UKF_SLAM_RESIDENT, without spilling; beside them P1's solve and P2,
+    which must not spill either, P3, which must not spill and must keep two
+    worlds an SM (its only local memory is sinf's and cosf's 32-byte buffer
+    for arguments beyond 105615, no spill), and the register micro kernels at D = 48, which must use no
     local memory at all and hold 8 or 16 worlds an SM."""
     rows, args = [], {}
     for name, (kind, mode, traj, targs) in EKF_INSTANCES.items():
@@ -1777,8 +1932,8 @@ def phase_occupancy(n_lm: int, ptxas: dict) -> list:
         stem = f"fused_{kind}_rollout_kernel" + mangled_args(args[r["kernel"]])
         r.update(next(v for k_, v in ptxas.items() if stem in k_))
         emit("occupancy", n_lm=n_lm, **r)
-    # P1's solve at the pose-graph study's T, y in shared memory, and P2 at
-    # its K and N
+    # P1's solve at the pose-graph study's T, y in shared memory, and P2 and
+    # P3 at its K and N
     cfg = pg_config(PG_MAIN["steps"], "ekf_slam", False)
     for r in ({"kernel": "block_thomas_solve", "steps": PG_MAIN["steps"],
                "segments": pg.SOLVE_SEGMENTS, **pg.solve_occupancy(PG_MAIN["steps"]),
@@ -1786,12 +1941,16 @@ def phase_occupancy(n_lm: int, ptxas: dict) -> list:
               {"kernel": "schur_mv", "k": cfg.num_meas_slots, "n_lm": n_lm,
                "threads": pg.SCHUR_THREADS,
                **pg.schur_mv_occupancy(cfg.num_meas_slots, n_lm),
-               **next(v for k_, v in ptxas.items() if "schur_mv_kernel" in k_)}):
+               **next(v for k_, v in ptxas.items() if "schur_mv_kernel" in k_)},
+              {"kernel": "gn_system", "k": cfg.num_meas_slots, "n_lm": n_lm,
+               "threads": pg.SYSTEM_THREADS,
+               **pg.system_occupancy(cfg.num_meas_slots, n_lm),
+               **next(v for k_, v in ptxas.items() if "gn_system_kernel" in k_)}):
         emit("occupancy", **r)
         rows.append(r)
     need = {"fused_ekf_rollout": EKF_RESIDENT, "fused_iekf_rollout": EKF_RESIDENT,
             "fused_ukf_rollout[slam]": UKF_SLAM_RESIDENT, "block_thomas_solve": 1,
-            "schur_mv": 1}
+            "schur_mv": 1, "gn_system": 2}
     for r in rows:
         if r["kernel"] in need and (r["worlds_per_sm"] < need[r["kernel"]]
                                     or r["spill_store_bytes"] or r["spill_load_bytes"]):
@@ -2865,7 +3024,7 @@ def closed_loop_checks(dev):
 # secondary), whose preset runs HS_PRESET_T (a tick is one world's
 # host-bound step, 0.05-0.25 s beside the other side processes, so the
 # preset's length set the side checks' pace), 200 for the others. Philox at
-# one world and P1 and P2 on a one-world graph keep the preset's T.
+# one world and P1, P2 and P3 on a one-world graph keep the preset's T.
 HS_PRESET_T = 1000
 HS_RESULTS = {"ekf_slam": 300, "pose_graph": 300, "naive": 200,
               "iekf_slam": 200, "ukf_slam": 200, "ukf_loc": 200}
@@ -2891,7 +3050,7 @@ HS_OUT = Path(__file__).resolve().parent / "chiprun_out" / "host_side"
 # (6.2e-4 before the same events), which the line reports.
 HS_PART_ATOL = CL_PART_ATOL
 # the kernels of the pose-graph demo's final solve (``posegraph.finalize``)
-HS_SOLVE = ("block_thomas_factor", "block_thomas_solve", "schur_mv")
+HS_SOLVE = ("block_thomas_factor", "block_thomas_solve", "schur_mv", "gn_system")
 HS_PURSUIT_ATOL = 1e-2
 HS_CMD_JUMP = 1e-3
 HS_NUDGE = 1.0 + 2.0 ** -20
@@ -2926,7 +3085,7 @@ def hs_demo(cfg, dev, live: bool, viewer, tag: str) -> dict:
     """``cli.run_demo`` once on ``dev``, its launches counted: the line of
     that run (ms a tick, wall seconds, the printed average, the frames the
     async feed dropped, as the printed line gives them). Each run launches
-    Philox once; the pose graph's final solve P1 and P2; nothing else."""
+    Philox once; the pose graph's final solve P1, P2 and P3; nothing else."""
     from live_ekf_slam_tpu_torch import cli
 
     zero_counts()
@@ -2952,7 +3111,7 @@ def hs_demo(cfg, dev, live: bool, viewer, tag: str) -> dict:
         if set(launches) != want or launches["philox_noise"] != 1:
             raise AssertionError(f"host side: the {cfg.filter} demo launched "
                                  f"{launches}, not once philox_noise"
-                                 + (" and the final solve's P1, P2"
+                                 + (" and the final solve's P1, P2, P3"
                                     if cfg.filter == "pose_graph" else ""))
     if not np.isfinite(avg):
         raise AssertionError(f"host side: the {cfg.filter} demo's average is {avg}")
@@ -3002,7 +3161,7 @@ def hs_card_vs_cpu(dev) -> dict:
     """The demos on the card and on the CPU from the same Philox noise,
     through ``cli.run_demo``: EKF-SLAM and the pose graph (HS_PG_T ticks) on
     the preset's precomputed trajectory (live frames: every tick's poses, the average;
-    the pose graph's final frame, whose solve runs P1 and P2 at one world,
+    the pose graph's final frame, whose solve runs P1, P2 and P3 at one world,
     to the per-tick pose graph's tolerances) and EKF-SLAM's clicked-goal
     pursuit on building1 (the local planner, a native A* replan every 5
     ticks), held under F15: each tick before the run's first event to
@@ -3083,12 +3242,13 @@ def hs_card_vs_cpu(dev) -> dict:
 
 
 def hs_solve_single_world(dev) -> dict:
-    """P1 and P2 at one world, a new edge of their layouts (half a warp a
-    world for P1's factor, 256 threads a world for P2), at the pose-graph
-    preset's T (HS_PRESET_T): on a one-world graph's systems, at the first
-    and the last measurement scale and on chordal_init's, with both slot
-    maps for P2, against their plain versions as the side checks hold them
-    at P1_WORLDS worlds (``block_thomas_compare``, ``schur_mv_compare``).
+    """P1, P2 and P3 at one world, a new edge of their layouts (half a warp a
+    world for P1's factor, 256 threads a world for P2 and P3), at the
+    pose-graph preset's T (HS_PRESET_T): on a one-world graph's systems, at
+    the first and the last measurement scale and on chordal_init's, with
+    both slot maps for P2 and P3, against their plain versions as the side
+    checks hold them at P1_WORLDS worlds (``block_thomas_compare``,
+    ``schur_mv_compare``, ``gn_system_compare``).
     Returns the largest error relative to scale of each kernel."""
     steps = HS_PRESET_T
     cfg = pg_config(steps, "ekf_slam", False)
@@ -3107,8 +3267,13 @@ def hs_solve_single_world(dev) -> dict:
             res_m = schur_mv_compare(sy, cg_direction(sy), "Schur matvec " + what)
             worst["schur_mv"] = max(worst["schur_mv"],
                                     res_m["vs_reference"]["max_world_rel_to_scale"])
+            res_g = gn_system_compare(gn_system_args(cfg, graphs, sc, slots, chordal),
+                                      "Gauss-Newton system " + what)
+            worst["gn_system"] = max(worst["gn_system"],
+                                     res_g["vs_reference"]["max_rel_to_scale"])
     line = dict(worlds=1, steps=steps, rtol_of_scale={"block_thomas": P1_RTOL,
-                                                      "schur_mv": SCHUR_RTOL},
+                                                      "schur_mv": SCHUR_RTOL,
+                                                      "gn_system": GN_SYSTEM_RTOL},
                 max_rel_to_scale=worst)
     emit("host_side_solve_vs_plain", **line)
     return line
@@ -3315,7 +3480,7 @@ def host_side_vs_cpu_checks(dev):
     """The host side's checks against the CPU and the plain versions (a side
     check of its own, 2 CPU threads, beside ``host_side``, which would
     otherwise bound the side checks' time): the demos card against CPU and
-    P1 and P2 at one world."""
+    P1, P2 and P3 at one world."""
     torch.set_num_threads(2)
     hs_card_vs_cpu(dev)
     hs_solve_single_world(dev)
@@ -3652,6 +3817,7 @@ SIDE_CHECKS = {
        for kind in fr.FILTER_KINDS},
     "block_thomas": lambda dev, n_lm: block_thomas_checks(dev),
     "schur_mv": lambda dev, n_lm: schur_mv_checks(dev),
+    "gn_system": lambda dev, n_lm: gn_system_checks(dev),
     **{f"per_tick_pose_graph[{name}]":
        (lambda dev, n_lm, name=name: per_tick_pose_graph(name, dev))
        for name in PTPG_RUNS},
@@ -3688,7 +3854,7 @@ SIDE_GROUPS = (
     ("fused_iekf_rollout", "pose_stream_main[iekf]"),
     ("per_tick_card_vs_cpu[0]",),
     ("per_tick_card_vs_cpu[1]",),
-    ("philox", "pose_stream", "block_thomas", "schur_mv"),
+    ("philox", "pose_stream", "block_thomas", "schur_mv", "gn_system"),
 )
 SIDE_FLAG = "--side-checks"
 
@@ -3763,13 +3929,13 @@ def main():
     # the phase-clocks build, one nvcc a source each, beside ptxas's reports
     # and the micro kernels' SASS, all started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(9) as pool:
+    with ThreadPoolExecutor(10) as pool:
         builds = [pool.submit(_build.build, extra)
                   for extra in ((), _build.NO_FMA, _build.PHASE_CLOCKS)]
         sass = pool.submit(lambda: micro_sass(builds[0].result()))
         reports = [pool.submit(ptxas_report, src) for src in (
             "fused_ekf_rollout.cu", "fused_ukf_rollout.cu", "block_thomas.cu",
-            "schur_mv.cu", "micro_ops.cu")]
+            "schur_mv.cu", "gn_system.cu", "micro_ops.cu")]
         libs = [f.result() for f in builds]
         ptxas = {}
         for f in reports:
@@ -3913,7 +4079,7 @@ def main():
     philox_launches += per_tick_path(dev, n_lm, fused, smi)
 
     # ---- 9. the per-tick pose graph, run in its side processes: each
-    # counted run launched Philox once and P1 and P2 in its bulk solve
+    # counted run launched Philox once and P1, P2 and P3 in its bulk solve
     # (per_tick_pose_graph raises otherwise)
     philox_launches += sum(r["launches"]["philox_noise"] for r in PTPG["run"].values())
     # ---- 10. the closed loop, run in its side process: once per run

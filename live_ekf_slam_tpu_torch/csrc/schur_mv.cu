@@ -45,7 +45,7 @@
 // a cluster of blocks a world.
 #include <cuda_runtime.h>
 
-#include <atomic>
+#include "smem_once.cuh"
 
 namespace {
 
@@ -269,26 +269,6 @@ long schur_smem(int K, int N) {
   return (buf + 2L * N + K) * (long)sizeof(float);
 }
 
-constexpr long kMaxSmem = 227 * 1024;
-
-// the dynamic shared bytes the kernel may take on each device, as set here
-// (0: the default 48 KB): the attribute is raised to the most a block can
-// have once a device, not at every launch
-constexpr int kMaxDevices = 64;
-std::atomic<int> g_smem_allowed[kMaxDevices];
-
-cudaError_t allow_smem(long smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev < kMaxDevices && smem <= g_smem_allowed[dev].load()) return cudaSuccess;
-  e = cudaFuncSetAttribute(schur_mv_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kMaxSmem);
-  if (e == cudaSuccess && dev < kMaxDevices) g_smem_allowed[dev].store((int)kMaxSmem);
-  return e;
-}
-
 }  // namespace
 
 extern "C" int les_kernel_occupancy(const void* fn, int threads, int smem,
@@ -301,10 +281,10 @@ extern "C" int les_schur_mv(const float* d, const float* u, const float* ab,
                             int B, int T, int K, int N, float* sp,
                             void* stream) {
   const long smem = schur_smem(K, N);
-  if (B <= 0 || T < 0 || K <= 0 || N <= 0 || smem > kMaxSmem ||
+  if (B <= 0 || T < 0 || K <= 0 || N <= 0 || smem > les::kMaxSmem ||
       (long)T * K > 0x7fffffffL)
     return (int)cudaErrorInvalidValue;
-  const cudaError_t e = allow_smem(smem);
+  const cudaError_t e = les::allow_smem<schur_mv_kernel>(smem);
   if (e != cudaSuccess) return (int)e;
   schur_mv_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
       d, u, Coeffs{ab, bb, cb, ar, br}, hll_inv, slot, by_column, vp, T, K, N, sp);
@@ -315,14 +295,11 @@ extern "C" int les_schur_mv(const float* d, const float* u, const float* ab,
 // (les_block_thomas_occupancy's out[6]; worlds a block 1).
 extern "C" int les_schur_mv_occupancy(int K, int N, int* out) {
   const long smem = schur_smem(K, N);
-  if (K <= 0 || N <= 0 || smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (K <= 0 || N <= 0 || smem > les::kMaxSmem) return (int)cudaErrorInvalidValue;
   out[4] = 1;
   out[5] = (int)smem;
   const int rc =
       les_kernel_occupancy((const void*)schur_mv_kernel, kThreads, out[5], out);
-  // that set the attribute to this launch's bytes: the next launch sets it anew
-  int dev = 0;
-  if (cudaGetDevice(&dev) == cudaSuccess && dev < kMaxDevices)
-    g_smem_allowed[dev].store(0);
+  les::forget_smem<schur_mv_kernel>();
   return rc;
 }

@@ -25,8 +25,13 @@ Solvers here:
   replaced, kept as a yardstick). Each CG step's Schur matvec, ``_schur_mv``,
   is one launch of ``csrc/schur_mv.cu`` on a CUDA tensor and its plain
   version ``_schur_mv_reference`` on a CPU tensor (``_schur_mv_torch``, the
-  torch passes it replaced, is the yardstick). The once-a-step products
-  (the reduced rhs, the landmark back-substitution) stay torch passes.
+  torch passes it replaced, is the yardstick). Each Gauss-Newton step's
+  system (``_schur_system``: residuals, Jacobians, coefficients, gradient,
+  blocks, landmark inverses and the reduced rhs) is one launch of
+  ``csrc/gn_system.cu`` on a CUDA tensor and the torch passes of
+  ``_schur_system_torch`` on a CPU tensor (``_schur_system_reference`` is
+  the kernel's order of sums). The landmark back-substitution stays torch
+  passes.
 * ``solve_pcg_gn``: matrix-free Jacobi-PCG, used per tick by
   ``replay_iterative`` (solve_graph_every_iteration mode, warm starts only).
 * ``chordal_init``: the initial iterate from the factors alone (integrated
@@ -65,15 +70,18 @@ from live_ekf_slam_tpu_torch.ops.precision import first_match, pin_fp32
 from live_ekf_slam_tpu_torch.utils import profiling
 from live_ekf_slam_tpu_torch.utils.geometry import wrap_angle
 
-# launches of the block-Thomas kernels and of the Schur matvec (not of their
-# plain versions)
-launches = {"factor": 0, "solve": 0, "schur_mv": 0}
+# launches of the block-Thomas kernels, the Schur matvec and the Gauss-Newton
+# system (not of their plain versions)
+launches = {"factor": 0, "solve": 0, "schur_mv": 0, "system": 0}
 # threads of the solve kernel a world (csrc/block_thomas.cu, kSegments), so
 # segments of the chain its plain version splits
 SOLVE_SEGMENTS = 128
 # threads of the Schur matvec kernel a world (csrc/schur_mv.cu, kThreads), so
 # the partial sums of H_pl^T v its plain version keeps apart
 SCHUR_THREADS = 256
+# threads of the system kernel a world (csrc/gn_system.cu, kThreads), so the
+# partial sums of H_ll and g_l its plain version keeps apart
+SYSTEM_THREADS = 256
 
 
 def init(cfg, batch: int, init_pose=None, device="cpu") -> PoseGraphState:
@@ -419,12 +427,14 @@ def _logmap_vinv(th: torch.Tensor):
     return a / den, b / den
 
 
-def _residuals(cfg, s: PoseGraphState, poses, lms, meas_scale=1.0, slots=None):
+def _residuals(cfg, s: PoseGraphState, poses, lms, meas_scale=1.0, slots=None,
+               moments=None):
     """All whitened residuals and masks, vectorised over factors: r_prior
     (B, 3), r_odom (B, T, 3), r_meas (B, T, K, 2) in (bearing, range) order,
-    rng_safe and the masked geometry (mdx, mdy), each (B, T, K)."""
+    rng_safe and the masked geometry (mdx, mdy), each (B, T, K).
+    ``moments``: ``_odom_moments(cfg, s.odom)``, made by the caller."""
     slots = slots or LmSlots(s, detect=False)
-    odom_eff, odom_sig = _odom_moments(cfg, s.odom)
+    odom_eff, odom_sig = moments or _odom_moments(cfg, s.odom)
     _, meas_s = _noise_sigmas(cfg, meas_scale)
     prior_s = _prior_sigmas(cfg, poses.device)
 
@@ -500,13 +510,14 @@ def graph_error(cfg, s: PoseGraphState, poses, lms, meas_scale=1.0,
 
 
 def _jacobians(cfg, s: PoseGraphState, poses, lms, meas_scale=1.0, slots=None,
-               res=None) -> dict:
+               res=None, moments=None) -> dict:
     """Whitened prior and odometry Jacobians with the residuals (``res``: a
-    ``_residuals`` result for these arguments, to save computing it again).
+    ``_residuals`` result for these arguments, to save computing it again;
+    ``moments`` as ``_residuals`` takes them).
     ja, jb (B, T, 3, 3): d residual / d pose_t and / d pose_{t+1}."""
-    odom_eff, odom_sig = _odom_moments(cfg, s.odom)
+    odom_eff, odom_sig = moments or _odom_moments(cfg, s.odom)
     prior_s = _prior_sigmas(cfg, poses.device)
-    res = res or _residuals(cfg, s, poses, lms, meas_scale, slots)
+    res = res or _residuals(cfg, s, poses, lms, meas_scale, slots, moments)
     r_prior, r_odom, r_meas, _, _ = res
 
     pa = poses[:, :-1]
@@ -1173,16 +1184,41 @@ def _zero_theta(j: torch.Tensor) -> torch.Tensor:
 
 
 def _schur_system(cfg, s: PoseGraphState, poses, lms, meas_scale, damping,
-                  slots: LmSlots, fix_theta: bool = False) -> dict:
+                  slots: LmSlots, fix_theta: bool = False, moments=None,
+                  work=None) -> dict:
     """What a Gauss-Newton step of ``solve_schur_pcg`` sets up at (poses,
     lms): the damped chain blocks d, u (``_pose_blocks``), the landmark
-    inverses hll_inv, the measurement coefficients, the gradient blocks gp,
-    gl (unmasked) and the active masks. ``fix_theta`` freezes the headings
+    inverses hll_inv, the measurement coefficients, the gradient blocks gp
+    (unmasked) and gl (masked by the active landmarks), the active masks
+    p_active (B, T+1), l_active (B, N) and the reduced right-hand side rhs =
+    gp p_active - H_pl H_ll^-1 gl. ``fix_theta`` freezes the headings
     (chordal_init's linear position solve): every heading column of the
     Jacobians is zeroed, so H's heading block vanishes and is pinned to the
-    identity, and the heading steps stay exactly 0."""
-    res = _residuals(cfg, s, poses, lms, meas_scale, slots)
-    jac = _jacobians(cfg, s, poses, lms, meas_scale, slots, res)
+    identity, and the heading steps stay exactly 0. ``moments``:
+    ``_odom_moments(cfg, s.odom)``, which depends on the graph alone.
+
+    On CUDA tensors one launch of ``csrc/gn_system.cu`` (``_gn_system``;
+    ``work`` its buffers for one ``solve_schur_pcg`` call, ``_system_work``);
+    on the CPU the torch passes of ``_schur_system_torch``
+    (``_schur_system_reference`` is the kernel's order of sums)."""
+    moments = moments or _odom_moments(cfg, s.odom)
+    dev = poses.device
+    if dev.type == "cuda":
+        return _gn_system(cfg, s, poses, lms, meas_scale, damping, slots,
+                          fix_theta, work or _system_work(s, moments))
+    if dev.type != "cpu":
+        raise ValueError(f"_schur_system runs on cpu or cuda, not {dev}")
+    return _schur_system_torch(cfg, s, poses, lms, meas_scale, damping, slots,
+                               fix_theta, moments)
+
+
+def _schur_system_torch(cfg, s: PoseGraphState, poses, lms, meas_scale, damping,
+                        slots: LmSlots, fix_theta: bool = False, moments=None) -> dict:
+    """``_schur_system`` as torch passes over the (B, T, K) slots, on any
+    device (the system ``solve_schur_pcg`` set up before the kernel of
+    ``csrc/gn_system.cu``)."""
+    res = _residuals(cfg, s, poses, lms, meas_scale, slots, moments)
+    jac = _jacobians(cfg, s, poses, lms, meas_scale, slots, res, moments)
     coeffs, r_meas = _meas_coeffs(cfg, s, poses, lms, meas_scale, slots, res)
     if fix_theta:
         jac = dict(jac, ja=_zero_theta(jac["ja"]), jb=_zero_theta(jac["jb"]))
@@ -1195,8 +1231,218 @@ def _schur_system(cfg, s: PoseGraphState, poses, lms, meas_scale, damping,
     if fix_theta:
         d[..., 2, 2] += 1.0
     hll_inv, l_active = _lm_hessian_inv(cfg, s, jac, coeffs, damping, slots)
+    gl = gl * l_active[:, :, None]
+    rhs = gp * p_active[:, :, None] - _hpl_apply(
+        s, coeffs, _hll_inv_apply(hll_inv, gl), slots)
     return dict(d=d, u=u, hll_inv=hll_inv, coeffs=coeffs, gp=gp, gl=gl,
-                p_active=p_active, l_active=l_active)
+                rhs=rhs, p_active=p_active, l_active=l_active)
+
+
+def _system_work(s: PoseGraphState, moments) -> dict:
+    """What every Gauss-Newton step of one ``solve_schur_pcg`` call hands
+    the system kernel unchanged: the odometry moments and the graph's masks
+    contiguous, and the five coefficient buffers (B, T, K) zeroed once: the
+    kernel writes the valid slots only, and the graph's valid slots are the
+    same in every step."""
+    eff, sig = moments
+    coeffs = torch.zeros((5,) + tuple(s.meas_valid.shape), dtype=torch.float32,
+                         device=s.meas_valid.device)
+    return {"eff": eff.contiguous(), "sig": sig.contiguous(),
+            "odom_valid": s.odom_valid.contiguous(),
+            "meas_valid": s.meas_valid.contiguous(),
+            "coeffs": tuple(coeffs.unbind(0))}
+
+
+def _gn_system(cfg, s: PoseGraphState, poses, lms, meas_scale, damping,
+               slots: LmSlots, fix_theta: bool, work: dict) -> dict:
+    """``_schur_system`` on CUDA tensors: one launch of the system kernel
+    (``csrc/gn_system.cu``, P3), which writes every output of the torch
+    passes, the coefficients into ``work``'s buffers."""
+    dev = poses.device
+    bsz, t1 = poses.shape[:2]
+    t_cap, k_cap, n_cap = t1 - 1, s.meas_valid.shape[2], lms.shape[1]
+    if slots.shape != (bsz, t_cap, k_cap) or slots.n != n_cap:
+        raise ValueError(f"the slot map is for {slots.shape} and N={slots.n}, "
+                         f"the iterate for B={bsz}, T={t_cap}, N={n_cap}")
+    _check_blocks("poses", poses, (bsz, t1, 3), dev)
+    _check_blocks("lms", lms, (bsz, n_cap, 2), dev)
+    _check_blocks("poses_init", s.poses_init, (bsz, t1, 3), dev)
+    _check_blocks("eff", work["eff"], (bsz, t_cap, 2), dev)
+    _check_blocks("sig", work["sig"], (bsz, t_cap, 3), dev)
+    _check_blocks("meas_rb", s.meas_rb, (bsz, t_cap, k_cap, 2), dev)
+    for name, c in zip("ab bb cb ar br".split(), work["coeffs"]):
+        _check_blocks(name, c, (bsz, t_cap, k_cap), dev)
+        if not c.is_contiguous():
+            raise ValueError(f"the {name} buffer must be contiguous")
+    index = slots.index32
+    lam = torch.as_tensor(damping, dtype=torch.float32, device=dev)
+    lam = lam.expand(bsz).contiguous() if lam.dim() == 0 else lam.contiguous()
+    _check_blocks("damping", lam, (bsz,), dev)
+    for name, a in (("odom_valid", work["odom_valid"]), ("meas_valid", work["meas_valid"]),
+                    ("slot map", index), ("timestep", s.timestep), ("M", s.M)):
+        if a.device != dev:
+            raise ValueError(f"the {name} lies on {a.device}, the iterate on {dev}")
+    for name in ("odom_valid", "meas_valid"):  # read as bytes
+        if work[name].dtype != torch.bool or not work[name].is_contiguous():
+            raise ValueError(f"{name} must be a contiguous bool tensor")
+    poses, lms, p_init, meas_rb = (a.contiguous() for a in (
+        poses, lms, s.poses_init, s.meas_rb))
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = {"d": torch.empty((bsz, t1, 3, 3), **f32),
+           "u": torch.empty((bsz, t_cap, 3, 3), **f32),
+           "hll_inv": torch.empty((bsz, n_cap, 3), **f32),
+           "gp": torch.empty((bsz, t1, 3), **f32),
+           "gl": torch.empty((bsz, n_cap, 2), **f32),
+           "rhs": torch.empty((bsz, t1, 3), **f32),
+           "p_active": torch.empty((bsz, t1), **f32),
+           "l_active": torch.empty((bsz, n_cap), **f32)}
+    prior_s = _prior_sigmas(cfg)
+    _, meas_s = _noise_sigmas(cfg, meas_scale)
+    ts, m = (a.to(torch.int32).contiguous() for a in (s.timestep, s.M))
+    lib = _build.load()
+    with torch.cuda.device(dev):
+        rc = lib.les_gn_system(
+            poses.data_ptr(), lms.data_ptr(), p_init.data_ptr(),
+            work["eff"].data_ptr(), work["sig"].data_ptr(),
+            work["odom_valid"].data_ptr(), meas_rb.data_ptr(),
+            work["meas_valid"].data_ptr(), index.data_ptr(), int(slots.by_column),
+            ts.data_ptr(), m.data_ptr(), lam.data_ptr(),
+            *(float(x) for x in prior_s), float(meas_s[0]), float(meas_s[1]),
+            int(cfg.pose_graph.exact_logmap), int(fix_theta),
+            bsz, t_cap, k_cap, n_cap,
+            out["d"].data_ptr(), out["u"].data_ptr(),
+            *(c.data_ptr() for c in work["coeffs"]),
+            out["hll_inv"].data_ptr(), out["gp"].data_ptr(), out["gl"].data_ptr(),
+            out["rhs"].data_ptr(), out["p_active"].data_ptr(),
+            out["l_active"].data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "Gauss-Newton system kernel")
+    _build.count(launches, "system")
+    out["coeffs"] = work["coeffs"]
+    return out
+
+
+def system_occupancy(k_cap: int, n_cap: int) -> dict:
+    """The system kernel's launch at K measurement slots and N landmarks as
+    the card takes it (``_build.occupancy``)."""
+    return _build.occupancy("les_gn_system_occupancy", k_cap, n_cap)
+
+
+def _ksum(valid: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """(B, T, K) a summed over each row's valid slots in index order from 0,
+    (B, T): the system kernel's row sums."""
+    y = a.new_zeros(a.shape[:2])
+    for k in range(a.shape[2]):
+        y = torch.where(valid[:, :, k], y + a[:, :, k], y)
+    return y
+
+
+def _schur_system_reference(cfg, s: PoseGraphState, poses, lms, meas_scale,
+                            damping, slots: LmSlots, fix_theta: bool = False,
+                            moments=None) -> dict:
+    """The plain version of the system kernel (``csrc/gn_system.cu``): the
+    quantities of ``_schur_system``, elementwise as there, summed in the
+    kernel's order. Pose row t (thread t mod SYSTEM_THREADS there) adds, from
+    0: the prior (t = 0), its odometry factor t's terms (t < T), factor t-1's
+    (t > 0), then the sum over measurement row t-1's valid slots in index
+    order from 0. The landmark sums (H_ll's three entries, g_l's two): each
+    thread adds the valid measurements of its rows, row by row in order and
+    by slot within a row, to its own partial of the measurement's landmark;
+    a halving tree over the threads (level h adds partial p + h to p, h =
+    SYSTEM_THREADS / 2 .. 1) gives the sums. Then the inverses, g_l masked,
+    w = H_ll^-1 g_l, and rhs = gp p_active less each row's sum of H_pl w
+    terms over its valid slots in index order."""
+    moments = moments or _odom_moments(cfg, s.odom)
+    res = _residuals(cfg, s, poses, lms, meas_scale, slots, moments)
+    jac = _jacobians(cfg, s, poses, lms, meas_scale, slots, res, moments)
+    coeffs, r_meas = _meas_coeffs(cfg, s, poses, lms, meas_scale, slots, res)
+    ja, jb = jac["ja"], jac["jb"]
+    if fix_theta:
+        ja, jb = _zero_theta(ja), _zero_theta(jb)
+        ab, bb, cb, ar, br = coeffs
+        coeffs = (ab, bb, torch.zeros_like(cb), ar, br)
+    ab, bb, cb, ar, br = coeffs
+    valid = s.meas_valid
+    bsz, t_cap, k_cap = valid.shape
+    n_cap, dev = lms.shape[1], poses.device
+    ub, ur = -r_meas[..., 0], -r_meas[..., 1]
+    px, py = ab * ub + ar * ur, bb * ub + br * ur
+    hxx, hxy, hyy = ab * ab + ar * ar, ab * bb + ar * br, bb * bb + br * br
+
+    # ---- pose rows: chain blocks, unary measurement blocks, gradient
+    i3 = torch.arange(3, device=dev)
+    inv_pr = jac["inv_pr"]
+    d = poses.new_zeros((bsz, t_cap + 1, 3, 3))
+    d[:, 0, i3, i3] = d[:, 0, i3, i3] + inv_pr * inv_pr
+    ja_t, jb_t = ja.transpose(-1, -2), jb.transpose(-1, -2)
+    d[:, :-1] = d[:, :-1] + _mm3(ja_t, ja)
+    d[:, 1:] = d[:, 1:] + _mm3(jb_t, jb)
+    sxx, sxy, sxt = _ksum(valid, hxx), _ksum(valid, hxy), _ksum(valid, ab * cb)
+    syy, syt, stt = _ksum(valid, hyy), _ksum(valid, bb * cb), _ksum(valid, cb * cb)
+    d[:, 1:] = d[:, 1:] + torch.stack(
+        [torch.stack([sxx, sxy, sxt], dim=-1),
+         torch.stack([sxy, syy, syt], dim=-1),
+         torch.stack([sxt, syt, stt], dim=-1)], dim=-2)
+    u = _mm3(ja_t, jb)
+    p_active = jac["pose_active"].to(torch.float32)
+    lam = torch.as_tensor(damping, dtype=torch.float32, device=dev).reshape(-1, 1, 1)
+    diag = torch.diagonal(d, dim1=2, dim2=3)
+    d[:, :, i3, i3] = d[:, :, i3, i3] + (lam * diag + (1.0 - p_active[:, :, None]))
+    if fix_theta:
+        d[..., 2, 2] = d[..., 2, 2] + 1.0
+    gp = poses.new_zeros((bsz, t_cap + 1, 3))
+    gp[:, 0] = gp[:, 0] + -inv_pr * jac["r_prior"]
+    gp[:, :-1] = gp[:, :-1] + -_mv3(ja_t, jac["r_odom"])
+    gp[:, 1:] = gp[:, 1:] + -_mv3(jb_t, jac["r_odom"])
+    gp[:, 1:] = gp[:, 1:] + torch.stack(
+        [_ksum(valid, px), _ksum(valid, py), _ksum(valid, cb * ub)], dim=-1)
+    if fix_theta:
+        gp[..., 2] = 0.0
+
+    # ---- landmark sums: thread (t + 1) mod P owns measurement row t
+    threads = SYSTEM_THREADS
+    n_it = -(-(t_cap + 1) // threads)
+
+    def by_thread(a, fill):  # (B, T, K) -> (B, n_it, P, K) at pose row t + 1
+        pad = a.new_full((bsz, n_it * threads, k_cap), fill)
+        pad[:, 1:t_cap + 1] = a
+        return pad.reshape(bsz, n_it, threads, k_cap)
+
+    idx = by_thread(torch.where(valid, slots.per_measurement(), -1), -1)
+    vals = [by_thread(v, 0.0) for v in (hxx, hxy, hyy, -px, -py)]
+    lm = torch.arange(n_cap, device=dev)
+    part = poses.new_zeros((bsz, threads, n_cap, 5))
+    for i in range(n_it):
+        for k in range(k_cap):
+            hit = (idx[:, i, :, k, None] == lm)[..., None]                 # (B, P, N, 1)
+            val = torch.stack([v[:, i, :, k] for v in vals], -1)[:, :, None]  # (B, P, 1, 5)
+            part = torch.where(hit, part + val, part)
+    h = threads
+    while h > 1:
+        h //= 2
+        part = part[:, :h] + part[:, h:2 * h]
+    sums = part[:, 0]                                                    # (B, N, 5)
+
+    l_active = jac["lm_active"].to(torch.float32)
+    damp = (1.0 + torch.as_tensor(damping, dtype=torch.float32, device=dev)).reshape(-1, 1)
+    lxx = sums[..., 0] * damp + (1.0 - l_active) + 1e-12
+    lyy = sums[..., 2] * damp + (1.0 - l_active) + 1e-12
+    lxy = sums[..., 1]
+    det = lxx * lyy - lxy * lxy
+    det = torch.where(det.abs() > 1e-30, det, 1.0)
+    hll_inv = torch.stack([lyy / det, -lxy / det, lxx / det], dim=2)
+    gl = sums[..., 3:5] * l_active[:, :, None]
+
+    # ---- reduced rhs
+    w = _hll_inv_apply(hll_inv, gl)
+    wx, wy = slots.gather(w[..., 0]), slots.gather(w[..., 1])
+    ub2 = -(ab * wx + bb * wy)
+    ur2 = -(ar * wx + br * wy)
+    y = torch.stack([_ksum(valid, ab * ub2 + ar * ur2), _ksum(valid, bb * ub2 + br * ur2),
+                     _ksum(valid, cb * ub2)], dim=-1)
+    rhs = gp * p_active[:, :, None] - torch.cat([y.new_zeros((bsz, 1, 3)), y], 1)
+    return dict(d=d, u=u, hll_inv=hll_inv, coeffs=coeffs, gp=gp, gl=gl,
+                rhs=rhs, p_active=p_active, l_active=l_active)
 
 
 def solve_schur_pcg(
@@ -1227,20 +1473,20 @@ def solve_schur_pcg(
     slots = LmSlots(s)
     err = graph_error(cfg, s, poses, lms, meas_scale, slots)
     lam = torch.full_like(err, damping)
+    moments = _odom_moments(cfg, s.odom)  # the graph's alone: once a call
+    work = _system_work(s, moments) if poses.device.type == "cuda" else None
 
     for _ in range(n_gn):
         with profiling.span("les.pg.gn"):
             with profiling.span("les.pg.gn.system"):
+                # the blocks, the masked gradients and the reduced rhs g_p -
+                # H_pl H_ll^-1 g_l
                 sy = _schur_system(cfg, s, poses, lms, meas_scale, lam, slots,
-                                   fix_theta)
+                                   fix_theta, moments, work)
                 d, u, hll_inv, coeffs = sy["d"], sy["u"], sy["hll_inv"], sy["coeffs"]
                 fac = _tridiag_factor(d, u)
-                l_active = sy["l_active"]
+                l_active, gl, rhs = sy["l_active"], sy["gl"], sy["rhs"]
                 p_mask = sy["p_active"][:, :, None]
-                gp = sy["gp"] * p_mask
-                gl = sy["gl"] * l_active[:, :, None]
-                # reduced rhs: g_p - H_pl H_ll^-1 g_l
-                rhs = gp - _hpl_apply(s, coeffs, _hll_inv_apply(hll_inv, gl), slots)
 
             with profiling.span("les.pg.gn.cg"):
                 xp = torch.zeros_like(rhs)

@@ -38,6 +38,7 @@ PHASE_CLOCKS = ("-DLES_PHASE_CLOCKS",)
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint32
+_F = ctypes.c_float
 # name -> (restype, argtypes); every pointer and the stream are c_void_p
 SIGNATURES = {
     "les_fused_ekf_rollout": (_I, [
@@ -68,6 +69,13 @@ SIGNATURES = {
     # d, u, ab, bb, cb, ar, br, hll_inv (B,N,3), slot (B,K) or (B,T*K) int32,
     # by_column, vp (B,T+1,3), B, T, K, N -> sp (B,T+1,3); stream
     "les_schur_mv": (_I, [_P] * 9 + [_I, _P, _I, _I, _I, _I, _P, _P]),
+    # poses, lms, poses_init, eff (B,T,2), sig (B,T,3), odom_valid (B,T) u8,
+    # meas_rb (B,T,K,2), meas_valid (B,T,K) u8, slot, by_column, timestep,
+    # M, damping (B,), prior sigmas x3, meas sigmas x2, exact_logmap,
+    # fix_theta, B, T, K, N -> d, u, ab, bb, cb, ar, br, hll_inv, gp, gl,
+    # rhs, p_active, l_active; stream
+    "les_gn_system": (_I, [_P] * 9 + [_I, _P, _P, _P] + [_F] * 5 + [_I] * 6
+                      + [_P] * 13 + [_P]),
     # the standalone primitives (csrc/micro_ops.cu); every matrix (B, D, D)
     # p, k (B,R,D), h (B,R,D) -> p_out; B, D, R, passes; stream
     "les_micro_rank_update": (_I, [_P, _P, _P, _P, _I, _I, _I, _I, _P]),
@@ -98,6 +106,8 @@ SIGNATURES = {
     "les_block_thomas_occupancy": (_I, [_I, _P]),
     # K, N -> out[6]: the Schur matvec's launch
     "les_schur_mv_occupancy": (_I, [_I, _I, _P]),
+    # K, N -> out[6]: the Gauss-Newton system kernel's launch
+    "les_gn_system_occupancy": (_I, [_I, _I, _P]),
     # out (uint64 per phase), n, reset: the PHASE_CLOCKS build's counters
     "les_ukf_phase_clocks": (_I, [_P, _I, _I]),
     "les_ekf_phase_clocks": (_I, [_P, _I, _I]),

@@ -163,6 +163,49 @@ def test_residuals_gradient_and_blocks_match_jax(kind, exact):
     assert pg.LmSlots(s).by_column and not pg.LmSlots(s, detect=False).by_column
 
 
+@pytest.mark.parametrize("case", ["by_column", "flat", "fix_theta", "exact_logmap"])
+def test_schur_system_reference_matches_jax(case):
+    # the system kernel's plain version (P3's order of sums) against the
+    # quantities JAX's solve_schur_pcg sets up in a Gauss-Newton step: the
+    # blocks, the landmark inverses, the masked gradients, the reduced rhs
+    # and the coefficients, each world at its own damping
+    cfg, jcfg, s, js, (p, l), (jp, jl) = _graph("default", case == "exact_logmap")
+    fix = case == "fix_theta"
+    lam = np.asarray([1e-4, 1e-2, 3.0], np.float32)
+
+    def j_system(s_, p_, l_, lam_):
+        jac = jpg._jacobians(jcfg, s_, p_, l_, 4.0)
+        coeffs, r_meas = jpg._meas_coeffs(jcfg, s_, p_, l_, 4.0)
+        if fix:  # as solve_schur_pcg(fix_theta=True) freezes the headings
+            jac = dict(jac, ja=jac["ja"].at[:, :, 2].set(0.0),
+                       jb=jac["jb"].at[:, :, 2].set(0.0))
+            coeffs = coeffs[:2] + (jnp.zeros_like(coeffs[2]),) + coeffs[3:]
+        gp, gl = jpg._grad(jcfg, s_, jac, coeffs, r_meas)
+        if fix:
+            gp = gp.at[:, 2].set(0.0)
+        d, u, act = jpg._pose_blocks(jcfg, s_, jac, coeffs, lam_)
+        if fix:
+            d = d.at[:, 2, 2].add(1.0)
+        inv, lact = jpg._lm_hessian_inv(jcfg, s_, jac, coeffs, lam_)
+        gl = gl * lact[:, None]
+        rhs = gp * act[:, None] - jpg._hpl_apply(s_, coeffs,
+                                                 jpg._hll_inv_apply(inv, gl))
+        return dict(d=d, u=u, hll_inv=inv, gp=gp, gl=gl, rhs=rhs, p_active=act,
+                    l_active=lact, coeffs=jnp.stack(coeffs))
+
+    want = jax.vmap(j_system)(js, jp, jl, jnp.asarray(lam))
+    slots = pg.LmSlots(s, detect=case != "flat")
+    assert slots.by_column == (case != "flat")
+    got = pg._schur_system_reference(cfg, s, p, l, 4.0, torch.from_numpy(lam),
+                                     slots, fix)
+    got = dict(got, coeffs=torch.stack(got["coeffs"], dim=1))
+    for k in want:
+        # as the pieces above: XLA contracts cancelling products into FMAs
+        close(got[k], want[k], 1e-4, k)
+    if fix:
+        assert not bool(got["gp"][..., 2].any()) and not bool(got["coeffs"][:, 2].any())
+
+
 def test_lm_slots_fall_back_to_scatter_when_a_column_changes_slot():
     cfg, _, s, _, (p, l), _ = _graph("default", False)
     # swap the slots two landmarks hold, in the second half of the ticks
@@ -204,7 +247,7 @@ def test_block_thomas_matches_jax_and_a_dense_float64_solve(kind, exact):
     rhs, _ = pg._grad(cfg, s, jac, coeffs, r_meas)
     fac = pg._tridiag_factor(d, u)
     x = pg._tridiag_solve(fac, rhs)
-    assert pg.launches == {"factor": 0, "solve": 0, "schur_mv": 0}  # the CPU ran the plain loops
+    assert pg.launches == {"factor": 0, "solve": 0, "schur_mv": 0, "system": 0}  # the CPU ran the plain loops
 
     def j_solve(d_, u_, r_):
         f = jpg._tridiag_factor(d_, u_)
