@@ -112,6 +112,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from benchmarks.counts import ukf_rollout_work
 from live_ekf_slam_tpu_torch.bench import (
     card,
     chain_blocks,
@@ -702,13 +703,8 @@ def work(filt: str, g: dict, b: int, t_total: int, n: int,
         # insertion: ~30
         flops = sense + 2.0 * g["dact2"] + 3.0 * g["dact1"] + 4.0 * g["dact2u"] \
             + 19.0 * g["dact1u"] + 60.0 * g["updates"] + g["insertions"] * 30.0
-    elif filt == "ukf_slam":
-        # per tick over the n_act active dimensions: Cholesky n^3/3, four
-        # triangular matvecs (4 n^2), sigma rows and sums (~130 n); per
-        # update: two triangular matvecs (2 n^2), half a Joseph pass of ~15
-        # flops an entry (7.5 n^2), z-stats and sums (~200 n)
-        flops = sense + g["act3"] / 3.0 + 4.0 * g["act2"] + 130.0 * g["act1"] \
-            + 9.5 * g["act2u"] + 200.0 * g["act1u"] + g["insertions"] * 30.0
+    elif filt == "ukf_slam":  # the benchmark's count, its one copy
+        return ukf_rollout_work.work(g, b, t_total, n)
     else:  # ukf_loc: n_act = 4 throughout, every visible landmark updates
         flops = sense + ticks * (64 / 3.0 + 4.0 * 16 + 130.0 * 4) \
             + g["visible"] * (9.5 * 16 + 200.0 * 4)

@@ -33,6 +33,7 @@ from live_ekf_slam_tpu_torch.ops.fused_rollout import check_inputs
 from live_ekf_slam_tpu_torch.ops.kernel_math import atan2, wrap
 from live_ekf_slam_tpu_torch.ops.philox import MASK32, philox_noise_reference
 from live_ekf_slam_tpu_torch.parallel.mesh import sharded_rollout
+from live_ekf_slam_tpu_torch.utils.profiling import count, span, tracing
 
 # Initial covariance diag (ukf.cpp:9-18).
 P0_DIAG = (0.01 * 0.01, 0.01 * 0.01, 0.005 * 0.005, 0.005 * 0.005)
@@ -73,16 +74,15 @@ def fused_ukf_rollout(
     result is the same. The TPU version's ``block_worlds`` and ``t_chunk`` cut
     its grid and have no meaning here: the kernel runs one warp per world and
     loops over T.
+
+    The whole call is the span ``les.fused_ukf_rollout`` while a profiler
+    records (``utils/profiling``), which then also counts the rollout
+    (``ukf.rollouts``) and the updates the sanity gate refused, summed on the
+    device (``ukf.update_rejects``).
     """
-    dev = landmarks.device
-    if dev.type == "cpu":
-        return fused_ukf_rollout_reference(
-            cfg, landmarks, cmds, seed, slam=slam, noise=noise,
-            predicated=predicated,
-        )
-    if dev.type != "cuda":
-        raise ValueError(f"fused_ukf_rollout runs on cpu or cuda, not {dev}")
-    return _launch(cfg, landmarks, cmds, seed, noise, slam, predicated)
+    res = _shard(cfg, landmarks, cmds, seed, slam=slam, noise=noise, predicated=predicated)
+    count("ukf.rollouts", 1)
+    return res
 
 
 def fused_ukf_rollout_sharded(cfg, landmarks, cmds, seed: int, mesh, *,
@@ -92,9 +92,31 @@ def fused_ukf_rollout_sharded(cfg, landmarks, cmds, seed: int, mesh, *,
     (JAX ``fused_ukf_rollout_sharded``), as
     ``fused_rollout.fused_ekf_rollout_sharded`` shards the EKF: shard d
     runs ``fused_ukf_rollout`` on its slice at ``shard_seed(seed, d)``, the
-    outputs, ``update_rejects`` included, concatenated over worlds."""
-    return sharded_rollout(functools.partial(fused_ukf_rollout, cfg, slam=slam),
-                           mesh, landmarks, cmds, seed, noise)
+    outputs, ``update_rejects`` included, concatenated over worlds. Each
+    shard is a span ``les.fused_ukf_rollout``; the rollout counts once."""
+    res = sharded_rollout(functools.partial(_shard, cfg, slam=slam),
+                          mesh, landmarks, cmds, seed, noise)
+    count("ukf.rollouts", 1)
+    return res
+
+
+def _shard(cfg, landmarks, cmds, seed, *, slam=True, noise=None, predicated=True) -> dict:
+    """``fused_ukf_rollout`` on one device, inside its span, counting the
+    refused updates while tracing."""
+    with span("les.fused_ukf_rollout"):
+        dev = landmarks.device
+        if dev.type == "cpu":
+            res = fused_ukf_rollout_reference(
+                cfg, landmarks, cmds, seed, slam=slam, noise=noise,
+                predicated=predicated,
+            )
+        elif dev.type == "cuda":
+            res = _launch(cfg, landmarks, cmds, seed, noise, slam, predicated)
+        else:
+            raise ValueError(f"fused_ukf_rollout runs on cpu or cuda, not {dev}")
+        if tracing():
+            count("ukf.update_rejects", res["update_rejects"].sum())
+        return res
 
 
 def _launch(cfg, landmarks, cmds, seed, noise, slam, predicated):

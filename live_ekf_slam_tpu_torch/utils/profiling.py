@@ -29,10 +29,12 @@ from __future__ import annotations
 import contextlib
 import os
 import sys
+import threading
 
 _OFF = contextlib.nullcontext()
 # counter name -> its sum (a Python int, or a tensor on the device it counts)
 _COUNTERS: dict = {}
+_LOCK = threading.Lock()
 
 
 def tracing() -> bool:
@@ -51,9 +53,15 @@ def span(name: str):
 
 def count(name: str, value) -> None:
     """Adds ``value`` (an int or a 0-d tensor) to the counter ``name`` while
-    a profiler is recording; nothing otherwise."""
+    a profiler is recording; nothing otherwise. Threads may count at once
+    (a sharded rollout drives each card from a thread of its own); a tensor
+    joins the counter on the device of the counter's first tensor."""
     if tracing():
-        _COUNTERS[name] = _COUNTERS.get(name, 0) + value
+        with _LOCK:
+            prev = _COUNTERS.get(name, 0)
+            if hasattr(prev, "device") and hasattr(value, "device"):
+                value = value.to(prev.device)
+            _COUNTERS[name] = prev + value
 
 
 def counters() -> dict[str, int]:

@@ -5,6 +5,8 @@ under a profiler and absent, at no work, without one."""
 import dataclasses
 import json
 import os
+import sys
+import threading
 
 import pytest
 import torch
@@ -185,3 +187,60 @@ def test_a_fused_rollout_is_one_span_a_call():
             fused_rollout(cfg, lms, cmds, seed)
     assert [s[0] for s in spans(p)] == ["les.fused_rollout"] * 2
 
+
+def test_a_ukf_rollout_is_one_span_a_call_and_counts_its_refusals():
+    # a noisy simulator: the sanity gate refuses updates
+    cfg = Config(num_iterations=TICKS, sim_noise_scale=800.0).replace(filter="ukf_slam")
+    lms, cmds = mc_inputs(cfg, 8, 11, "cpu")
+    prof._COUNTERS.clear()
+    fused_rollout(cfg, lms, cmds, 11)
+    assert prof.counters() == {}
+    with profile(activities=[ProfilerActivity.CPU]) as p:
+        outs = [fused_rollout(cfg, lms, cmds, seed) for seed in (1, 2)]
+    counts = prof.counters()
+    prof._COUNTERS.clear()
+    assert [s[0] for s in spans(p)] == ["les.fused_ukf_rollout"] * 2
+    rejects = sum(int(o["update_rejects"].sum()) for o in outs)
+    assert rejects > 0
+    assert counts == {"ukf.rollouts": 2, "ukf.update_rejects": rejects}
+
+
+def test_a_sharded_ukf_rollout_counts_once_with_a_span_a_shard():
+    from live_ekf_slam_tpu_torch.ops.fused_ukf import fused_ukf_rollout_sharded
+    from live_ekf_slam_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = Config(num_iterations=TICKS, sim_noise_scale=800.0).replace(filter="ukf_slam")
+    lms, cmds = mc_inputs(cfg, 8, 11, "cpu")
+    prof._COUNTERS.clear()
+    with profile(activities=[ProfilerActivity.CPU]) as p:
+        out = fused_ukf_rollout_sharded(cfg, lms, cmds, 5, make_mesh(4, "cpu"))
+    counts = prof.counters()
+    prof._COUNTERS.clear()
+    assert [s[0] for s in spans(p)] == ["les.fused_ukf_rollout"] * 4
+    assert counts == {"ukf.rollouts": 1, "ukf.update_rejects": int(out["update_rejects"].sum())}
+
+
+def test_counts_from_threads_are_all_kept():
+    """Eight threads count at once, switching every microsecond; no
+    addition is lost."""
+    prof._COUNTERS.clear()
+
+    def work():
+        for _ in range(1000):
+            prof.count("n", 1)
+            prof.count("t", torch.tensor(2))
+
+    old = sys.getswitchinterval()
+    with profile(activities=[ProfilerActivity.CPU]):
+        sys.setswitchinterval(1e-6)
+        try:
+            threads = [threading.Thread(target=work) for _ in range(8)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+        finally:
+            sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert prof.counters() == {"n": 8000, "t": 16000}
+    prof._COUNTERS.clear()
